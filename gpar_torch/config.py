@@ -1,0 +1,72 @@
+"""Global configuration for gpar-torch.
+
+The counterpart of ``gpar_tpu/config.py``: one mutable ``config`` object
+holding the Cholesky jitter policy (the ``lab.B.epsilon`` analogue and its
+float32 floor), the escalating retry ladder, the default dtype and the
+default device.  The XLA-only knobs of the JAX package (compile cache,
+Pallas toggle, blocked Cholesky, shape buckets, mesh) have no counterpart
+in eager PyTorch and are not carried over.
+
+Precision: every float32 Gram, solve and matmul runs in full IEEE float32.
+PyTorch's CUDA matmuls and cuDNN convolutions may otherwise use TF32
+(about three decimal digits) — unusable where the Cholesky jitter is 1e-6
+— so TF32 is switched off here at import, the analogue of the JAX
+package's ``jax_default_matmul_precision="highest"``.
+
+float64 is the default dtype (the parity bar of the reference suite);
+set ``GPAR_TORCH_NO_X64=1`` before import, or assign ``config.dtype``, for
+float32.
+"""
+
+import os
+
+import torch
+
+__all__ = ["config", "default_dtype", "resolve_device"]
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+
+class _Config:
+    """Mutable global configuration (mirrors ``lab.B.epsilon``)."""
+
+    def __init__(self):
+        #: Diagonal jitter added before every Cholesky factorisation.
+        self.epsilon = 1e-12
+        #: Jitter floor for float32 matrices, where 1e-12 is below working
+        #: resolution; the effective float32 jitter is
+        #: ``max(epsilon, epsilon_f32)``.
+        self.epsilon_f32 = 1e-6
+        #: Multiplicative factors of ``epsilon`` for the escalating retries
+        #: after a failed factorisation.
+        self.cholesky_retry_factors = (1e3, 1e6)
+        #: Default dtype of parameters and data.
+        self.dtype = (
+            torch.float32 if os.environ.get("GPAR_TORCH_NO_X64") else torch.float64
+        )
+        #: Default device of the entry points.  ``"cuda"`` raises when no
+        #: card is present; pass ``device="cpu"`` to run on the host.
+        self.device = "cuda"
+
+
+config = _Config()
+
+
+def default_dtype():
+    return config.dtype
+
+
+def resolve_device(device=None):
+    """The device an entry point runs on: ``device`` or ``config.device``.
+
+    Never falls back to the CPU silently: asking for CUDA on a machine
+    without a usable card raises."""
+    dev = torch.device(config.device if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"gpar_torch: device {str(dev)!r} requested but CUDA is not "
+            "available; pass device='cpu' to run on the host."
+        )
+    return dev

@@ -1,0 +1,214 @@
+"""Gaussian-process core: priors, finite-dimensional distributions, sparse
+(Titsias) observations and posteriors.
+
+Port of the sparse slice of ``gpar_tpu/gp/core.py`` (the ``stheno`` surface
+the reference uses, ``gpar/model.py:5``):
+
+- ``GP(kernel)``: zero-mean prior;
+- ``f(x, noise)``: ``FDD`` with per-point noise (``noise / w``,
+  ``gpar/model.py:270,287``), with ``sample``;
+- ``PseudoObs(f(x_ind), f(x, noise), y)``: the collapsed Titsias ELBO
+  (``gpar/model.py:286-289``) and the posterior factors, from one pass;
+- ``f | obs``: the sparse posterior, with ``mean`` / ``cov``.
+
+The dense ``Obs`` / exact posterior path is not ported yet.
+"""
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from ..ops.kernels import Kernel, gram, kdiag
+from ..ops.linalg import (
+    floor_noise,
+    psd_sample_factor,
+    solve_lower,
+    titsias_factors,
+)
+
+__all__ = [
+    "GP",
+    "FDD",
+    "PseudoObs",
+    "TitsiasObs",
+    "SparsePosteriorGP",
+    "condition",
+]
+
+
+def _upcol(x):
+    return x[:, None] if x.ndim == 1 else x
+
+
+def _vec(y):
+    return y[:, 0] if y.ndim == 2 else y
+
+
+def _noise_vec(noise, n, like):
+    """Broadcast scalar / vector noise to an (n,) vector floored at the
+    dtype's jitter epsilon (:func:`floor_noise`); None stays None."""
+    if noise is None:
+        return None
+    noise = torch.as_tensor(noise, dtype=like.dtype, device=like.device)
+    if noise.ndim == 0:
+        noise = noise.expand(n)
+    return floor_noise(noise.reshape(n))
+
+
+class AbstractGP:
+    """Common GP surface: call, mean, condition."""
+
+    def __call__(self, x, noise=None):
+        x = _upcol(x)
+        return FDD(self, x, _noise_vec(noise, x.shape[0], x))
+
+    def mean(self, x):
+        """Mean at inputs as an (n, 1) column (``gpar/model.py:299,305``)."""
+        return self.mean_vec(_upcol(x))[:, None]
+
+    def __or__(self, obs):
+        return condition(self, obs)
+
+
+@dataclass(frozen=True, eq=False)
+class GP(AbstractGP):
+    """Zero-mean GP prior (``gpar/regression.py:176-180``)."""
+
+    kernel: Kernel
+
+    def mean_vec(self, x):
+        return x.new_zeros(x.shape[0])
+
+    def cov(self, x, y=None):
+        x = _upcol(x)
+        y = x if y is None else _upcol(y)
+        return gram(self.kernel, x, y)
+
+    def cov_diag(self, x):
+        return kdiag(self.kernel, _upcol(x))
+
+
+@dataclass(frozen=True, eq=False)
+class SparsePosteriorGP(AbstractGP):
+    """Titsias variational posterior of a base GP::
+
+        mean(x*) = m(x*) + K(x*, Z) beta
+        cov(x*, y*) = K(x*, y*) - T1_x^T T1_y + T2_x^T T2_y,
+        T1_x = Lm^{-1} K(Z, x*),  T2_x = LB^{-1} T1_x.
+    """
+
+    base: AbstractGP
+    x_ind: torch.Tensor  # (m, d)
+    Lm: torch.Tensor
+    LB: torch.Tensor
+    beta: torch.Tensor  # (m,)
+
+    def mean_vec(self, x):
+        return self.base.mean_vec(x) + self.base.cov(x, self.x_ind) @ self.beta
+
+    def cov(self, x, y=None):
+        x = _upcol(x)
+        y = x if y is None else _upcol(y)
+        T1x = solve_lower(self.Lm, self.base.cov(self.x_ind, x))
+        T1y = T1x if y is x else solve_lower(self.Lm, self.base.cov(self.x_ind, y))
+        T2x = solve_lower(self.LB, T1x)
+        T2y = T2x if y is x else solve_lower(self.LB, T1y)
+        return self.base.cov(x, y) - T1x.T @ T1y + T2x.T @ T2y
+
+    def cov_diag(self, x):
+        x = _upcol(x)
+        T1x = solve_lower(self.Lm, self.base.cov(self.x_ind, x))
+        T2x = solve_lower(self.LB, T1x)
+        return self.base.cov_diag(x) - torch.sum(T1x * T1x, dim=0) + torch.sum(T2x * T2x, dim=0)
+
+
+@dataclass(frozen=True, eq=False)
+class FDD:
+    """Finite-dimensional distribution ``f(x, noise)``; ``noise`` is None
+    (latent) or an (n,) per-point variance vector."""
+
+    f: AbstractGP
+    x: torch.Tensor
+    noise: Optional[torch.Tensor]
+
+    def mean_vec(self):
+        return self.f.mean_vec(self.x)
+
+    def cov(self):
+        K = self.f.cov(self.x)
+        if self.noise is not None:
+            K = K + torch.diag(self.noise)
+        return K
+
+    def sample(self, normals=None, generator=None, num_samples=None):
+        """Joint MVN draw(s): (n, 1) for one sample, (num_samples, n, 1)
+        otherwise.  ``normals`` supplies the standard normals — shape (n,)
+        or (num_samples, n) — else they are drawn from ``generator``.
+
+        The factor is :func:`psd_sample_factor`: a near-interpolating
+        posterior can be indefinite beyond jitter repair, and sampling then
+        clamps the spectrum rather than returning NaNs."""
+        n = self.x.shape[0]
+        L = psd_sample_factor(self.cov())
+        m = self.mean_vec()
+        if normals is None:
+            shape = (n,) if num_samples is None else (num_samples, n)
+            normals = torch.randn(
+                shape, generator=generator, dtype=self.x.dtype, device=self.x.device
+            )
+        if normals.ndim == 1:
+            return (m + L @ normals)[:, None]
+        return (m + normals @ L.T)[..., None]
+
+
+@dataclass(frozen=True, eq=False)
+class TitsiasObs:
+    """Titsias inducing-point observations with the m x m factors shared by
+    the ELBO and the sparse posterior.  Build via :func:`PseudoObs`."""
+
+    fdd_ind: FDD
+    fdd: FDD
+    y: torch.Tensor
+    Lm: torch.Tensor
+    LB: torch.Tensor
+    beta: torch.Tensor
+    elbo: torch.Tensor
+
+    @property
+    def logpdf(self):
+        """The collapsed ELBO (a lower bound on the exact marginal
+        likelihood, equal to it when the inducing inputs are the data)."""
+        return self.elbo
+
+
+def PseudoObs(fdd_ind, fdd, y):
+    """Titsias observations ``PseudoObs(f(x_ind), f(x, noise), y)``
+    (``gpar/model.py:287``); works on any base GP."""
+    f = fdd.f
+    y = _vec(y)
+    x, z = fdd.x, fdd_ind.x
+    if fdd.noise is None:
+        raise ValueError("PseudoObs requires observation noise.")
+    elbo, Lm, LB, beta = titsias_factors(
+        f.cov(z), f.cov(z, x), f.cov_diag(x), y, f.mean_vec(x), fdd.noise
+    )
+    return TitsiasObs(fdd_ind=fdd_ind, fdd=fdd, y=y, Lm=Lm, LB=LB, beta=beta, elbo=elbo)
+
+
+
+def condition(f, obs):
+    """Posterior ``f | obs`` (``gpar/model.py:170,298``) for Titsias
+    observations built from ``f`` (or a structurally identical process)."""
+    if not isinstance(obs, TitsiasObs):
+        raise NotImplementedError(
+            f"gpar_torch: conditioning on {type(obs).__name__} is not ported yet"
+        )
+    if f is not obs.fdd.f and type(f) is not type(obs.fdd.f):
+        raise ValueError(
+            "condition(f, obs): `obs` was built from a structurally different "
+            "process than `f`; condition the process the observations came from."
+        )
+    return SparsePosteriorGP(
+        base=f, x_ind=obs.fdd_ind.x, Lm=obs.Lm, LB=obs.LB, beta=obs.beta
+    )

@@ -1,0 +1,256 @@
+"""GPAR model core — the autoregressive layer chain.
+
+Port of ``gpar_tpu/models/gpar.py`` (behavioural rebuild of the reference
+``gpar/model.py``): closed-downwards data routing (``per_output``),
+conditioning (``|``), logpdf accumulation with resumable inputs, ancestral
+sampling and the impute/replace input-updating rules.
+
+Row masks derive from the data's NaN pattern and are planned on the host in
+NumPy; ``y``/``w`` observations may be NumPy arrays (host) or tensors, and
+are moved to the inputs' device where a layer uses them.  Samplers take
+their standard normals from the caller (or draw them from a
+``torch.Generator``), so a test can feed the JAX package's own draws.
+"""
+
+import numpy as np
+import torch
+
+from ..gp.core import PseudoObs, condition
+
+__all__ = ["GPAR", "merge", "construct_model", "last", "per_output", "take_rows"]
+
+
+def _host(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def _nan_mask_col0(y):
+    """Host-side NaN mask of a column array's first column."""
+    return np.isnan(_host(y)[:, 0])
+
+
+def _like(a, x):
+    """``a`` as a tensor of ``x``'s dtype on ``x``'s device."""
+    return torch.as_tensor(a, dtype=x.dtype, device=x.device)
+
+
+def take_rows(x, mask):
+    """Row-filter by a host boolean mask (``x[mask]``,
+    ``gpar/model.py:165``); NumPy stays NumPy."""
+    mask = np.asarray(mask, dtype=bool)
+    if isinstance(x, np.ndarray):
+        return x[mask]
+    idx = torch.as_tensor(np.nonzero(mask)[0], device=x.device)
+    return x.index_select(0, idx)
+
+
+def merge(x, updates, to_update):
+    """Merge ``updates`` into ``x`` where ``to_update`` is True, preserving
+    order (``gpar/model.py:14-44``): concatenate, then gather."""
+    to_update = np.asarray(to_update, dtype=bool)
+    n_keep = int((~to_update).sum())
+    concat = torch.cat([take_rows(x, ~to_update), updates], dim=0)
+    indices = np.empty(len(to_update), dtype=np.int64)
+    indices[~to_update] = np.arange(n_keep)
+    indices[to_update] = n_keep + np.arange(int(to_update.sum()))
+    return concat.index_select(0, torch.as_tensor(indices, device=concat.device))
+
+
+def construct_model(f, noise):
+    """Wrap ``(f, noise)`` in a zero-arg constructor (``gpar/model.py:47-57``)."""
+    return lambda: (f, noise)
+
+
+def last(xs, select=None):
+    """Pair each element of ``xs`` with an is-last flag, optionally only at
+    the positions in ``select`` (``gpar/model.py:60-93``)."""
+    items = list(xs)
+    n = len(items)
+    positions = range(n) if select is None else sorted(set(select) & set(range(n)))
+    for i in positions:
+        yield i == n - 1, items[i]
+
+
+def per_output(y, w, keep=False):
+    """Observations per output with closed-downwards filtering
+    (``gpar/model.py:325-368``): yields ``(y[mask, i:i+1], w[mask, i],
+    mask)`` per output ``i``, ``mask`` relative to the previous layer's
+    rows.  ``keep=True`` keeps rows where a later output is observed.
+    A dict ``{keep: [items]}`` as ``y`` replays precomputed items."""
+    if isinstance(y, dict):
+        yield from y[keep]
+        return
+    p = y.shape[1]
+    available = ~np.isnan(_host(y))
+    for i in range(p):
+        mask = available[:, i].copy()
+        if keep and i < p - 1:
+            mask = mask | available[:, i + 1 :].any(axis=1)
+        yield take_rows(y, mask)[:, i : i + 1], take_rows(w, mask)[:, i], mask
+        y = take_rows(y, mask)
+        w = take_rows(w, mask)
+        available = available[mask]
+
+
+class GPAR:
+    """Basic GPAR model (``gpar/model.py:96-322``).
+
+    Args:
+        replace: Condition on predictive means instead of the data.
+        impute: Impute missing points with predictive means.
+        x_ind: Inducing-point inputs for the sparse (Titsias) scheme.
+    """
+
+    def __init__(self, replace=False, impute=False, x_ind=None):
+        self.replace = replace
+        self.impute = impute
+        self.layers = []
+        self.sparse = x_ind is not None
+        self.x_ind = x_ind
+
+    def copy(self):
+        return GPAR(replace=self.replace, impute=self.impute, x_ind=self.x_ind)
+
+    def add_layer(self, model_constructor):
+        gpar = self.copy()
+        gpar.layers = list(self.layers) + [model_constructor]
+        return gpar
+
+    def __or__(self, x_y_w):
+        """Condition on data ``(x, y, w)`` (``gpar/model.py:148-176``)."""
+        x, y, w = x_y_w
+        gpar, x_ind = self.copy(), self.x_ind
+        for is_last, ((yi, wi, mask), model) in last(
+            zip(per_output(y, w, keep=self.impute), self.layers)
+        ):
+            x = take_rows(x, mask)
+            f, noise = model()
+            obs = self._obs(x, x_ind, yi, wi, f, noise)
+            gpar.layers.append(construct_model(condition(f, obs), noise))
+            if not is_last:
+                x, x_ind = self._update_inputs(x, x_ind, yi, f, obs)
+        return gpar
+
+    def logpdf(
+        self,
+        x,
+        y,
+        w,
+        only_last_layer=False,
+        return_inputs=False,
+        x_ind=None,
+        outputs=None,
+    ):
+        """The log-density (``gpar/model.py:178-243``), including the
+        resumable-inputs path behind ``fit(fix=True)``
+        (``return_inputs``/``x_ind``/``outputs``).  ``sample_missing`` is
+        not ported yet."""
+        logpdf = x.new_zeros(())
+        x_ind = self.x_ind if x_ind is None else x_ind
+        for is_last, ((yi, wi, mask), model) in last(
+            zip(per_output(y, w, keep=self.impute), self.layers), select=outputs
+        ):
+            x = take_rows(x, mask)
+            f, noise = model()
+            obs = self._obs(x, x_ind, yi, wi, f, noise)
+            if not only_last_layer or is_last:
+                logpdf = logpdf + obs.logpdf
+            if not is_last:
+                x, x_ind = self._update_inputs(x, x_ind, yi, f, obs)
+        return (x, x_ind) if return_inputs else logpdf
+
+    def sample(self, x, w, normals, latent=False, noise_normals=None):
+        """One ancestral sample at inputs ``x`` (``gpar/model.py:245-277``)
+        from caller-supplied standard normals ``normals`` of shape
+        (p, n) (and ``noise_normals`` for ``latent=True``)."""
+        models = [m() for m in self.layers]
+        return _sample_chain(
+            tuple(f for f, _ in models),
+            tuple(n for _, n in models),
+            x,
+            w,
+            self.x_ind,
+            normals,
+            latent=latent,
+            replace=self.replace,
+            sparse=self.sparse,
+            noise_normals=noise_normals,
+        )
+
+    def _obs(self, x, x_ind, y, w, f, noise):
+        """Sparse observations with NaN rows dropped
+        (``gpar/model.py:279-289``)."""
+        if not self.sparse:
+            raise NotImplementedError("gpar_torch: the dense GPAR path is not ported yet")
+        available = ~_nan_mask_col0(y)
+        x = take_rows(x, available)
+        y = _like(take_rows(y, available), x)
+        w = _like(take_rows(w, available), x)
+        return PseudoObs(f(x_ind), f(x, noise / w), y)
+
+    def _update_inputs(self, x, x_ind, y, f, obs):
+        """Impute/replace outputs and append them as input columns
+        (``gpar/model.py:291-322``)."""
+        available = ~_nan_mask_col0(y)
+
+        def estimate(x_):
+            return condition(f, obs).mean(x_)
+
+        if self.sparse:
+            x_ind = torch.cat([x_ind, estimate(x_ind)], dim=1)
+        if self.impute and self.replace:
+            y = estimate(x)
+        else:
+            y = _like(y, x)
+            if self.impute and bool((~available).any()):
+                y = merge(y, estimate(take_rows(x, ~available)), ~available)
+            if self.replace and bool(available.any()):
+                y = merge(y, estimate(take_rows(x, available)), available)
+        return torch.cat([x, y], dim=1), x_ind
+
+
+def _sample_chain(
+    fs, noises, x, w, x_ind, normals, *, latent, replace, sparse, noise_normals=None
+):
+    """One ancestral pass through the layer chain (``gpar/model.py:245-277``)
+    from standard normals ``normals`` (p, n); with ``latent`` the noisy
+    sample feeds forward (from ``noise_normals`` (p, n)) and the noiseless
+    one is returned.  Returns (n, p)."""
+    p = len(fs)
+    cols = []
+    for i, f in enumerate(fs):
+        noise = noises[i]
+        if latent:
+            f_sample = f(x).sample(normals[i])
+            y_sample = f_sample + torch.sqrt(noise / w[:, i : i + 1]) * noise_normals[i][:, None]
+            cols.append(f_sample)
+        else:
+            y_sample = f(x, noise / w[:, i]).sample(normals[i])
+            cols.append(y_sample)
+        if i < p - 1:
+            if sparse and x_ind is not None and x_ind.shape[0] > 0:
+                x_ind = torch.cat([x_ind, f.mean(x_ind)], dim=1)
+            y_next = f.mean(x) if replace else y_sample
+            x = torch.cat([x, y_next], dim=1)
+    return torch.cat(cols, dim=1)
+
+
+def _sample_chain_batched(fs, noises, x, w, x_ind, normals, *, latent, sparse):
+    """S ancestral samples at once for ``replace=True``, where every layer's
+    inputs are the previous layers' posterior means and so do not depend on
+    the draw: per layer one covariance factor ``L`` and one (S, n) matmul
+    ``m + Z L^T``.  ``normals`` is (p, S, n); returns (S, n, p) — per sample
+    the same as :func:`_sample_chain` with ``replace=True`` (whose
+    observation-noise draws under ``latent`` never reach the output)."""
+    p = len(fs)
+    cols = []
+    for i, f in enumerate(fs):
+        fdd = f(x) if latent else f(x, noises[i] / w[:, i])
+        cols.append(fdd.sample(normals[i])[..., 0])
+        if i < p - 1:
+            if sparse and x_ind is not None and x_ind.shape[0] > 0:
+                x_ind = torch.cat([x_ind, f.mean(x_ind)], dim=1)
+            x = torch.cat([x, f.mean(x)], dim=1)
+    return torch.stack(cols, dim=-1)

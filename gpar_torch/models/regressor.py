@@ -1,0 +1,516 @@
+"""GPARRegressor — the user-facing estimator.
+
+Port of the main-path slice of ``gpar_tpu/models/regressor.py`` (itself a
+rebuild of the reference ``gpar/regression.py:200-597``): the constructor,
+the per-layer kernel generator with its variable-naming contract verbatim,
+``condition``, ``fit(fix=True)``, ``predict`` / ``fit_predict`` with
+``replace=True``, and ``get_variables`` / ``load_latents``.
+
+Design, in PyTorch terms:
+
+- Data is ingested on the host (NumPy): transform, NaN-aware
+  normalisation and the closed-downwards row plan; the inputs are uploaded
+  once.  Observations stay host-side in the ``per_output`` plan and are
+  moved to the device per layer.
+- ``fit(fix=True)`` runs one L-BFGS per layer, eagerly.  Once layer ``pi``
+  is fitted its hyperparameters are fixed, so its posterior is computed
+  once and its means at the data rows and at the inducing inputs are
+  appended to the augmented inputs for layer ``pi + 1`` (the rule of the
+  JAX package's ``_augment_cols``).  The JAX per-layer loop re-conditions
+  layers ``0..pi-1`` for every layer instead; the numbers are the same.
+- ``predict`` with ``replace=True`` conditions every layer, then draws all
+  Monte-Carlo samples of a layer as one (S, n) matmul against one
+  covariance factor (the inputs of every layer are posterior means, so
+  the covariance is shared by all draws), and reduces to the mean and the
+  2.5 / 97.5 percentiles on the device.  ``torch.quantile`` with
+  ``interpolation="linear"`` is ``jnp.percentile``'s default.
+- Entry points run on ``device`` (default ``"cuda"``; raises without a
+  card unless ``device="cpu"``).  Randomness comes from a
+  ``torch.Generator`` or from caller-supplied standard normals.
+
+Not ported yet: the dense (no inducing points) path, ``logpdf``,
+``replace=False`` prediction, ``fix=False``, prior ``sample``, restarts,
+greedy ordering, the scan-fused bodies, buckets and the posterior-factor
+cache, ``warmup`` / ``precompute`` and checkpointing.
+"""
+
+import time
+
+import numpy as np
+import torch
+
+from ..config import default_dtype, resolve_device
+from ..gp.core import GP
+from ..ops.kernels import EQ, RQ, Const, Linear, ZeroKernel
+from ..params.optim import minimise_l_bfgs_b
+from ..params.store import Vars, load_latents
+from ..utils.rng import default_generator
+from .gpar import GPAR, _sample_chain_batched, per_output
+
+__all__ = ["GPARRegressor", "log_transform", "squishing_transform"]
+
+#: Log transform for the data (``gpar/regression.py:22``).
+log_transform = (torch.log, torch.exp)
+
+#: Squishing transform for the data (``gpar/regression.py:25-28``).
+squishing_transform = (
+    lambda x: torch.sign(x) * torch.log(1 + torch.abs(x)),
+    lambda x: torch.sign(x) * (torch.exp(torch.abs(x)) - 1),
+)
+
+
+def _vector_from_init(init, length):
+    """Scalar -> broadcast vector; vector -> validated prefix
+    (``gpar/regression.py:31-46``)."""
+    if np.size(init) == 1:
+        return init * np.ones(length)
+    flat = np.squeeze(init)
+    if np.ndim(flat) != 1:
+        raise ValueError(
+            f"Hyperparameter initialiser has shape {np.shape(init)}; "
+            "expected a scalar or a flat vector."
+        )
+    if np.size(flat) < length:
+        raise ValueError(
+            f"Hyperparameter initialiser supplies {np.size(flat)} values "
+            f"but this layer needs {length}."
+        )
+    return np.array(flat)[:length]
+
+
+def _determine_indices(m, pi, markov):
+    """Input / previous-output column indices honouring the Markov order
+    (``gpar/regression.py:49-59``)."""
+    p_last = pi - 1
+    p_start = 0 if markov is None else max(p_last - (markov - 1), 0)
+    p_num = p_last - p_start + 1
+    m_inds = list(range(m))
+    p_inds = list(range(m + p_start, m + p_last + 1))
+    return m_inds, p_inds, p_num
+
+
+def _uprank_np(x, dtype):
+    x = np.asarray(x, dtype=dtype)
+    if x.ndim == 0:
+        return x[None, None]
+    if x.ndim == 1:
+        return x[:, None]
+    if x.ndim == 2:
+        return x
+    raise ValueError(f"Cannot uprank tensor of rank {x.ndim}.")
+
+
+def _model_generator(
+    vs,
+    m,  # input dimensionality
+    pi,  # which output this layer models
+    scale,
+    scale_tie,
+    per,
+    per_period,
+    per_scale,
+    per_decay,
+    input_linear,
+    input_linear_scale,
+    linear,
+    linear_scale,
+    nonlinear,
+    nonlinear_scale,
+    rq,
+    markov,
+    noise,
+):
+    """Per-layer prior constructor; kernel composition and the variable
+    naming scheme mirror ``gpar/regression.py:72-182`` verbatim."""
+
+    def model():
+        kernel_inputs = ZeroKernel()
+        kernel_outputs = ZeroKernel()
+
+        m_inds, p_inds, p_num = _determine_indices(m, pi, markov)
+
+        # Mandatory stationary term on the raw inputs.
+        variance = vs.bnd(name=f"{pi}/input/var", init=1.0)
+        scales = vs.bnd(
+            name=f"{0 if scale_tie else pi}/input/scales",
+            init=_vector_from_init(scale, m),
+        )
+        if rq:
+            k = RQ(vs.bnd(name=f"{pi}/input/alpha", init=1e-2, lower=1e-3, upper=1e3))
+        else:
+            k = EQ()
+        kernel_inputs += variance * k.stretch(scales)
+
+        # Optional locally-periodic term (2*m scales for the embedding).
+        if per:
+            variance = vs.bnd(name=f"{pi}/input/per/var", init=1.0)
+            scales = vs.bnd(
+                name=f"{pi}/input/per/scales",
+                init=_vector_from_init(per_scale, 2 * m),
+            )
+            periods = vs.bnd(
+                name=f"{pi}/input/per/pers",
+                init=_vector_from_init(per_period, m),
+            )
+            decays = vs.bnd(
+                name=f"{pi}/input/per/decay",
+                init=_vector_from_init(per_decay, m),
+            )
+            kernel_inputs += (
+                variance * EQ().stretch(scales).periodic(periods) * EQ().stretch(decays)
+            )
+
+        # Optional dot-product term on the raw inputs.
+        if input_linear:
+            scales = vs.bnd(
+                name=f"{pi}/input/lin/scales",
+                init=_vector_from_init(input_linear_scale, m),
+            )
+            const = vs.get(name=f"{pi}/input/lin/const", init=1.0)
+            kernel_inputs += Linear().stretch(scales) + Const(const)
+
+        # Dependencies on earlier outputs: a dot-product term ...
+        if linear and pi > 0:
+            scales = vs.bnd(
+                name=f"{pi}/output/lin/scales",
+                init=_vector_from_init(linear_scale, p_num),
+            )
+            kernel_outputs += Linear().stretch(scales)
+
+        # ... and/or a stationary (EQ/RQ) term.
+        if nonlinear and pi > 0:
+            variance = vs.bnd(name=f"{pi}/output/nonlin/var", init=1.0)
+            scales = vs.bnd(
+                name=f"{pi}/output/nonlin/scales",
+                init=_vector_from_init(nonlinear_scale, p_num),
+            )
+            if rq:
+                k = RQ(
+                    vs.bnd(
+                        name=f"{pi}/output/nonlin/alpha",
+                        init=1e-2,
+                        lower=1e-3,
+                        upper=1e3,
+                    )
+                )
+            else:
+                k = EQ()
+            kernel_outputs += variance * k.stretch(scales)
+
+        # Observation noise; the 1e-8 lower bound matches the reference
+        # (``gpar/regression.py:172``).
+        noise_variance = vs.bnd(
+            name=f"{pi}/noise",
+            init=_vector_from_init(noise, pi + 1)[pi],
+            lower=1e-8,
+        )
+
+        f = GP(kernel_inputs.select(m_inds) + kernel_outputs.select(p_inds))
+        return f, noise_variance
+
+    return model
+
+
+def _construct_gpar(reg, vs, m, p):
+    """A fresh GPAR with ``p`` layers (``gpar/regression.py:185-190``)."""
+    gpar = GPAR(replace=reg.replace, impute=reg.impute, x_ind=reg.x_ind)
+    for pi in range(p):
+        gpar = gpar.add_layer(_model_generator(vs, m, pi, **reg.model_config))
+    return gpar
+
+
+class GPARRegressor:
+    """GPAR regressor (``gpar/regression.py:200-597``).
+
+    The arguments are those of the reference, plus ``device`` (default
+    ``config.device``, i.e. ``"cuda"``) and ``dtype`` (default
+    ``config.dtype``).  ``compat`` is accepted for signature parity; it
+    only affects ``logpdf``, which is not ported yet.
+    """
+
+    def __init__(
+        self,
+        replace=False,
+        impute=True,
+        scale=1.0,
+        scale_tie=False,
+        per=False,
+        per_period=1.0,
+        per_scale=1.0,
+        per_decay=10.0,
+        input_linear=False,
+        input_linear_scale=100.0,
+        linear=True,
+        linear_scale=100.0,
+        nonlinear=False,
+        nonlinear_scale=1.0,
+        rq=False,
+        markov=None,
+        noise=0.1,
+        x_ind=None,
+        normalise_y=True,
+        transform_y=(lambda x: x, lambda x: x),
+        compat=True,
+        device=None,
+        dtype=None,
+    ):
+        self.device = resolve_device(device)
+        self.dtype = default_dtype() if dtype is None else dtype
+        self._np_dtype = np.float32 if self.dtype == torch.float32 else np.float64
+        self.replace = replace
+        self.impute = impute
+        self.sparse = x_ind is not None
+        self.x_ind = None if x_ind is None else self._upload(_uprank_np(x_ind, self._np_dtype))
+        self.model_config = {
+            "scale": scale,
+            "scale_tie": scale_tie,
+            "per": per,
+            "per_period": per_period,
+            "per_scale": per_scale,
+            "per_decay": per_decay,
+            "input_linear": input_linear,
+            "input_linear_scale": input_linear_scale,
+            "linear": linear,
+            "linear_scale": linear_scale,
+            "nonlinear": nonlinear,
+            "nonlinear_scale": nonlinear_scale,
+            "rq": rq,
+            "markov": markov,
+            "noise": noise,
+        }
+        self.vs = Vars(dtype=self.dtype, device=self.device)
+        self.is_conditioned = False
+        #: The most recent fit: per-layer initial and final NLL, L-BFGS
+        #: iterations, wall-clock.
+        self.last_fit_report = None
+        self.compat = compat
+        self.normalise_y = normalise_y
+        self._means = self._stds = None
+        self._transform_y, self._untransform_y = transform_y
+        self._vars_ready = None
+        self._y_cache = None
+        self.x = None  # conditioned inputs (device)
+        self._x_np = self._y_np = self._w_np = None
+        self.n = self.m = self.p = None
+
+    def _upload(self, a):
+        return torch.as_tensor(np.asarray(a, dtype=self._np_dtype), device=self.device)
+
+    def _ensure_vars(self, p):
+        """Instantiate every layer's variables once per (m, p)."""
+        if self._vars_ready == (self.m, p):
+            return
+        for pi in range(p):
+            _construct_gpar(self, self.vs, self.m, pi + 1).layers[pi]()
+        self._vars_ready = (self.m, p)
+
+    def get_variables(self):
+        """All hyperparameters, name -> NumPy value
+        (``gpar/regression.py:328-337``)."""
+        return {
+            name: self.vs[name].detach().cpu().numpy() for name in self.vs.names
+        }
+
+    def load_latents(self, latents):
+        """Set the store's latents from a name -> latent dict (the format of
+        ``gpar_tpu``'s ``Vars.snapshot()``), after instantiating every
+        layer's variables for the conditioned data."""
+        if not self.is_conditioned:
+            raise RuntimeError("load_latents() needs conditioned data (call condition() first).")
+        self._ensure_vars(self.p)
+        load_latents(self.vs, latents)
+
+    def condition(self, x, y, w=None):
+        """Condition the model on data without training
+        (``gpar/regression.py:339-389``): host-side transform, NaN-aware
+        per-output normalisation (std == 0 -> 1), the closed-downwards row
+        plan, and one upload of the inputs."""
+        x_np = _uprank_np(x, self._np_dtype)
+        y_np = _uprank_np(y, self._np_dtype)
+        y_np = np.asarray(self._transform_y(torch.as_tensor(y_np)), dtype=self._np_dtype)
+        self.n, self.m = x_np.shape
+        self.p = y_np.shape[1]
+        if self.normalise_y:
+            means, stds = [], []
+            for i in range(self.p):
+                y_i = y_np[~np.isnan(y_np[:, i]), i]
+                means.append(np.mean(y_i))
+                std = np.std(y_i, ddof=1) if y_i.size > 1 else 0.0
+                stds.append(std if std > 0 else 1.0)
+            self._means = np.asarray(means, dtype=self._np_dtype)[None, :]
+            self._stds = np.asarray(stds, dtype=self._np_dtype)[None, :]
+            y_np = (y_np - self._means) / self._stds
+        w_np = (
+            np.ones(y_np.shape, dtype=self._np_dtype)
+            if w is None
+            else _uprank_np(w, self._np_dtype)
+        )
+        self._x_np, self._y_np, self._w_np = x_np, y_np, w_np
+        self._y_cache = {
+            keep: list(per_output(y_np, w_np, keep=keep)) for keep in (False, True)
+        }
+        self.x = self._upload(x_np)
+        self._vars_ready = None
+        self.is_conditioned = True
+
+    def _undo_transforms(self, y):
+        if self.normalise_y and self._means is not None:
+            y = y * self._upload(self._stds) + self._upload(self._means)
+        return self._untransform_y(y)
+
+    def fit(self, x, y, w=None, greedy=False, fix=True, iters=1000, gtol=1e-9, memory_size=10):
+        """Fit the model to data (``gpar/regression.py:391-459``): one
+        L-BFGS per layer over that layer's variables, layers fixed once
+        fitted (``fix=True``)."""
+        if greedy:
+            raise NotImplementedError("Greedy search is not implemented yet.")
+        if not fix:
+            raise NotImplementedError("gpar_torch: fit(fix=False) is not ported yet")
+        self.condition(x, y, w)
+        self._ensure_vars(self.p)
+        t0 = time.perf_counter()
+        nll0, nll, its = self._fit_per_layer_loop(iters, gtol, memory_size)
+        self.last_fit_report = {
+            "layer_nll0": np.asarray(nll0),
+            "layer_nll": np.asarray(nll),
+            "layer_iters": np.asarray(its),
+            "wall_clock_s": time.perf_counter() - t0,
+            "fused": False,
+        }
+
+    def _fit_per_layer_loop(self, iters, gtol, memory_size):
+        y_cached = self._y_cache
+        x_pi, x_ind_pi = self.x, self.x_ind
+        nll0, nll, its = [], [], []
+        for pi in range(self.p):
+
+            def objective(vs, pi=pi, x_pi=x_pi, x_ind_pi=x_ind_pi):
+                gpar = _construct_gpar(self, vs, self.m, pi + 1)
+                return -gpar.logpdf(
+                    x_pi,
+                    y_cached,
+                    None,
+                    only_last_layer=True,
+                    outputs=[pi],
+                    x_ind=x_ind_pi,
+                )
+
+            f0, f, it = minimise_l_bfgs_b(
+                objective,
+                self.vs,
+                names=[f"{pi}/*"],
+                iters=iters,
+                gtol=gtol,
+                memory_size=memory_size,
+            )
+            nll0.append(f0)
+            nll.append(f)
+            its.append(it)
+            if pi < self.p - 1:
+                # Layer pi is fixed from here on: append its posterior means
+                # (data rows and inducing inputs) for layer pi + 1.
+                with torch.no_grad():
+                    gpar = _construct_gpar(self, self.vs, self.m, pi + 2)
+                    x_pi, x_ind_pi = gpar.logpdf(
+                        x_pi,
+                        y_cached,
+                        None,
+                        only_last_layer=True,
+                        outputs=[pi],
+                        x_ind=x_ind_pi,
+                        return_inputs=True,
+                    )
+        return nll0, nll, its
+
+    def predict(
+        self,
+        x,
+        w=None,
+        num_samples=100,
+        latent=False,
+        credible_bounds=False,
+        normals=None,
+        generator=None,
+    ):
+        """Monte-Carlo predictive means, and with ``credible_bounds`` the
+        2.5 / 97.5 percentiles, at new inputs
+        (``gpar/regression.py:566-597``); NumPy arrays of shape (n, p).
+
+        ``normals`` (p, num_samples, n) supplies the standard normals of
+        the draws; otherwise they come from ``generator`` (default: the
+        device's generator of ``utils.rng``)."""
+        if not self.is_conditioned:
+            raise RuntimeError(
+                "Cannot sample from the posterior: no data has been "
+                "conditioned on yet (call fit() or condition() first)."
+            )
+        if not self.replace:
+            raise NotImplementedError("gpar_torch: predict with replace=False is not ported yet")
+        x = self._upload(_uprank_np(x, self._np_dtype))
+        nt = x.shape[0]
+        w = (
+            torch.ones((nt, self.p), dtype=self.dtype, device=self.device)
+            if w is None
+            else self._upload(_uprank_np(w, self._np_dtype))
+        )
+        if normals is None:
+            gen = default_generator(self.device) if generator is None else generator
+            normals = torch.randn(
+                (self.p, num_samples, nt), generator=gen, dtype=self.dtype, device=self.device
+            )
+        else:
+            normals = self._upload(normals)
+            if normals.shape != (self.p, num_samples, nt):
+                raise ValueError(
+                    f"normals has shape {tuple(normals.shape)}; expected "
+                    f"{(self.p, num_samples, nt)}"
+                )
+        self._ensure_vars(self.p)
+        with torch.no_grad():
+            gpar = _construct_gpar(self, self.vs, self.m, self.p) | (self.x, self._y_cache, None)
+            models = [mo() for mo in gpar.layers]
+            batch = _sample_chain_batched(
+                tuple(f for f, _ in models),
+                tuple(n for _, n in models),
+                x,
+                w,
+                gpar.x_ind,
+                normals,
+                latent=latent,
+                sparse=self.sparse,
+            )
+            batch = self._undo_transforms(batch)
+            out = [torch.mean(batch, dim=0)]
+            if credible_bounds:
+                q = torch.tensor([0.025, 0.975], dtype=self.dtype, device=self.device)
+                lo, hi = torch.quantile(batch, q, dim=0, interpolation="linear")
+                out += [lo, hi]
+        out = tuple(a.cpu().numpy() for a in out)
+        return out if credible_bounds else out[0]
+
+    def fit_predict(
+        self,
+        x,
+        y,
+        x_test=None,
+        w=None,
+        w_test=None,
+        num_samples=100,
+        latent=False,
+        credible_bounds=False,
+        normals=None,
+        generator=None,
+        **fit_kw,
+    ):
+        """``fit(x, y, w, **fit_kw)`` followed by ``predict(x_test, w_test,
+        ...)``; ``x_test`` defaults to the training inputs."""
+        self.fit(x, y, w, **fit_kw)
+        return self.predict(
+            self._x_np if x_test is None else x_test,
+            w_test,
+            num_samples=num_samples,
+            latent=latent,
+            credible_bounds=credible_bounds,
+            normals=normals,
+            generator=generator,
+        )

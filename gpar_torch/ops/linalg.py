@@ -1,0 +1,223 @@
+"""Dense linear algebra for the GP core.
+
+Port of ``gpar_tpu/ops/linalg.py``: jittered Cholesky factorisations with
+an escalating retry ladder, sampling factors, triangular solves, MVN
+log-densities and the collapsed Titsias (2009) ELBO with per-point noise
+(reference call sites ``gpar/model.py:226,286-289``).
+
+Factorisations are ``torch.linalg.cholesky_ex`` (cuSOLVER on the card).
+The JAX package's blocked Cholesky is a TPU panel schedule, not a Pallas
+kernel, and the JAX package itself leaves the factor to XLA off-TPU; it
+has no counterpart here.
+
+The retry ladder branches on ``cholesky_ex``'s ``info`` (a failed factor is
+finite garbage, so ``isfinite`` cannot tell), which costs one host sync per
+rung tried.  In eager PyTorch the rungs are real branches: a failed rung
+never enters the autograd graph, so the JAX package's NaN-proof Cholesky
+VJP (``_chol_grad_safe``) is not needed — the gradient is that of the rung
+that succeeded.
+"""
+
+import torch
+
+from ..config import config
+
+__all__ = [
+    "LOG_2PI",
+    "resolve_epsilon",
+    "floor_noise",
+    "add_jitter",
+    "safe_cholesky",
+    "psd_sample_factor",
+    "solve_lower",
+    "solve_chol",
+    "mvn_logpdf_chol",
+    "mvn_logpdf",
+    "titsias_elbo",
+    "titsias_factors",
+    "titsias_solve",
+    "titsias_assemble",
+]
+
+LOG_2PI = 1.8378770664093453  # log(2 * pi)
+
+
+def resolve_epsilon(dtype, epsilon=None):
+    """Effective Cholesky jitter for ``dtype``: an explicit ``epsilon``
+    wins; otherwise ``config.epsilon``, floored at ``config.epsilon_f32``
+    for float32 (``examples/paper/air_temp.py:18``)."""
+    if epsilon is not None:
+        return epsilon
+    eps = config.epsilon
+    if dtype == torch.float32:
+        eps = max(eps, config.epsilon_f32)
+    return eps
+
+
+def floor_noise(noise_diag):
+    """Per-point noise variances floored at the dtype's jitter epsilon: a
+    float64 no-op, 1e-6 in float32, where the reference's 1e-8 noise bound
+    is below working resolution and the Titsias terms scaling as 1/noise
+    would otherwise cancel catastrophically."""
+    return torch.clamp_min(noise_diag, resolve_epsilon(noise_diag.dtype))
+
+
+def add_jitter(K, epsilon=None):
+    """Add ``epsilon`` to the diagonal of a square matrix."""
+    eps = resolve_epsilon(K.dtype, epsilon)
+    return K + eps * torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+
+
+def _attempt(K, e):
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+    L, info = torch.linalg.cholesky_ex(K + e * eye)
+    return L, bool(info.item() == 0)
+
+
+def safe_cholesky(K, epsilon=None):
+    """Cholesky with escalating-jitter retries.
+
+    Tries ``K + eps I``; on failure escalates the jitter by
+    ``config.cholesky_retry_factors``; as a last resort uses a jitter
+    relative to the matrix's own scale, ``max(1e-6 max|diag K|, eps)``.
+    Returns a NaN matrix if every rung fails (the JAX package's NaN
+    primal), so callers such as :func:`psd_sample_factor` can tell."""
+    eps = resolve_epsilon(K.dtype, epsilon)
+    n = K.shape[-1]
+    if n == 0:
+        return torch.zeros_like(K)
+    L, ok = _attempt(K, eps)
+    for factor in config.cholesky_retry_factors:
+        if ok:
+            return L
+        L, ok = _attempt(K, eps * factor)
+    if ok:
+        return L
+    rel = torch.clamp_min(1e-6 * torch.max(torch.abs(torch.diagonal(K))), eps)
+    L, ok = _attempt(K, rel)
+    return L if ok else torch.full_like(K, float("nan"))
+
+
+def psd_sample_factor(K, epsilon=None):
+    """A finite factor ``F`` with ``F F^T ~= K`` for MVN sampling: the
+    jittered Cholesky, or — when no rung repairs an indefinite matrix — an
+    eigendecomposition with eigenvalues clamped at the jitter level."""
+    eps = resolve_epsilon(K.dtype, epsilon)
+    if K.shape[-1] == 0:
+        return torch.zeros_like(K)
+    L = safe_cholesky(K, epsilon)
+    if bool(torch.isfinite(L).all()):
+        return L
+    w, V = torch.linalg.eigh(K)
+    return V * torch.sqrt(torch.clamp_min(w, eps))[None, :]
+
+
+def solve_lower(L, b):
+    """Solve ``L x = b`` with ``L`` lower triangular (``b`` a vector or a
+    matrix)."""
+    if L.shape[-1] == 0:
+        return b
+    if b.ndim == 1:
+        return torch.linalg.solve_triangular(L, b[:, None], upper=False)[:, 0]
+    return torch.linalg.solve_triangular(L, b, upper=False)
+
+
+def _solve_lower_t(L, b):
+    """Solve ``L^T x = b`` with ``L`` lower triangular."""
+    if b.ndim == 1:
+        return torch.linalg.solve_triangular(L.mT, b[:, None], upper=True)[:, 0]
+    return torch.linalg.solve_triangular(L.mT, b, upper=True)
+
+
+def solve_chol(L, b):
+    """Solve ``(L L^T) x = b`` given the Cholesky factor ``L``."""
+    if L.shape[-1] == 0:
+        return b
+    return _solve_lower_t(L, solve_lower(L, b))
+
+
+def mvn_logpdf_chol(y, mean, L):
+    """Exact MVN log density given the Cholesky factor of the covariance
+    (``tests/test_model.py:137-147``); ``y``/``mean`` are (n,) vectors."""
+    n = y.shape[0]
+    if n == 0:
+        return y.new_zeros(())
+    a = solve_lower(L, y - mean)
+    return -0.5 * n * LOG_2PI - torch.sum(torch.log(torch.diagonal(L))) - 0.5 * torch.sum(a * a)
+
+
+def mvn_logpdf(y, mean, K, epsilon=None):
+    """Exact MVN log density with covariance ``K`` (jittered Cholesky)."""
+    return mvn_logpdf_chol(y, mean, safe_cholesky(K, epsilon))
+
+
+def titsias_elbo(Kmm, Kmn, knn_diag, y, mean, noise_diag, epsilon=None):
+    """Collapsed Titsias (2009) ELBO with heteroscedastic noise,
+    ``log N(y | mean, Q_nn + D) - 1/2 sum_i (K_nn - Q_nn)_ii / D_ii``."""
+    if y.shape[0] == 0:
+        return y.new_zeros(())
+    return titsias_factors(Kmm, Kmn, knn_diag, y, mean, noise_diag, epsilon)[0]
+
+
+def titsias_factors(Kmm, Kmn, knn_diag, y, mean, noise_diag, epsilon=None, mask=None):
+    """Collapsed Titsias ELBO and the sparse-posterior factors from one
+    factorisation pass: ``(elbo, Lm, LB, beta)`` with ``Lm = chol(Kmm)``,
+    ``LB = chol(I + Lm^{-1} Kmn D^{-1} Knm Lm^{-T})`` and
+    ``beta = (Kmm + Kmn D^{-1} Knm)^{-1} Kmn D^{-1} r``.
+
+    ``mask`` (optional (n,) of 0/1) excludes rows exactly: a masked row's
+    ``D^{-1}`` is zero and its logdet/count contributions vanish.
+
+    The cancellation-free float32 form of the JAX package: ``A0 = Lm^{-1}
+    Kmn`` stays at O(1) scale and both differences — the trace
+    ``sum (knn - qnn) / D`` and the quadratic form ``sum r (r - est) / D``
+    (Woodbury, ``est = Knm beta = A0^T w``) — are taken on O(1) operands
+    before dividing by D.  The textbook form subtracts 1/D-scale
+    quantities and returns hugely positive garbage at the float32 noise
+    floor.  The Nystrom residual ``knn - qnn`` is clamped at zero: in
+    float32 at extreme kernel variances it is pure cancellation noise of
+    either sign, and a negative trace flips the ELBO positive.
+    """
+    r = y - mean
+    if mask is None:
+        d_inv = 1.0 / noise_diag
+        logdet_d = torch.sum(torch.log(noise_diag))
+        n_eff = y.shape[0]
+    else:
+        r = r * mask
+        d_inv = mask / noise_diag
+        logdet_d = torch.sum(torch.log(noise_diag) * mask)
+        n_eff = torch.sum(mask)
+
+    Lm = safe_cholesky(Kmm, epsilon)
+    A0 = solve_lower(Lm, Kmn)  # (m, n), O(1) entries
+    qnn = torch.sum(A0 * A0, dim=0)
+    trace_num = torch.sum(torch.clamp_min(knn_diag - qnn, 0.0) * d_inv)
+    G = (A0 * d_inv[None, :]) @ A0.T
+    u = A0 @ (r * d_inv)
+    LB, w, beta = titsias_solve(G, u, Lm)
+    est = A0.T @ w
+    quad = torch.sum(r * (r - est) * d_inv)
+    elbo = titsias_assemble(logdet_d, LB, quad, trace_num, n_eff)
+    return elbo, Lm, LB, beta
+
+
+def titsias_solve(G, u, Lm):
+    """The O(m^3) core of the collapsed ELBO: ``LB = chol(I + G)`` (through
+    the retry ladder — in float32 near the noise floor ``I + G`` can be
+    numerically indefinite), ``w = LB^{-T} LB^{-1} u`` and
+    ``beta = Lm^{-T} w``.  ``G`` is resymmetrised first."""
+    m = G.shape[-1]
+    G = 0.5 * (G + G.T)
+    LB = safe_cholesky(G + torch.eye(m, dtype=G.dtype, device=G.device))
+    c = solve_lower(LB, u)
+    w = _solve_lower_t(LB, c)
+    beta = _solve_lower_t(Lm, w)
+    return LB, w, beta
+
+
+def titsias_assemble(logdet_d, LB, quad, trace_num, n_total):
+    """Assemble the collapsed ELBO from its stable pieces."""
+    logdet = logdet_d + 2.0 * torch.sum(torch.log(torch.diagonal(LB)))
+    lognorm = -0.5 * (n_total * LOG_2PI + logdet + quad)
+    return lognorm - 0.5 * trace_num
