@@ -6,20 +6,29 @@
 Phases (each raises on failure; the script exits 0 only if all pass):
 
 1. Device and build: requires CUDA, prints the card's name and power
-   limit, builds the hand-written kernels from the sources in the checkout.
-2. Kernel check: the CUDA Gram kernel against its plain PyTorch version on
-   the card, in float32 (rtol/atol 1e-5) and float64 (1e-12), on the
-   benchmark's layer kernels at the main path's shapes — (256, 256),
-   (256, 10000), (256, 1024), (1024, 1024), input widths 1 and 16 — plus a
-   gated layer kernel and a ragged (37, 23) shape; the gradient of the
-   fused Gram against autograd of the plain recursion; device times of
-   kernel and plain version (``torch.profiler``) beside the card's bound.
+   limit, builds the hand-written kernels (forward and backward, one
+   source, one ``nvcc``) from the sources in the checkout.
+2. Kernel check: the CUDA Gram kernel and the CUDA Gram backward kernel
+   against their plain PyTorch versions on the card, on the benchmark's
+   layer kernels at the main path's shapes — (256, 256), (256, 10000),
+   (256, 1024), (1024, 1024), input widths 1 and 16 — plus a gated layer
+   kernel, a ragged (37, 23) shape, and a tree of 264 features (one term
+   of 120), wider than the kernels' staging chunks, at (37, 23) and
+   (256, 1024).  Forward: rtol/atol 1e-5 in float32, 1e-12 in float64.
+   Backward: max |err| / max |plain| at most 1e-4 in float32 (its
+   10 000-long sums run in another order) and 1e-10 in float64.  The
+   gradient of the fused Gram against autograd of the plain recursion run
+   in float64 (on the upcast inputs in the float32 case): max |err| /
+   max |ref| at most 1e-10 in float64 and 1e-5 in float32.  Device times of
+   kernels and plain versions (``torch.profiler``) beside the card's bound.
 3. Main path at full width: ``GPARRegressor.fit_predict`` at the
    benchmark's configuration (``bench.py``): n=10 000, p=16, 256 inducing
    points, 10 L-BFGS iterations per layer, 100-sample predictive with
    credible bounds at 1024 test inputs, float32, jitter 1e-6; held to the
    benchmark's ``10k`` quality gates; every Gram must have gone through the
-   kernel.  Cold and warm wall-clocks.
+   kernel (no plain-route Gram, no ``gram_eval`` on the card) and every
+   Gram taken under autograd through the backward kernel.  Cold and warm
+   wall-clocks; the two runs must give identical results (no atomics).
 4. Small-input agreement: a float64 fit_predict (p=3, n=100, 8 inducing
    points) on the card against the same run on the CPU (the CPU route is
    held against the JAX package by the test suite), rtol 1e-6.
@@ -94,21 +103,31 @@ def device_ms(fn, reps):
     """Device time per call: the summed durations of the CUDA kernels that
     ``reps`` calls of ``fn`` ran, from ``torch.profiler`` — unlike CUDA
     events around back-to-back launches, it excludes the gaps in which the
-    card waits for the host."""
+    card waits for the host.  The profiler now and then records no device
+    events for a window; it is tried three times, then CUDA events around
+    the ``reps`` calls stand in (gaps included, so an upper bound)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    total_us = sum(e.device_time for e in prof.events() if e.device_type == cuda)
-    if total_us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return total_us / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.device_time for e in prof.events() if e.device_type == cuda)
+        if total_us > 0:
+            return total_us / reps / 1e3
+    print("[kernel] torch.profiler recorded no device time three times; timing with CUDA events")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def gram_bound_ms(kinds, dims, n, m, itemsize):
@@ -122,6 +141,30 @@ def gram_bound_ms(kinds, dims, n, m, itemsize):
     bytes_ = itemsize * (n * m + (n + m) * D + 2 * len(kinds) + 1)
     per_elem = 2 * D + 4 * len(kinds) + 1  # tail per term (w*, exp, +) and the constant
     flops = n * m * per_elem
+    peak = H100_FP32_FLOPS if itemsize == 4 else H100_FP64_FLOPS
+    t_bytes, t_ops = bytes_ / H100_BYTES_PER_S, flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+#: Operations of the Gram backward per output element and feature of a term,
+#: and per output element for the term's tail, by kind.  rbf / rq: s, then
+#: P v and P^T u, each a product and a sum per feature under the norm
+#: identity; lin: G v and G^T u only (dw = sum_ik u_ik (G v)_ik reuses G v,
+#: 2 n d more).  Tails: rbf exp, G e, its sum, P; rq h, log1p, exp,
+#: G r^(-a), its sum, the dalpha summand (3) and its sum, P; lin P = w G.
+BWD_OPS = {"rbf": (6, 4), "rq": (6, 10), "lin": (4, 1)}
+
+
+def gram_bwd_bound_ms(kinds, dims, n, m, itemsize):
+    """Least time of one Gram backward on an H100, the same way: bytes are
+    the upstream gradient G read once, the features read once and their
+    gradients written once, ``itemsize * (n m + 2 (n + m) sum d)``;
+    operations are ``BWD_OPS`` per kind, 1 per output for the constant's
+    sum, and a lin term's ``2 n d`` for dw."""
+    D = sum(dims)
+    bytes_ = itemsize * (n * m + 2 * (n + m) * D + 2 * (2 * len(kinds) + 1))
+    per_elem = 1 + sum(BWD_OPS[k][0] * d + BWD_OPS[k][1] for k, d in zip(kinds, dims))
+    flops = n * m * per_elem + sum(2 * n * d for k, d in zip(kinds, dims) if k == "lin")
     peak = H100_FP32_FLOPS if itemsize == 4 else H100_FP64_FLOPS
     t_bytes, t_ops = bytes_ / H100_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -165,12 +208,42 @@ def gated_tree(dtype, device, m=1, P1=15, pi=9):
     return k
 
 
+def wide_tree(dtype, device):
+    """A tree wider than the kernels' staging chunks (64 features in float32,
+    32 in float64): rbf and lin terms of 120 features each and an rq term of
+    24, 264 features in all; its width needs the backward's opt-in to more
+    than 48 KB of shared memory."""
+    import torch
+
+    from gpar_torch.ops.kernels import EQ, RQ, Linear
+
+    def P(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    k = P(1.1) * EQ().stretch(P(np.linspace(6.0, 10.0, 120)))
+    k = k + Linear().stretch(P(np.linspace(8.0, 12.0, 120)))
+    return k + RQ(P(0.8)).stretch(P(np.linspace(2.0, 4.0, 24))).select(list(range(24)))
+
+
 def inputs(n, d, dtype, device, seed):
     import torch
 
     r = np.random.default_rng(seed)
     a = np.concatenate([r.uniform(0, 10, (n, 1)), r.standard_normal((n, d - 1))], axis=1)
     return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want| over a tuple of tensors, each scaled by
+    its own largest entry, and the largest absolute error."""
+    import torch
+
+    rel = ab = 0.0
+    for a, b in zip(got, want):
+        err = float(torch.max(torch.abs(a - b)))
+        rel = max(rel, err / max(float(torch.max(torch.abs(b))), 1e-30))
+        ab = max(ab, err)
+    return rel, ab
 
 
 def phase_kernel_check(device):
@@ -180,20 +253,23 @@ def phase_kernel_check(device):
     from gpar_torch.ops.kernels import gram_eval
 
     shapes = [(256, 256), (256, 10_000), (256, 1024), (1024, 1024)]
-    rows = []
-    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    rows = {"gram": [], "gram_bwd": []}
+    worst = {"gram": {torch.float32: 0.0, torch.float64: 0.0},
+             "gram_bwd": {torch.float32: 0.0, torch.float64: 0.0}}
     tol = {torch.float32: 1e-5, torch.float64: 1e-12}
+    bwd_tol = {torch.float32: 1e-4, torch.float64: 1e-10}
     for dtype in (torch.float32, torch.float64):
         cases = [("bench-pi0", layer_tree(0, dtype, device), 1)]
         cases.append(("bench-pi15", layer_tree(15, dtype, device), 16))
         cases.append(("gated", gated_tree(dtype, device), 16))
+        cases.append(("wide", wide_tree(dtype, device), 120))
+        only = {"gated": [(256, 10_000)], "wide": [(37, 23), (256, 1024)]}
         for name, tree, d in cases:
-            for n, m in shapes + [(37, 23)]:
-                if name == "gated" and (n, m) != (256, 10_000):
-                    continue
+            for n, m in only.get(name, shapes + [(37, 23)]):
                 x = inputs(n, d, dtype, device, seed=n + d)
                 y = inputs(m, d, dtype, device, seed=m + 7 * d)
-                prep = GK.prepare_terms(tree, x, y)
+                with torch.no_grad():
+                    prep = GK.prepare_terms(tree, x, y)
                 got = GK.gram_kernel_launch(*prep)
                 torch.cuda.synchronize()
                 want = GK.gram_terms_plain(*prep)
@@ -205,33 +281,69 @@ def phase_kernel_check(device):
                       f"max|err| {err:.3e} (max|K| {scale:.3e}) {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"gram kernel disagrees with its plain version: {name} {dtype} {(n, m)}")
-                worst[dtype] = max(worst[dtype], err)
-                if dtype == torch.float32 and name != "gated" and (n, m) != (37, 23):
-                    kinds, dims = prep[0], prep[1]
-                    k_ms = device_ms(lambda: GK.gram_kernel_launch(*prep), 50)
-                    p_ms = device_ms(lambda: GK.gram_terms_plain(*prep), 50)
-                    b_ms, b_by = gram_bound_ms(kinds, dims, n, m, 4)
-                    rows.append(dict(tree=name, n=n, m=m, d=d, ms=k_ms, plain_ms=p_ms,
-                                     bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
-                    print(f"[kernel] time {name} ({n}, {m}) f32: kernel {k_ms:.5f} ms device, "
-                          f"plain {p_ms:.5f} ms device, bound {b_ms:.6f} ms ({b_by})")
+                worst["gram"][dtype] = max(worst["gram"][dtype], err)
 
-    # Gradient of the fused Gram (kernel forward, VJP of the plain
-    # recursion) against autograd through the plain recursion.
-    for dtype, rtol in ((torch.float64, 1e-10), (torch.float32, 1e-5)):
+                g = torch.randn(n, m, dtype=dtype, device=device,
+                                generator=torch.Generator(device).manual_seed(n + m))
+                bgot = GK.gram_bwd_kernel_launch(*prep, g)
+                torch.cuda.synchronize()
+                bwant = GK.gram_terms_plain_vjp(*prep, g)
+                torch.cuda.synchronize()
+                brel, babs = rel_err(bgot, bwant)
+                bok = brel <= bwd_tol[dtype]
+                print(f"[kernel] backward {name} {str(dtype)[6:]} ({n}, {m}) d={d}: "
+                      f"max|err|/max|plain| {brel:.3e} (max|err| {babs:.3e}) {'ok' if bok else 'FAIL'}")
+                if not bok:
+                    raise AssertionError(f"gram backward kernel disagrees with its plain version: "
+                                         f"{name} {dtype} {(n, m)}")
+                worst["gram_bwd"][dtype] = max(worst["gram_bwd"][dtype], babs)
+
+                if dtype == torch.float32 and name.startswith("bench") and (n, m) != (37, 23):
+                    kinds, dims = prep[0], prep[1]
+                    for kname, fk, fp, bound, e in (
+                        ("gram", lambda: GK.gram_kernel_launch(*prep),
+                         lambda: GK.gram_terms_plain(*prep), gram_bound_ms, err),
+                        ("gram_bwd", lambda: GK.gram_bwd_kernel_launch(*prep, g),
+                         lambda: GK.gram_terms_plain_vjp(*prep, g), gram_bwd_bound_ms, babs),
+                    ):
+                        k_ms = device_ms(fk, 50)
+                        p_ms = device_ms(fp, 10)
+                        b_ms, b_by = bound(kinds, dims, n, m, 4)
+                        rows[kname].append(dict(tree=name, n=n, m=m, d=d, ms=k_ms, plain_ms=p_ms,
+                                                bound_ms=b_ms, bound_by=b_by, max_abs_err=e))
+                        print(f"[kernel] time {kname} {name} ({n}, {m}) f32: kernel {k_ms:.5f} ms device, "
+                              f"plain {p_ms:.5f} ms device, bound {b_ms:.6f} ms ({b_by})")
+
+    # Gradient of the fused Gram (both kernels, through the feature maps)
+    # against autograd through the plain recursion.  The recursion forms
+    # squared distances by the norm identity, which in float32 loses
+    # ~eps |u|^2 to cancellation; so the float32 gradient is held against the
+    # recursion run in float64 on the same inputs, tree and R, upcast, and
+    # its distance from the float32 recursion is only printed.
+    def grads(fn, tree, x, y, R):
+        tree, leaves = GK.map_leaves(tree, lambda l: l.detach().clone().requires_grad_(True))
+        x, y = (a.detach().clone().requires_grad_(True) for a in (x, y))
+        return torch.autograd.grad(torch.sum(fn(tree, x, y) * R), [x, y, *leaves])
+
+    def up(a):
+        return a.to(torch.float64)
+
+    for dtype, limit in ((torch.float64, 1e-10), (torch.float32, 1e-5)):
         tree = layer_tree(15, dtype, device)
-        leaves = [l.detach().requires_grad_(True) for l in GK._leaves(tree)]
-        tree, _ = GK._with_leaves(tree, leaves)
-        x = inputs(256, 16, dtype, device, seed=11).requires_grad_(True)
-        y = inputs(1024, 16, dtype, device, seed=12).requires_grad_(True)
+        x = inputs(256, 16, dtype, device, seed=11)
+        y = inputs(1024, 16, dtype, device, seed=12)
         R = torch.randn(256, 1024, dtype=dtype, device=device, generator=torch.Generator(device).manual_seed(0))
-        g1 = torch.autograd.grad(torch.sum(GK._GramFn.apply(tree, x, y, *leaves) * R), [x, y, *leaves])
-        g2 = torch.autograd.grad(torch.sum(gram_eval(tree, x, y) * R), [x, y, *leaves])
+        got = grads(GK.gram_fused_or_none, tree, x, y, R)
+        same = grads(gram_eval, tree, x, y, R)
+        ref = grads(gram_eval, GK.map_leaves(tree, up)[0], up(x), up(y), up(R))
         torch.cuda.synchronize()
-        for a, b in zip(g1, g2):
-            if not torch.allclose(a, b, rtol=rtol, atol=rtol * float(b.abs().max())):
-                raise AssertionError(f"fused Gram gradient disagrees ({dtype})")
-        print(f"[kernel] gradient {str(dtype)[6:]}: ok ({len(g1)} tensors)")
+        rel, _ = rel_err([up(g) for g in got], ref)
+        rel_same, _ = rel_err(got, same)
+        print(f"[kernel] gradient {str(dtype)[6:]}: max|err|/max|ref| {rel:.3e} against the float64 "
+              f"recursion over {len(got)} tensors {'ok' if rel <= limit else 'FAIL'} (limit {limit:g}); "
+              f"{rel_same:.3e} against the {str(dtype)[6:]} recursion")
+        if rel > limit:
+            raise AssertionError(f"fused Gram gradient disagrees ({dtype})")
     return rows, worst
 
 
@@ -265,11 +377,27 @@ def phase_main_path(device):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    GK.reset_counters()
-    (mean, lo, hi), cold = run(0)
-    launches, plain_calls = GK.gram_kernel_launches, GK.gram_plain_cuda_calls
+    # Grams taken under autograd, counted around the dispatch: each must
+    # come back through the backward kernel exactly once.
+    fused, autograd_grams = GK.gram_fused_or_none, [0]
+
+    def counting(kernel, a, b):
+        out = fused(kernel, a, b)
+        autograd_grams[0] += out is not None and out.requires_grad
+        return out
+
+    GK.gram_fused_or_none = counting
+    try:
+        GK.reset_counters()
+        (mean, lo, hi), cold = run(0)
+        counts = dict(launches=GK.gram_kernel_launches, bwd_launches=GK.gram_bwd_kernel_launches,
+                      plain_calls=GK.gram_plain_cuda_calls, gram_eval_calls=GK.gram_eval_cuda_calls,
+                      autograd_grams=autograd_grams[0])
+    finally:
+        GK.gram_fused_or_none = fused
     rep = reg.last_fit_report
-    (mean_w, _, _), warm = run(0)
+    (mean_w, lo_w, hi_w), warm = run(0)
+    rep_w = reg.last_fit_report
 
     for a in (mean, lo, hi):
         assert a.shape == (n_test, p) and np.isfinite(a).all(), "non-finite or misshapen predictions"
@@ -283,14 +411,23 @@ def phase_main_path(device):
           f"L-BFGS iterations per layer {rep['layer_iters'].tolist()}")
     print(f"[main] SMSE vs noiseless truth: mean {mean_s:.3e}, worst {worst_s:.3e}; "
           f"warm-run mean differs by {float(np.max(np.abs(mean_w - mean))):.3e}")
-    print(f"[main] gram kernel launches {launches}, plain-route CUDA Grams {plain_calls}")
+    print(f"[main] gram kernel launches {counts['launches']}, backward kernel launches "
+          f"{counts['bwd_launches']} for {counts['autograd_grams']} Grams under autograd, "
+          f"plain-route CUDA Grams {counts['plain_calls']}, gram_eval on CUDA {counts['gram_eval_calls']}")
     if nll0 - nll < GATES["nll_decrease"]:
         raise AssertionError(f"NLL decrease {nll0 - nll:.1f} below {GATES['nll_decrease']}")
     if mean_s > GATES["mean_smse"] or worst_s > GATES["worst_smse"]:
         raise AssertionError(f"SMSE mean {mean_s:.3e} / worst {worst_s:.3e} above the gates")
-    if launches <= 0 or plain_calls != 0:
-        raise AssertionError(f"main path bypassed the kernel: {launches} launches, {plain_calls} plain")
-    return dict(launches=launches, cold_s=cold, warm_s=warm, nll_decrease=nll0 - nll,
+    if counts["launches"] <= 0 or counts["plain_calls"] != 0 or counts["gram_eval_calls"] != 0:
+        raise AssertionError(f"main path bypassed the kernel: {counts}")
+    if counts["bwd_launches"] <= 0 or counts["bwd_launches"] != counts["autograd_grams"]:
+        raise AssertionError(f"backward kernel launches do not match the Grams under autograd: {counts}")
+    same = (np.array_equal(rep["layer_nll"], rep_w["layer_nll"])
+            and all(np.array_equal(a, b) for a, b in ((mean, mean_w), (lo, lo_w), (hi, hi_w))))
+    print(f"[main] cold and warm runs identical (layer NLLs and predictions): {same}")
+    if not same:
+        raise AssertionError("cold and warm runs differ: the main path is not deterministic")
+    return dict(**counts, cold_s=cold, warm_s=warm, nll0=nll0, nll=nll, nll_decrease=nll0 - nll,
                 mean_smse=mean_s, worst_smse=worst_s), (reg, x, y, x_test, z_init)
 
 
@@ -332,15 +469,23 @@ def phase_profile(state, out_dir):
         reg.fit_predict(x, y, x_test, iters=10, num_samples=100, credible_bounds=True, generator=gen)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=60)
     with open(os.path.join(out_dir, "profile_table.txt"), "w") as fh:
         fh.write(table)
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time for e in events) / 1e3
-    gram = sum(e.device_time for e in events if "gram_tile_kernel" in e.name) / 1e3
+
+    def kernel_ms(*names):
+        sel = [e for e in events if any(k in e.name for k in names)]
+        return sum(e.device_time for e in sel) / 1e3, len(sel)
+
+    fwd, n_fwd = kernel_ms("gram_tile_kernel")
+    bwd, n_bwd = kernel_ms("gram_bwd_kernel")
+    red, n_red = kernel_ms("gram_bwd_reduce")
     print(f"[profile] warm fit_predict under the profiler: wall {wall_ms:.1f} ms, device kernel "
           f"time {busy:.1f} ms over {len(events)} kernels (busy {100 * busy / wall_ms:.1f}%), "
-          f"of which gram kernel {gram:.2f} ms; table in {out_dir}")
+          f"of which gram kernel {fwd:.2f} ms ({n_fwd} launches), gram backward kernel "
+          f"{bwd:.2f} ms ({n_bwd}) and its reduction {red:.2f} ms ({n_red}); table in {out_dir}")
     print(table)
 
 
@@ -356,10 +501,8 @@ def main(argv):
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {card}; torch {torch.__version__} (CUDA {torch.version.cuda})")
-    t0 = time.perf_counter()
-    info = _build.build("gram")
-    print(f"[build] {time.perf_counter() - t0:.2f} s: gram -> {info['path']} "
-          f"(nvcc {info['seconds']:.2f} s)")
+    info = _build.build()
+    print(f"[build] {info['path']} (nvcc {info['seconds']:.2f} s)")
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
@@ -370,25 +513,35 @@ def main(argv):
     if "--profile" in argv:
         phase_profile(state, argv[argv.index("--profile") + 1])
 
-    big = next(r for r in rows if r["tree"] == "bench-pi15" and (r["n"], r["m"]) == (256, 10_000))
-    kernels = {"kernels": [{
-        "name": "gram",
-        "route": "cuda",
-        "source": "gpar_torch/csrc/gram.cu",
-        "replaces": "gpar_tpu/ops/pallas_gram.py:167",
-        "launches": main_res["launches"],
-        "check": "kernel == plain at f32 rtol/atol 1e-5 and f64 1e-12; fused-Gram gradient == autograd",
-        "max_abs_err": worst[torch.float32],
-        "ms": big["ms"],
-        "kernel_ms": big["ms"],
-        "plain_ms": big["plain_ms"],
-        "bound_ms": big["bound_ms"],
-        "bound_by": big["bound_by"],
-        "library_ms": None,
-        "shape": [big["n"], big["m"], big["d"]],
-        "dtype": "float32",
-        "per_shape": rows,
-    }]}
+    sources = {
+        "gram": ("gpar_torch/csrc/gram.cu", "gpar_tpu/ops/pallas_gram.py:167", "launches",
+                 "kernel == plain at f32 rtol/atol 1e-5 and f64 1e-12"),
+        "gram_bwd": ("gpar_torch/csrc/gram.cu", "gpar_tpu/ops/pallas_gram.py:289",
+                     "bwd_launches",
+                     "max|err|/max|plain| <= 1e-4 at f32 and 1e-10 at f64; fused-Gram gradient "
+                     "within 1e-5 (f32) / 1e-10 (f64) of the float64 recursion's"),
+    }
+    kernels = {"kernels": []}
+    for name, (source, replaces, count, check) in sources.items():
+        big = next(r for r in rows[name] if r["tree"] == "bench-pi15" and (r["n"], r["m"]) == (256, 10_000))
+        kernels["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": main_res[count],
+            "check": check,
+            "max_abs_err": worst[name][torch.float32],
+            "ms": big["ms"],
+            "kernel_ms": big["ms"],
+            "plain_ms": big["plain_ms"],
+            "bound_ms": big["bound_ms"],
+            "bound_by": big["bound_by"],
+            "library_ms": None,
+            "shape": [big["n"], big["m"], big["d"]],
+            "dtype": "float32",
+            "per_shape": rows[name],
+        })
     print("[main] " + json.dumps(main_res))
     print(json.dumps(kernels))
     print(card)

@@ -1,10 +1,11 @@
 """Fused composite-kernel Gram construction: analyser, feature preparation,
-the hand-written Hopper kernel's wrapper, its plain PyTorch version, and
-the autograd function around them.
+the hand-written Hopper kernels' wrappers (forward and backward), their
+plain PyTorch versions, and the autograd function around them.
 
 Port of ``gpar_tpu/ops/pallas_gram.py`` (the one Pallas kernel of the JAX
-package, ``_gram_kernel_body``).  The kernel itself is CUDA C++ in
-``gpar_torch/csrc/gram.cu``, built by ``ops/_build.py``.
+package, ``_gram_kernel_body``, and its custom VJP).  The kernels are CUDA
+C++, forward and backward in ``gpar_torch/csrc/gram.cu``, built by
+``ops/_build.py``.
 
 1. :func:`analyze_kernel` flattens a kernel tree into term specs.  Input
    rewrites (stretch, periodic embedding, select — and, unlike the JAX
@@ -14,19 +15,21 @@ package, ``_gram_kernel_body``).  The kernel itself is CUDA C++ in
    along.  Supported leaves: EQ, RQ, Linear, Const.  A term wider than 128
    features, more than ``MAX_TERMS`` terms, or any other structure (e.g.
    ``RQ * RQ``) is refused and evaluated by ``ops.kernels.gram_eval``.
-2. :func:`_prepare` evaluates the feature maps and concatenates them at
-   their true widths into ``xf (n, D)`` / ``yf (m, D)``, with the weights,
-   RQ alphas and the constant offset in one small parameter vector.
-3. :func:`gram_kernel_launch` runs the CUDA kernel on CUDA tensors;
-   :func:`gram_terms_plain` is the same function in PyTorch ops and is what
-   a CPU tensor gets.  There is no fallback: a CUDA tensor launches the
-   kernel or raises.
-4. :class:`_GramFn` is the ``torch.autograd.Function``: the forward is the
-   kernel (or the plain version on the CPU); the backward recomputes the
-   plain recursion ``gram_eval`` under autograd and returns its VJP,
-   mirroring the JAX package's ``_bwd``.  The tree's hyperparameter
-   tensors enter ``forward`` as flattened arguments so their gradients are
-   returned.
+2. :func:`_prepare` evaluates the feature maps under ordinary autograd and
+   concatenates them at their true widths into ``xf (n, D)`` / ``yf (m, D)``,
+   ``D`` padded with zero columns to a multiple of 4, with the weights, RQ
+   alphas and the constant offset in one small parameter vector ``par``.
+3. :func:`gram_kernel_launch` and :func:`gram_bwd_kernel_launch` run the CUDA
+   kernels on CUDA tensors; :func:`gram_terms_plain` and
+   :func:`gram_terms_plain_vjp` are the same functions in PyTorch ops and
+   are what a CPU tensor gets.  There is no fallback: a CUDA tensor
+   launches the kernel or raises.
+4. :class:`_GramFn` is the ``torch.autograd.Function`` on the prepared
+   terms, ``(kinds, dims, xf, yf, par) -> K``: forward and backward are the
+   kernels (their plain versions on the CPU).  Autograd carries the
+   backward's ``(dxf, dyf, dpar)`` through the feature maps and ``par``
+   into ``x``, ``y`` and the tree's hyperparameters; no tree is
+   re-evaluated in the backward.
 """
 
 import ctypes
@@ -34,6 +37,7 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import kernels as K
 
@@ -42,11 +46,16 @@ __all__ = [
     "supported",
     "gram_fused_or_none",
     "gram_terms_plain",
+    "gram_terms_plain_vjp",
     "gram_kernel_launch",
+    "gram_bwd_kernel_launch",
     "prepare_terms",
     "reset_counters",
     "gram_kernel_launches",
     "gram_plain_cuda_calls",
+    "gram_bwd_kernel_launches",
+    "gram_eval_cuda_calls",
+    "map_leaves",
 ]
 
 LANES = 128
@@ -56,15 +65,22 @@ KIND_CODES = {"rbf": 0, "rq": 1, "lin": 2}
 
 #: Launches of the CUDA Gram kernel (incremented by the wrapper only).
 gram_kernel_launches = 0
+#: Launches of the CUDA Gram backward kernel (incremented by its wrapper only).
+gram_bwd_kernel_launches = 0
 #: Grams of CUDA tensors evaluated by ``gram_eval`` because the analyser
 #: refused the tree.
 gram_plain_cuda_calls = 0
+#: Calls of ``ops.kernels.gram_eval`` on CUDA tensors, from anywhere.
+gram_eval_cuda_calls = 0
 
 
 def reset_counters():
-    global gram_kernel_launches, gram_plain_cuda_calls
+    global gram_kernel_launches, gram_bwd_kernel_launches
+    global gram_plain_cuda_calls, gram_eval_cuda_calls
     gram_kernel_launches = 0
+    gram_bwd_kernel_launches = 0
     gram_plain_cuda_calls = 0
+    gram_eval_cuda_calls = 0
 
 
 class _Term(NamedTuple):
@@ -182,8 +198,10 @@ def _scalar(v, like):
 
 def _prepare(terms, const, x, y):
     """Feature maps -> ``(kinds, dims, xf, yf, par)``: features at their
-    true widths, concatenated; ``par = [w_0..w_{T-1}, alpha_0..alpha_{T-1},
-    const]``; everything in ``x``'s dtype."""
+    true widths, concatenated and padded with zero columns to a width that
+    is a multiple of 4 (rows load as 16-byte vectors in the kernels);
+    ``par = [w_0..w_{T-1}, alpha_0..alpha_{T-1}, const]``; everything in
+    ``x``'s dtype, computed under ordinary autograd."""
     us, vs, dims, ws, alphas = [], [], [], [], []
     for t in terms:
         u = t.feats(x).to(x.dtype)
@@ -193,6 +211,10 @@ def _prepare(terms, const, x, y):
         dims.append(u.shape[1])
         ws.append(_scalar(t.weight, x))
         alphas.append(_scalar(1.0 if t.alpha is None else t.alpha, x))
+    pad = -sum(dims) % 4
+    if pad:
+        us.append(x.new_zeros((x.shape[0], pad)))
+        vs.append(x.new_zeros((y.shape[0], pad)))
     xf = torch.cat(us, dim=1).contiguous()
     yf = torch.cat(vs, dim=1).contiguous()
     par = torch.stack(ws + alphas + [_scalar(const, x)])
@@ -236,111 +258,209 @@ def gram_terms_plain(kinds, dims, xf, yf, par):
     return acc + par[2 * T]
 
 
+def gram_terms_plain_vjp(kinds, dims, xf, yf, par, g):
+    """The backward kernel's function in plain PyTorch ops: the VJP of
+    :func:`gram_terms_plain` for the upstream gradient ``g (n, m)``, written
+    out per term with direct differences; returns ``(dxf, dyf, dpar)``,
+    zero in the pad columns."""
+    T = len(kinds)
+    dxf, dyf = torch.zeros_like(xf), torch.zeros_like(yf)
+    zero = par.new_zeros(())
+    dws, das = [], []
+    off = 0
+    for t, (kind, d) in enumerate(zip(kinds, dims)):
+        u = xf[:, off : off + d]
+        v = yf[:, off : off + d]
+        w = par[t]
+        if kind == "lin":
+            dxf[:, off : off + d] = w * (g @ v)
+            dyf[:, off : off + d] = w * (g.T @ u)
+            dws.append(torch.sum(g * (u @ v.T)))
+            das.append(zero)
+        else:
+            diff = u[:, None, :] - v[None, :, :]
+            s = torch.sum(diff * diff, dim=-1)
+            if kind == "rbf":
+                ge = g * torch.exp(-0.5 * s)
+                P = -0.5 * w * ge
+                dws.append(torch.sum(ge))
+                das.append(zero)
+            else:
+                alpha = par[T + t]
+                h = s / (2.0 * alpha)
+                lr = torch.log1p(h)
+                gr = g * torch.exp(-alpha * lr)
+                P = -0.5 * w * gr / (1.0 + h)
+                dws.append(torch.sum(gr))
+                das.append(torch.sum(w * gr * (h / (1.0 + h) - lr)))
+            dxf[:, off : off + d] = 2.0 * torch.einsum("ij,ijk->ik", P, diff)
+            dyf[:, off : off + d] = -2.0 * torch.einsum("ij,ijk->jk", P, diff)
+        off += d
+    return dxf, dyf, torch.stack(dws + das + [torch.sum(g)])
+
+
+def _check_terms(what, kinds, dims, xf, yf, par):
+    """The checks both kernels' wrappers make on prepared terms."""
+    if not (xf.is_cuda and yf.is_cuda and par.is_cuda):
+        raise ValueError(f"{what}: tensors must be on a CUDA device")
+    if not (xf.device == yf.device == par.device):
+        raise ValueError(f"{what}: tensors on different devices")
+    if xf.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{what}: unsupported dtype {xf.dtype}")
+    if yf.dtype != xf.dtype or par.dtype != xf.dtype:
+        raise TypeError(f"{what}: mixed dtypes")
+    if xf.ndim != 2 or yf.ndim != 2 or xf.shape[1] != yf.shape[1]:
+        raise ValueError(f"{what}: xf/yf must be (n, D) and (m, D)")
+    T = len(kinds)
+    if not 1 <= T <= MAX_TERMS or len(dims) != T or par.shape != (2 * T + 1,):
+        raise ValueError(f"{what}: bad term specification")
+    D = xf.shape[1]
+    if not sum(dims) <= D < sum(dims) + 4 or D % 4 or any(not 0 < d <= LANES for d in dims):
+        raise ValueError(f"{what}: term widths do not match the padded features")
+    if not (xf.is_contiguous() and yf.is_contiguous() and par.is_contiguous()):
+        raise ValueError(f"{what}: tensors must be contiguous")
+    if (xf.data_ptr() | yf.data_ptr()) % 16:
+        raise ValueError(f"{what}: features must be 16-byte aligned")
+
+
+def _c_terms(kinds, dims):
+    T = len(kinds)
+    offs = [0]
+    for d in dims[:-1]:
+        offs.append(offs[-1] + d)
+    arr = ctypes.c_int * T
+    return arr(*(KIND_CODES[k] for k in kinds)), arr(*offs), arr(*dims)
+
+
+def _raise_on(lib, rc, what):
+    if rc != 0:
+        msg = lib.gpar_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} failed ({rc}): {msg}")
+
+
 def gram_kernel_launch(kinds, dims, xf, yf, par):
     """Launch the CUDA Gram kernel on prepared terms (CUDA tensors only);
     returns the (n, m) Gram.  Raises on anything the kernel does not take
     and on a refused launch."""
     global gram_kernel_launches
-    if not (xf.is_cuda and yf.is_cuda and par.is_cuda):
-        raise ValueError("gram_kernel_launch: tensors must be on a CUDA device")
-    if not (xf.device == yf.device == par.device):
-        raise ValueError("gram_kernel_launch: tensors on different devices")
-    if xf.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"gram_kernel_launch: unsupported dtype {xf.dtype}")
-    if yf.dtype != xf.dtype or par.dtype != xf.dtype:
-        raise TypeError("gram_kernel_launch: mixed dtypes")
-    if xf.ndim != 2 or yf.ndim != 2 or xf.shape[1] != yf.shape[1]:
-        raise ValueError("gram_kernel_launch: xf/yf must be (n, D) and (m, D)")
-    T = len(kinds)
-    if not 1 <= T <= MAX_TERMS or len(dims) != T or par.shape != (2 * T + 1,):
-        raise ValueError("gram_kernel_launch: bad term specification")
-    if sum(dims) != xf.shape[1] or any(not 0 < d <= LANES for d in dims):
-        raise ValueError("gram_kernel_launch: term widths do not match the features")
-    if not (xf.is_contiguous() and yf.is_contiguous() and par.is_contiguous()):
-        raise ValueError("gram_kernel_launch: tensors must be contiguous")
+    _check_terms("gram_kernel_launch", kinds, dims, xf, yf, par)
     n, m, D = xf.shape[0], yf.shape[0], xf.shape[1]
     out = torch.empty((n, m), dtype=xf.dtype, device=xf.device)
     if n == 0 or m == 0:
         return out
     from ._build import load_library
 
-    lib = load_library("gram")
-    offs = [0]
-    for d in dims[:-1]:
-        offs.append(offs[-1] + d)
-    arr = ctypes.c_int * T
-    c_kinds = arr(*(KIND_CODES[k] for k in kinds))
-    c_offs = arr(*offs)
-    c_dims = arr(*dims)
+    lib = load_library()
     fn = lib.gpar_gram_f32 if xf.dtype == torch.float32 else lib.gpar_gram_f64
     with torch.cuda.device(xf.device):
         stream = torch.cuda.current_stream(xf.device).cuda_stream
         rc = fn(
             xf.data_ptr(), yf.data_ptr(), par.data_ptr(), out.data_ptr(),
-            n, m, D, T, c_kinds, c_offs, c_dims, stream,
+            n, m, D, len(kinds), *_c_terms(kinds, dims), stream,
         )
-    if rc != 0:
-        msg = lib.gpar_cuda_error_string(rc).decode()
-        raise RuntimeError(f"gram kernel launch failed ({rc}): {msg}")
+    _raise_on(lib, rc, "gram kernel launch")
     gram_kernel_launches += 1
     return out
+
+
+#: The backward kernel's tile (``BwdCfg`` in ``gram.cu``, which checks the
+#: plan): columns a block owns, by dtype, and rows per step.
+_BWD_COLS = {torch.float32: 128, torch.float64: 64}
+_BWD_ROWS = 16
+
+
+def _bwd_plan(n, m, n_terms, dtype, device):
+    """``(column tiles, row splits, rows per split)`` of one backward launch,
+    which size its partial buffers.  Rows are split only as far as it takes
+    to give every SM two blocks."""
+    ct = -(-m // _BWD_COLS[dtype])
+    steps = -(-n // _BWD_ROWS)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splits = min(max(-(-2 * sms // (ct * n_terms)), 1), steps)
+    rps = -(-steps // splits) * _BWD_ROWS
+    return ct, -(-n // rps), rps
+
+
+def gram_bwd_kernel_launch(kinds, dims, xf, yf, par, g):
+    """Launch the CUDA Gram backward kernel (CUDA tensors only): the VJP of
+    :func:`gram_kernel_launch` for the upstream gradient ``g (n, m)``;
+    returns ``(dxf, dyf, dpar)``.  Raises on anything the kernel does not
+    take and on a refused launch."""
+    global gram_bwd_kernel_launches
+    _check_terms("gram_bwd_kernel_launch", kinds, dims, xf, yf, par)
+    n, m, D = xf.shape[0], yf.shape[0], xf.shape[1]
+    if g.shape != (n, m) or g.dtype != xf.dtype or g.device != xf.device:
+        raise ValueError("gram_bwd_kernel_launch: g must be (n, m) like the forward's output")
+    if not g.is_contiguous():
+        raise ValueError("gram_bwd_kernel_launch: g must be contiguous")
+    dxf, dyf, dpar = torch.empty_like(xf), torch.empty_like(yf), torch.empty_like(par)
+    if n == 0 or m == 0:
+        return dxf.zero_(), dyf.zero_(), dpar.zero_()
+    from ._build import load_library
+
+    lib = load_library()
+    T = len(kinds)
+    ct, r, rps = _bwd_plan(n, m, T, xf.dtype, xf.device)
+    fn = lib.gpar_gram_bwd_f64 if xf.dtype == torch.float64 else lib.gpar_gram_bwd_f32
+    # Per-block partials, summed in a fixed order by the second kernel.
+    du_part = torch.empty((ct, n, D), dtype=xf.dtype, device=xf.device)
+    dv_part = torch.empty((r, m, D), dtype=xf.dtype, device=xf.device)
+    sc_part = torch.empty((3, T, ct, r), dtype=xf.dtype, device=xf.device)
+    with torch.cuda.device(xf.device):
+        stream = torch.cuda.current_stream(xf.device).cuda_stream
+        rc = fn(
+            xf.data_ptr(), yf.data_ptr(), par.data_ptr(), g.data_ptr(),
+            dxf.data_ptr(), dyf.data_ptr(), dpar.data_ptr(),
+            du_part.data_ptr(), dv_part.data_ptr(), sc_part.data_ptr(),
+            n, m, D, T, *_c_terms(kinds, dims), ct, r, rps, stream,
+        )
+    _raise_on(lib, rc, "gram backward kernel launch")
+    gram_bwd_kernel_launches += 1
+    return dxf, dyf, dpar
+
+
+def map_leaves(k, fn):
+    """``(tree, leaves)``: the kernel tree ``k`` with every tensor field
+    replaced by ``fn(field)``, and those new tensors depth-first in field
+    order.  For callers that differentiate with respect to a tree's
+    hyperparameters or move it to another device."""
+    changes, leaves = {}, []
+    for f in dataclasses.fields(k):
+        v = getattr(k, f.name)
+        if isinstance(v, torch.Tensor):
+            changes[f.name] = fn(v)
+            leaves.append(changes[f.name])
+        elif dataclasses.is_dataclass(v):
+            changes[f.name], sub = map_leaves(v, fn)
+            leaves.extend(sub)
+    return (dataclasses.replace(k, **changes) if changes else k), leaves
 
 
 # -- autograd ----------------------------------------------------------------
 
 
-def _leaves(k):
-    """The tree's tensor fields, depth-first in field order."""
-    out = []
-    for f in dataclasses.fields(k):
-        v = getattr(k, f.name)
-        if isinstance(v, K.Kernel):
-            out.extend(_leaves(v))
-        elif isinstance(v, torch.Tensor):
-            out.append(v)
-    return out
-
-
-def _with_leaves(k, leaves):
-    """The same tree with its tensor fields replaced, in :func:`_leaves`
-    order; returns ``(tree, remaining leaves)``."""
-    changes = {}
-    for f in dataclasses.fields(k):
-        v = getattr(k, f.name)
-        if isinstance(v, K.Kernel):
-            changes[f.name], leaves = _with_leaves(v, leaves)
-        elif isinstance(v, torch.Tensor):
-            changes[f.name], leaves = leaves[0], leaves[1:]
-    return (dataclasses.replace(k, **changes) if changes else k), leaves
-
-
 class _GramFn(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, kernel, x, y, *leaves):
-        kinds, dims, xf, yf, par = prepare_terms(kernel, x, y)
-        if x.is_cuda:
-            out = gram_kernel_launch(kinds, dims, xf, yf, par)
-        else:
-            out = gram_terms_plain(kinds, dims, xf, yf, par)
-        ctx.kernel = kernel
-        ctx.save_for_backward(x, y, *leaves)
-        return out
+    """``(kinds, dims, xf, yf, par) -> K`` on prepared terms: the forward and
+    backward kernels on CUDA tensors, their plain versions on CPU tensors."""
 
     @staticmethod
+    def forward(ctx, kinds, dims, xf, yf, par):
+        ctx.terms = (kinds, dims)
+        ctx.save_for_backward(xf, yf, par)
+        if xf.is_cuda:
+            return gram_kernel_launch(kinds, dims, xf, yf, par)
+        return gram_terms_plain(kinds, dims, xf, yf, par)
+
+    @staticmethod
+    @once_differentiable
     def backward(ctx, g):
-        x, y, *leaves = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        with torch.enable_grad():
-            xs = x.detach().requires_grad_(need[1])
-            ys = y.detach().requires_grad_(need[2])
-            lv = [l.detach().requires_grad_(n) for l, n in zip(leaves, need[3:])]
-            tree, _ = _with_leaves(ctx.kernel, lv)
-            out = K.gram_eval(tree, xs, ys)
-            wrt = [t for t in (xs, ys, *lv) if t.requires_grad]
-            grads = iter(
-                torch.autograd.grad(out, wrt, g, allow_unused=True) if wrt else ()
-            )
-        return (None, *(next(grads) if t.requires_grad else None for t in (xs, ys, *lv)))
+        xf, yf, par = ctx.saved_tensors
+        g = g.contiguous()
+        if xf.is_cuda:
+            grads = gram_bwd_kernel_launch(*ctx.terms, xf, yf, par, g)
+        else:
+            grads = gram_terms_plain_vjp(*ctx.terms, xf, yf, par, g)
+        return (None, None, *grads)
 
 
 def gram_fused_or_none(kernel, x, y):
@@ -348,7 +468,7 @@ def gram_fused_or_none(kernel, x, y):
     in :func:`gpar_torch.ops.kernels.gram` then evaluates ``gram_eval``)."""
     if x.ndim != 2 or y.ndim != 2 or x.dtype not in (torch.float32, torch.float64):
         return None
-    if analyze_kernel(kernel, x.shape[1]) is None:
+    parsed = analyze_kernel(kernel, x.shape[1])
+    if parsed is None:
         return None
-    return _GramFn.apply(kernel, x, y, *_leaves(kernel))
-
+    return _GramFn.apply(*_prepare(*parsed, x, y))

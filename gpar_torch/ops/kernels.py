@@ -9,9 +9,8 @@ are tensor fields (autograd flows through them); structure is the tree.
 Evaluation has two routes:
 
 - :func:`gram_eval` / :func:`kdiag` — the plain recursion over the
-  combinators, in PyTorch ops.  It is the reference semantics, the
-  gradient path of the hand-written Gram kernel, and the evaluator of any
-  tree the kernel's analyser refuses.
+  combinators, in PyTorch ops.  It is the reference semantics and the
+  evaluator of any tree the kernel's analyser refuses.
 - :func:`gram` — the dispatch: a tree the analyser of
   ``ops/gram_kernel.py`` accepts runs through the hand-written kernel (on
   a CUDA tensor) or its plain PyTorch version (on a CPU tensor); other
@@ -240,23 +239,32 @@ def gram(k, x, y):
 
 def gram_eval(k, x, y):
     """Plain evaluation of the kernel tree (recursion over the
-    combinators); also the gradient path of the fused Gram."""
+    combinators).  Calls on CUDA tensors are counted
+    (``gram_kernel.gram_eval_cuda_calls``): the main path makes none."""
+    if x.is_cuda:
+        from . import gram_kernel
+
+        gram_kernel.gram_eval_cuda_calls += 1
+    return _gram_eval(k, x, y)
+
+
+def _gram_eval(k, x, y):
     if isinstance(k, Sum):
-        return gram_eval(k.k1, x, y) + gram_eval(k.k2, x, y)
+        return _gram_eval(k.k1, x, y) + _gram_eval(k.k2, x, y)
     if isinstance(k, Product):
-        return gram_eval(k.k1, x, y) * gram_eval(k.k2, x, y)
+        return _gram_eval(k.k1, x, y) * _gram_eval(k.k2, x, y)
     if isinstance(k, Scaled):
-        return k.scale * gram_eval(k.k, x, y)
+        return k.scale * _gram_eval(k.k, x, y)
     if isinstance(k, Stretch):
-        return gram_eval(k.k, x / k.scales, y / k.scales)
+        return _gram_eval(k.k, x / k.scales, y / k.scales)
     if isinstance(k, Periodic):
-        return gram_eval(
+        return _gram_eval(
             k.k, _embed_periodic(x, k.period), _embed_periodic(y, k.period)
         )
     if isinstance(k, Select):
-        return gram_eval(k.k, _select(x, k.inds), _select(y, k.inds))
+        return _gram_eval(k.k, _select(x, k.inds), _select(y, k.inds))
     if isinstance(k, Gate):
-        return gram_eval(k.k, x * k.gates, y * k.gates)
+        return _gram_eval(k.k, x * k.gates, y * k.gates)
     if isinstance(k, EQ):
         return torch.exp(-0.5 * sq_dists(x, y))
     if isinstance(k, RQ):

@@ -1,0 +1,119 @@
+"""The Gram backward of gpar_torch against gpar_tpu and against autograd.
+
+``gram_terms_plain_vjp`` is the plain version of the hand-written backward
+kernel (in ``gpar_torch/csrc/gram.cu``).  For every tree the fused tests
+cover, the same seeded inputs and upstream gradient ``R`` go through it
+(chained through the port's feature maps by autograd) and through
+``jax.vjp`` of the JAX package's ``gram``; both are float64 and differ only
+in summation order, so they agree to rtol 1e-10, atol 1e-12.
+"""
+
+import numpy as np
+import pytest
+
+from .test_torch_common import close, jax, jnp, torch
+from .test_torch_kernels import FUSED, _build, _inputs
+
+import gpar_tpu.ops.kernels as JK  # noqa: E402
+
+import gpar_torch.ops.kernels as TK  # noqa: E402
+from gpar_torch.ops import gram_kernel as GK  # noqa: E402
+
+
+def _upstream(n, m, seed=9):
+    return np.random.default_rng(seed).normal(size=(n, m))
+
+
+@pytest.mark.parametrize("case", FUSED)
+def test_plain_vjp_matches_jax_vjp(case):
+    kj, kt, d = _build(case, np.float64)
+    x, y = _inputs(d, np.float64)
+    R = _upstream(x.shape[0], y.shape[0])
+
+    xt = torch.as_tensor(x).requires_grad_(True)
+    yt = torch.as_tensor(y).requires_grad_(True)
+    tree, leaves = GK.map_leaves(kt, lambda l: l.detach().requires_grad_(True))
+    kinds, dims, xf, yf, par = GK.prepare_terms(tree, xt, yt)
+    cot = GK.gram_terms_plain_vjp(kinds, dims, xf.detach(), yf.detach(), par.detach(),
+                                  torch.as_tensor(R))
+    live = [(o, c) for o, c in zip((xf, yf, par), cot) if o.requires_grad]
+    got = torch.autograd.grad([o for o, _ in live], [xt, yt, *leaves], [c for _, c in live],
+                              allow_unused=True)
+
+    _, vjp = jax.vjp(lambda k, a, b: JK.gram(k, a, b), kj, jnp.asarray(x), jnp.asarray(y))
+    gk, gx, gy = vjp(jnp.asarray(R))
+    want = [gx, gy, *jax.tree_util.tree_leaves(gk)]
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        a = torch.zeros(tuple(np.shape(b)), dtype=torch.float64) if a is None else a
+        close(a, b, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("case", FUSED)
+def test_plain_vjp_matches_autograd_of_plain(case):
+    _, kt, d = _build(case, np.float64)
+    x, y = _inputs(d, np.float64)
+    R = torch.as_tensor(_upstream(x.shape[0], y.shape[0]))
+    kinds, dims, xf, yf, par = GK.prepare_terms(kt, torch.as_tensor(x), torch.as_tensor(y))
+    prep = [t.detach().requires_grad_(True) for t in (xf, yf, par)]
+    want = torch.autograd.grad(GK.gram_terms_plain(kinds, dims, *prep), prep, R)
+    got = GK.gram_terms_plain_vjp(kinds, dims, *[t.detach() for t in prep], R)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        close(a, b, rtol=1e-10, atol=1e-12)
+
+
+def test_prepared_features_are_padded_to_four():
+    _, kt, d = _build("bench-pi2", np.float64)  # widths 1 + 2 + 2
+    x, y = _inputs(d, np.float64)
+    kinds, dims, xf, yf, par = GK.prepare_terms(kt, torch.as_tensor(x), torch.as_tensor(y))
+    assert sum(dims) == 5 and xf.shape[1] == yf.shape[1] == 8
+    assert not torch.any(xf[:, 5:]) and not torch.any(yf[:, 5:])
+    dxf, dyf, _ = GK.gram_terms_plain_vjp(kinds, dims, xf, yf, par,
+                                          torch.ones(x.shape[0], y.shape[0], dtype=torch.float64))
+    assert not torch.any(dxf[:, 5:]) and not torch.any(dyf[:, 5:])
+
+
+def test_cpu_backward_launches_nothing_and_never_evaluates_the_tree(monkeypatch):
+    _, kt, d = _build("layer-kernel-gated", np.float64)
+    x, y = _inputs(d, np.float64)
+
+    def refuse(*args):
+        raise AssertionError("the fused Gram's backward re-evaluated the tree")
+
+    xt = torch.as_tensor(x).requires_grad_(True)
+    yt = torch.as_tensor(y).requires_grad_(True)
+    tree, leaves = GK.map_leaves(kt, lambda l: l.detach().requires_grad_(True))
+    GK.reset_counters()
+    monkeypatch.setattr(TK, "_gram_eval", refuse)
+    out = TK.gram(tree, xt, yt)
+    grads = torch.autograd.grad(torch.sum(out * out), [xt, yt, *leaves])
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert (GK.gram_kernel_launches, GK.gram_bwd_kernel_launches,
+            GK.gram_plain_cuda_calls, GK.gram_eval_cuda_calls) == (0, 0, 0, 0)
+    kinds, dims, xf, yf, par = GK.prepare_terms(kt, torch.as_tensor(x), torch.as_tensor(y))
+    with pytest.raises(ValueError, match="CUDA"):
+        GK.gram_bwd_kernel_launch(kinds, dims, xf, yf, par, out.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+def test_cuda_backward_kernel_matches_plain(dtype, tol):
+    # Tolerance relative to the largest entry of each plain gradient: the
+    # kernel sums over 133 or 300 terms in another order than the plain
+    # version.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    dev = torch.device("cuda")
+    for case in FUSED:
+        _, kt, d = _build(case, npdt)
+        x, y = _inputs(d, npdt, n=300, m=133)
+        kt_dev, _ = GK.map_leaves(kt, lambda l: l.to(dev))
+        prep = GK.prepare_terms(kt_dev, torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev))
+        g = torch.as_tensor(_upstream(300, 133).astype(npdt), device=dev)
+        got = GK.gram_bwd_kernel_launch(*prep, g)
+        torch.cuda.synchronize()
+        for a, b in zip(got, GK.gram_terms_plain_vjp(*prep, g)):
+            scale = max(float(b.abs().max()), 1e-30)
+            assert float((a - b).abs().max()) <= tol * scale, case

@@ -121,12 +121,20 @@ CASES = {
     "bench-pi1": (lambda fw: fw.bench_tree(1), 2),
     "bench-pi2": (lambda fw: fw.bench_tree(2), 3),
     "layer-kernel-gated": (lambda fw: _layer_kernel_tree(fw), 4),
+    # 264 features (rbf and lin terms of 120, rq of 24): wider than the CUDA
+    # kernels' staging chunks and the backward's default shared memory.
+    "wide": (
+        lambda fw: fw.P(1.1) * fw.K.EQ().stretch(fw.P(np.linspace(6.0, 10.0, 120)))
+        + fw.K.Linear().stretch(fw.P(np.linspace(8.0, 12.0, 120)))
+        + fw.K.RQ(fw.P(0.8)).stretch(fw.P(np.linspace(2.0, 4.0, 24))).select(list(range(24))),
+        120,
+    ),
 }
 #: Cases the Pallas TPU kernel's test file covers (tests/test_pallas_gram.py)
-#: plus the benchmark's select tree and a gate tree.
+#: plus the benchmark's select tree, a gate tree and the wide tree.
 FUSED = [
     "eq", "scaled-stretch-eq", "rq", "stretch-linear", "sum", "periodic",
-    "select", "gate", "bench-pi1", "bench-pi2", "layer-kernel-gated",
+    "select", "gate", "bench-pi1", "bench-pi2", "layer-kernel-gated", "wide",
 ]
 
 
@@ -190,12 +198,11 @@ def test_gram_fn_gradients_match(case):
     def torch_grads(fn):
         xt = torch.as_tensor(x).requires_grad_(True)
         yt = torch.as_tensor(y).requires_grad_(True)
-        leaves = [l.detach().requires_grad_(True) for l in GK._leaves(kt)]
-        tree, _ = GK._with_leaves(kt, leaves)
+        tree, leaves = GK.map_leaves(kt, lambda l: l.detach().requires_grad_(True))
         loss = torch.sum(fn(tree, xt, yt) * torch.as_tensor(R))
         return torch.autograd.grad(loss, [xt, yt, *leaves])
 
-    fused = torch_grads(lambda k, a, b: GK._GramFn.apply(k, a, b, *GK._leaves(k)))
+    fused = torch_grads(GK.gram_fused_or_none)
     plain = torch_grads(TK.gram_eval)
 
     def jloss(k, a, b):
@@ -257,8 +264,7 @@ def test_cuda_kernel_matches_plain(dtype, tol):
         _, kt, d = _build(case, npdt)
         x, y = _inputs(d, npdt, n=300, m=133)
         dev = torch.device("cuda")
-        leaves = [l.to(dev) for l in GK._leaves(kt)]
-        kt_dev, _ = GK._with_leaves(kt, leaves)
+        kt_dev, _ = GK.map_leaves(kt, lambda l: l.to(dev))
         prep = GK.prepare_terms(kt_dev, torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev))
         got = GK.gram_kernel_launch(*prep)
         torch.cuda.synchronize()
