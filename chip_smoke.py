@@ -11,11 +11,13 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 2. Kernel check: the CUDA Gram kernel and the CUDA Gram backward kernel
    against their plain PyTorch versions on the card, on the benchmark's
    layer kernels at the main path's shapes — (256, 256), (256, 10000),
-   (256, 1024), (1024, 1024), input widths 1 and 16 — plus a gated layer
-   kernel, a ragged (37, 23) shape, and a tree of 264 features (one term
-   of 120), wider than the kernels' staging chunks, at (37, 23) and
-   (256, 1024).  Forward: rtol/atol 1e-5 in float32, 1e-12 in float64.
-   Backward: max |err| / max |plain| at most 1e-4 in float32 (its
+   (256, 1024), (1024, 1024), input widths 1 and 16 — plus the scan
+   path's gated layer kernel (width W = m + p = 17, three terms) at its
+   shapes: Kmn (256, 11840), Kmm (256, 256), Kmt (256, 1216) and the test
+   covariance (1216, 1216); a ragged (37, 23) shape, and a tree of 264
+   features (one term of 120), wider than the kernels' staging chunks, at
+   (37, 23) and (256, 1024).  Forward: rtol/atol 1e-5 in float32, 1e-12
+   in float64.  Backward: max |err| / max |plain| at most 1e-4 in float32 (its
    10 000-long sums run in another order) and 1e-10 in float64.  The
    gradient of the fused Gram against autograd of the plain recursion run
    in float64 (on the upcast inputs in the float32 case): max |err| /
@@ -24,19 +26,31 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 3. Main path at full width: ``GPARRegressor.fit_predict`` at the
    benchmark's configuration (``bench.py``): n=10 000, p=16, 256 inducing
    points, 10 L-BFGS iterations per layer, 100-sample predictive with
-   credible bounds at 1024 test inputs, float32, jitter 1e-6; held to the
-   benchmark's ``10k`` quality gates; every Gram must have gone through the
-   kernel (no plain-route Gram, no ``gram_eval`` on the card) and every
-   Gram taken under autograd through the backward kernel.  Cold and warm
-   wall-clocks; the two runs must give identical results (no atomics).
+   credible bounds at 1024 test inputs, float32, jitter 1e-6, through the
+   scan-fused path (rows bucketed to 11 840, test rows to 1216), its layer
+   step captured once as CUDA graphs and replayed for every layer and
+   iteration; held to the benchmark's ``10k`` quality gates; every Gram
+   must have gone through the kernel (no plain-route Gram, no
+   ``gram_eval`` on the card), every Gram taken under autograd through the
+   backward kernel, and the graph replays must have launched both.  Cold
+   (captures included) and warm wall-clocks; the two runs must give
+   identical results (no atomics); the host reads are held to one per
+   L-BFGS iteration, backtracking trial and episode, and one per fit.
+   Then the same fit with the step run eagerly on the card
+   (``cuda_graphs=False``), which
+   must give the graphed run's bits, and the per-layer driver
+   (``fused=False``), which must pass the gates too.
 4. Small-input agreement: a float64 fit_predict (p=3, n=100, 8 inducing
-   points) on the card against the same run on the CPU (the CPU route is
-   held against the JAX package by the test suite), rtol 1e-6.
+   points) through the scan path on the card (graphed) against the same
+   run on the CPU (eager; the CPU route is held against the JAX package by
+   the test suite), rtol 1e-6.
 5. Summary: a ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
-``--profile DIR`` additionally traces one warm fit_predict with
-``torch.profiler`` and writes the per-kernel table to ``DIR``.
+``--profile DIR`` additionally traces one warm (graphed) fit_predict with
+``torch.profiler``, writes the per-kernel table to ``DIR``, prints the
+device time by kind of kernel and holds the Gram kernels' launch counters
+against the profiler's count of their kernels.
 """
 
 import json
@@ -55,6 +69,11 @@ H100_FP64_FLOPS = 34e12  # float64 outside the tensor cores
 
 # The benchmark's golden quality gates (bench.py QUALITY_GATES["10k"]).
 GATES = dict(mean_smse=5e-4, worst_smse=2e-3, nll_decrease=5e4)
+
+#: The scan path's Grams on the main path: Kmn and Kmm of the fit (rows
+#: bucketed 10 000 -> 11 840), Kmt and the test covariance of the predict
+#: tail (test rows 1024 -> 1216).
+SCAN_SHAPES = [(256, 11_840), (256, 256), (256, 1216), (1216, 1216)]
 
 
 def make_data(n=10_000, p=16, seed=0):
@@ -188,10 +207,11 @@ def layer_tree(pi, dtype, device, seed=1):
     return gen()[0].kernel
 
 
-def gated_tree(dtype, device, m=1, P1=15, pi=9):
-    """A gated layer kernel built like the JAX scan body's
-    ``_layer_kernel``: inputs gated to the first ``m`` columns, outputs to
-    the ``pi`` modelled ones."""
+def gated_tree(dtype, device, m=1, P1=16, pi=9):
+    """A gated layer kernel built like the scan step's ``_layer_kernel``
+    (``gpar_torch/models/fused.py``): width ``m + P1`` (17 on the main
+    path), inputs gated to the first ``m`` columns, outputs to the ``pi``
+    modelled ones."""
     import torch
 
     from gpar_torch.ops.kernels import EQ, Linear
@@ -261,9 +281,9 @@ def phase_kernel_check(device):
     for dtype in (torch.float32, torch.float64):
         cases = [("bench-pi0", layer_tree(0, dtype, device), 1)]
         cases.append(("bench-pi15", layer_tree(15, dtype, device), 16))
-        cases.append(("gated", gated_tree(dtype, device), 16))
+        cases.append(("gated", gated_tree(dtype, device), 17))
         cases.append(("wide", wide_tree(dtype, device), 120))
-        only = {"gated": [(256, 10_000)], "wide": [(37, 23), (256, 1024)]}
+        only = {"gated": SCAN_SHAPES, "wide": [(37, 23), (256, 1024)]}
         for name, tree, d in cases:
             for n, m in only.get(name, shapes + [(37, 23)]):
                 x = inputs(n, d, dtype, device, seed=n + d)
@@ -298,7 +318,7 @@ def phase_kernel_check(device):
                                          f"{name} {dtype} {(n, m)}")
                 worst["gram_bwd"][dtype] = max(worst["gram_bwd"][dtype], babs)
 
-                if dtype == torch.float32 and name.startswith("bench") and (n, m) != (37, 23):
+                if dtype == torch.float32 and name != "wide" and (n, m) != (37, 23):
                     kinds, dims = prep[0], prep[1]
                     for kname, fk, fp, bound, e in (
                         ("gram", lambda: GK.gram_kernel_launch(*prep),
@@ -367,68 +387,122 @@ def phase_main_path(device):
     reg._ensure_vars(reg.p)
     z_init = reg.vs.snapshot()
 
-    def run(seed):
+    def run(**kw):
+        """One request from the same initial latents; the Gram counters are
+        set to 0 just before it and read just after."""
         reg.vs.restore(z_init)
-        gen = torch.Generator(device).manual_seed(seed)
+        gen = torch.Generator(device).manual_seed(0)
         torch.cuda.synchronize()
+        GK.reset_counters()
         t0 = time.perf_counter()
         out = reg.fit_predict(x, y, x_test, iters=iters, num_samples=num_samples,
-                              credible_bounds=True, generator=gen)
+                              credible_bounds=True, generator=gen, **kw)
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
+        return out, time.perf_counter() - t0, reg.last_fit_report, GK.counters()
 
-    # Grams taken under autograd, counted around the dispatch: each must
-    # come back through the backward kernel exactly once.
-    fused, autograd_grams = GK.gram_fused_or_none, [0]
+    def quality(tag, out, rep):
+        mean, lo, hi = out
+        for a in out:
+            assert a.shape == (n_test, p) and np.isfinite(a).all(), f"{tag}: non-finite or misshapen predictions"
+        assert np.all(lo <= mean + 1e-6) and np.all(mean <= hi + 1e-6), f"{tag}: mean outside its bounds"
+        nll0, nll = float(np.sum(rep["layer_nll0"])), float(np.sum(rep["layer_nll"]))
+        sm = smse(mean, f_test)
+        q = dict(nll0=nll0, nll=nll, nll_decrease=nll0 - nll, mean_smse=float(np.nanmean(sm)),
+                 worst_smse=float(np.nanmax(sm)))
+        print(f"[main] {tag}: sum NLL {nll0:.1f} -> {nll:.1f} (decrease {nll0 - nll:.1f}); SMSE vs "
+              f"noiseless truth mean {q['mean_smse']:.3e}, worst {q['worst_smse']:.3e}; L-BFGS "
+              f"iterations per layer {rep['layer_iters'].tolist()}")
+        if q["nll_decrease"] < GATES["nll_decrease"]:
+            raise AssertionError(f"{tag}: NLL decrease {q['nll_decrease']:.1f} below {GATES['nll_decrease']}")
+        if q["mean_smse"] > GATES["mean_smse"] or q["worst_smse"] > GATES["worst_smse"]:
+            raise AssertionError(f"{tag}: SMSE mean {q['mean_smse']:.3e} / worst {q['worst_smse']:.3e} "
+                                 "above the gates")
+        return q
 
-    def counting(kernel, a, b):
-        out = fused(kernel, a, b)
-        autograd_grams[0] += out is not None and out.requires_grad
-        return out
+    def same(a, b):
+        return (np.array_equal(a[2]["layer_nll"], b[2]["layer_nll"])
+                and all(np.array_equal(u, v) for u, v in zip(a[0], b[0])))
 
-    GK.gram_fused_or_none = counting
-    try:
-        GK.reset_counters()
-        (mean, lo, hi), cold = run(0)
-        counts = dict(launches=GK.gram_kernel_launches, bwd_launches=GK.gram_bwd_kernel_launches,
-                      plain_calls=GK.gram_plain_cuda_calls, gram_eval_calls=GK.gram_eval_cuda_calls,
-                      autograd_grams=autograd_grams[0])
-    finally:
-        GK.gram_fused_or_none = fused
-    rep = reg.last_fit_report
-    (mean_w, lo_w, hi_w), warm = run(0)
-    rep_w = reg.last_fit_report
+    def check_counts(tag, counts):
+        """Every Gram of the run through the forward kernel, every Gram
+        under autograd through the backward kernel, none elsewhere."""
+        if counts["gram_kernel_launches"] <= 0 or counts["gram_plain_cuda_calls"] or counts["gram_eval_cuda_calls"]:
+            raise AssertionError(f"{tag}: main path bypassed the kernel: {counts}")
+        if not 0 < counts["gram_bwd_kernel_launches"] == counts["gram_autograd_calls"]:
+            raise AssertionError(f"{tag}: backward launches do not match the Grams under autograd: {counts}")
 
-    for a in (mean, lo, hi):
-        assert a.shape == (n_test, p) and np.isfinite(a).all(), "non-finite or misshapen predictions"
-    assert np.all(lo <= mean + 1e-6) and np.all(mean <= hi + 1e-6), "mean outside its credible bounds"
-    nll0, nll = float(np.sum(rep["layer_nll0"])), float(np.sum(rep["layer_nll"]))
-    s = smse(mean, f_test)
-    mean_s, worst_s = float(np.nanmean(s)), float(np.nanmax(s))
-    print(f"[main] fit_predict n={n} p={p} m=256 n_test={n_test} S={num_samples} iters={iters} f32: "
-          f"cold {cold:.3f} s, warm {warm:.3f} s (fit {rep['wall_clock_s']:.3f} s of the cold run)")
-    print(f"[main] sum NLL {nll0:.1f} -> {nll:.1f} (decrease {nll0 - nll:.1f}); "
-          f"L-BFGS iterations per layer {rep['layer_iters'].tolist()}")
-    print(f"[main] SMSE vs noiseless truth: mean {mean_s:.3e}, worst {worst_s:.3e}; "
-          f"warm-run mean differs by {float(np.max(np.abs(mean_w - mean))):.3e}")
-    print(f"[main] gram kernel launches {counts['launches']}, backward kernel launches "
-          f"{counts['bwd_launches']} for {counts['autograd_grams']} Grams under autograd, "
-          f"plain-route CUDA Grams {counts['plain_calls']}, gram_eval on CUDA {counts['gram_eval_calls']}")
-    if nll0 - nll < GATES["nll_decrease"]:
-        raise AssertionError(f"NLL decrease {nll0 - nll:.1f} below {GATES['nll_decrease']}")
-    if mean_s > GATES["mean_smse"] or worst_s > GATES["worst_smse"]:
-        raise AssertionError(f"SMSE mean {mean_s:.3e} / worst {worst_s:.3e} above the gates")
-    if counts["launches"] <= 0 or counts["plain_calls"] != 0 or counts["gram_eval_calls"] != 0:
-        raise AssertionError(f"main path bypassed the kernel: {counts}")
-    if counts["bwd_launches"] <= 0 or counts["bwd_launches"] != counts["autograd_grams"]:
-        raise AssertionError(f"backward kernel launches do not match the Grams under autograd: {counts}")
-    same = (np.array_equal(rep["layer_nll"], rep_w["layer_nll"])
-            and all(np.array_equal(a, b) for a, b in ((mean, mean_w), (lo, lo_w), (hi, hi_w))))
-    print(f"[main] cold and warm runs identical (layer NLLs and predictions): {same}")
-    if not same:
+    cold = run()
+    warm = run()
+    res = {}
+    for tag, (out, wall, rep, counts) in (("graphed cold", cold), ("graphed warm", warm)):
+        res[tag] = quality(tag, out, rep)
+        rc = rep["replay_counts"]
+        bound = (int(np.sum(rep["layer_iters"])) + rep["linesearch_trials"] + rep["linesearch_episodes"]
+                 + 1)
+        print(f"[main] {tag}: fit_predict {wall:.3f} s (fit {rep['wall_clock_s']:.3f} s, of which "
+              f"capture {rep['capture_s']:.3f} s); graph replays {rep['graph_replays']}; host reads "
+              f"{rep['host_syncs']} (bound {bound}: L-BFGS iterations {int(np.sum(rep['layer_iters']))} "
+              f"+ backtracking trials {rep['linesearch_trials']} + episodes {rep['linesearch_episodes']} "
+              f"+ 1 for the results); factorisations past the first jitter rung "
+              f"{rep['ladder_escalations']}")
+        print(f"[main] {tag}: gram kernel launches {counts['gram_kernel_launches']} (replays "
+              f"{rc['gram_kernel_launches']}), backward kernel launches {counts['gram_bwd_kernel_launches']} "
+              f"(replays {rc['gram_bwd_kernel_launches']}) for {counts['gram_autograd_calls']} Grams under "
+              f"autograd (replays {rc['gram_autograd_calls']}), plain-route CUDA Grams "
+              f"{counts['gram_plain_cuda_calls']}, gram_eval on CUDA {counts['gram_eval_cuda_calls']}")
+        if not rep["fused"] or rep["graph_replays"] <= 0:
+            raise AssertionError(f"{tag}: the fit did not replay the scan step's graphs: {rep}")
+        check_counts(tag, counts)
+        if not (rc["gram_kernel_launches"] > 0 and 0 < rc["gram_bwd_kernel_launches"] == rc["gram_autograd_calls"]):
+            raise AssertionError(f"{tag}: the graph replays did not launch both kernels: {rc}")
+        if rep["host_syncs"] > bound:
+            raise AssertionError(f"{tag}: {rep['host_syncs']} host reads, more than {bound}")
+    identical = same(cold, warm)
+    print(f"[main] cold and warm runs identical (layer NLLs and predictions): {identical}")
+    if not identical:
         raise AssertionError("cold and warm runs differ: the main path is not deterministic")
-    return dict(**counts, cold_s=cold, warm_s=warm, nll0=nll0, nll=nll, nll_decrease=nll0 - nll,
-                mean_smse=mean_s, worst_smse=worst_s), (reg, x, y, x_test, z_init)
+
+    eager = run(cuda_graphs=False)
+    res["eager"] = quality("eager step", eager[0], eager[2])
+    d_nll = float(np.max(np.abs(eager[2]["layer_nll"] - warm[2]["layer_nll"])))
+    d_pred = max(float(np.max(np.abs(a - b))) for a, b in zip(eager[0], warm[0]))
+    eq = same(eager, warm)
+    print(f"[main] eager step on the card: fit_predict {eager[1]:.3f} s (fit {eager[2]['wall_clock_s']:.3f} s), "
+          f"host reads {eager[2]['host_syncs']}; identical to the graphed run: {eq} (max |d layer NLL| "
+          f"{d_nll:.3e}, max |d prediction| {d_pred:.3e})")
+    if not eq:
+        raise AssertionError("the graphed scan step and the eager scan step differ on the card")
+
+    check_counts("eager step", eager[3])
+    if eager[2]["graph_replays"]:
+        raise AssertionError(f"eager step: {eager[2]['graph_replays']} graph replays")
+
+    driver = run(fused=False)
+    res["driver"] = quality("per-layer driver", driver[0], driver[2])
+    dc = driver[3]
+    print(f"[main] per-layer driver (fused=False): fit_predict {driver[1]:.3f} s (fit "
+          f"{driver[2]['wall_clock_s']:.3f} s); sum of layer NLLs {res['driver']['nll']:.1f} against the "
+          f"scan path's {res['graphed warm']['nll']:.1f}; gram kernel launches {dc['gram_kernel_launches']}, "
+          f"backward kernel launches {dc['gram_bwd_kernel_launches']} for {dc['gram_autograd_calls']} Grams "
+          f"under autograd, plain-route CUDA Grams {dc['gram_plain_cuda_calls']}, gram_eval on CUDA "
+          f"{dc['gram_eval_cuda_calls']}")
+    if driver[2]["fused"]:
+        raise AssertionError("fused=False did not run the per-layer driver")
+    check_counts("per-layer driver", dc)
+
+    rep, counts = cold[2], cold[3]
+    return dict(
+        launches=counts["gram_kernel_launches"], bwd_launches=counts["gram_bwd_kernel_launches"],
+        autograd_grams=counts["gram_autograd_calls"], plain_calls=counts["gram_plain_cuda_calls"],
+        gram_eval_calls=counts["gram_eval_cuda_calls"], cold_s=cold[1], warm_s=warm[1],
+        cold_fit_s=rep["wall_clock_s"], warm_fit_s=warm[2]["wall_clock_s"], capture_s=rep["capture_s"],
+        graph_replays=warm[2]["graph_replays"], host_syncs=warm[2]["host_syncs"],
+        ladder_escalations=warm[2]["ladder_escalations"], linesearch_trials=warm[2]["linesearch_trials"],
+        linesearch_episodes=warm[2]["linesearch_episodes"],
+        layer_iters=int(np.sum(warm[2]["layer_iters"])), eager_s=eager[1], driver_s=driver[1],
+        **{f"{k}_{q}": v for k, qs in (("scan", res["graphed warm"]), ("driver", res["driver"]))
+           for q, v in qs.items()},
+    ), (reg, x, y, x_test, z_init)
 
 
 def phase_small_agreement():
@@ -445,30 +519,37 @@ def phase_small_agreement():
     for dev in ("cuda", "cpu"):
         reg = GPARRegressor(**model_kwargs(x, n_ind=8), device=dev, dtype=torch.float64)
         res = reg.fit_predict(x, y, xt, iters=5, num_samples=8, credible_bounds=True, normals=normals)
-        outs[dev] = (res, reg.vs.snapshot(), reg.last_fit_report["layer_nll"])
+        rep = reg.last_fit_report
+        assert rep["fused"] and (rep["graph_replays"] > 0) == (dev == "cuda"), rep
+        outs[dev] = (res, reg.vs.snapshot(), rep["layer_nll"])
     (rc, lc, nc), (rh, lh, nh) = outs["cuda"], outs["cpu"]
     np.testing.assert_allclose(nc, nh, rtol=1e-6)
     for k in lh:
         np.testing.assert_allclose(lc[k], lh[k], rtol=1e-6, atol=1e-8)
     for a, b in zip(rc, rh):
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-8)
-    print(f"[small] float64 fit_predict on cuda == cpu (rtol 1e-6): layer NLL {nc.tolist()}")
+    print(f"[small] float64 scan-path fit_predict, graphed on cuda == eager on cpu (rtol 1e-6): "
+          f"layer NLL {nc.tolist()}")
 
 
 def phase_profile(state, out_dir):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from gpar_torch.ops import gram_kernel as GK
+
     reg, x, y, x_test, z_init = state
     reg.vs.restore(z_init)
     os.makedirs(out_dir, exist_ok=True)
     gen = torch.Generator("cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    GK.reset_counters()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
         reg.fit_predict(x, y, x_test, iters=10, num_samples=100, credible_bounds=True, generator=gen)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    counts = GK.counters()
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=60)
     with open(os.path.join(out_dir, "profile_table.txt"), "w") as fh:
         fh.write(table)
@@ -479,13 +560,41 @@ def phase_profile(state, out_dir):
         sel = [e for e in events if any(k in e.name for k in names)]
         return sum(e.device_time for e in sel) / 1e3, len(sel)
 
+    # Device time by kind of kernel (the first kind whose key is in the name).
+    kinds = {"potrf": ("getrf", "potrf", "trf4_set_info"), "trsm/trsv": ("trsm", "trsv"),
+             "gemm/gemv": ("gemm", "gemv", "splitKreduce"), "gram": ("gram_tile_kernel", "gram_bwd")}
+    by_kind = {k: [0.0, 0] for k in [*kinds, "other"]}
+    for e in events:
+        k = next((k for k, keys in kinds.items() if any(s in e.name for s in keys)), "other")
+        by_kind[k][0] += e.device_time / 1e3
+        by_kind[k][1] += 1
+    print("[profile] device time by kind: " + ", ".join(
+        f"{k} {t:.1f} ms ({c} kernels)" for k, (t, c) in by_kind.items()))
     fwd, n_fwd = kernel_ms("gram_tile_kernel")
     bwd, n_bwd = kernel_ms("gram_bwd_kernel")
     red, n_red = kernel_ms("gram_bwd_reduce")
-    print(f"[profile] warm fit_predict under the profiler: wall {wall_ms:.1f} ms, device kernel "
-          f"time {busy:.1f} ms over {len(events)} kernels (busy {100 * busy / wall_ms:.1f}%), "
-          f"of which gram kernel {fwd:.2f} ms ({n_fwd} launches), gram backward kernel "
-          f"{bwd:.2f} ms ({n_bwd}) and its reduction {red:.2f} ms ({n_red}); table in {out_dir}")
+    rep = reg.last_fit_report
+    print(f"[profile] warm graphed fit_predict under the profiler: wall {wall_ms:.1f} ms (fit "
+          f"{1e3 * rep['wall_clock_s']:.1f} ms), device kernel time {busy:.1f} ms over {len(events)} "
+          f"kernels (busy {100 * busy / wall_ms:.1f}%), of which gram kernel {fwd:.2f} ms ({n_fwd} "
+          f"launches), gram backward kernel {bwd:.2f} ms ({n_bwd}) and its reduction {red:.2f} ms "
+          f"({n_red}); graph replays {rep['graph_replays']}, host reads {rep['host_syncs']}; table in {out_dir}")
+    # The counters against the profiler: all launches, or, if the profiler
+    # does not see the kernels inside replayed graphs, the eager ones (the
+    # replays' share is the counts recorded at capture times the replays).
+    total = (counts["gram_kernel_launches"], counts["gram_bwd_kernel_launches"])
+    rc = rep["replay_counts"]
+    eager = (total[0] - rc["gram_kernel_launches"], total[1] - rc["gram_bwd_kernel_launches"])
+    seen = (n_fwd, n_bwd)
+    verdict = ("agree, replays included" if seen == total else
+               "agree with the eager launches only: the profiler does not see kernels inside graphs"
+               if seen == eager else "DIFFER")
+    print(f"[profile] launch counters of that run: gram kernel {total[0]}, backward {total[1]} (from "
+          f"replays, by the counts recorded at capture: {rc['gram_kernel_launches']}, "
+          f"{rc['gram_bwd_kernel_launches']}); profiler's kernel events: gram_tile_kernel {n_fwd}, "
+          f"gram_bwd_kernel {n_bwd}: {verdict}")
+    if verdict == "DIFFER":
+        raise AssertionError("the launch counters disagree with the profiler's kernel events")
     print(table)
 
 
@@ -523,7 +632,7 @@ def main(argv):
     }
     kernels = {"kernels": []}
     for name, (source, replaces, count, check) in sources.items():
-        big = next(r for r in rows[name] if r["tree"] == "bench-pi15" and (r["n"], r["m"]) == (256, 10_000))
+        big = next(r for r in rows[name] if r["tree"] == "gated" and (r["n"], r["m"]) == SCAN_SHAPES[0])
         kernels["kernels"].append({
             "name": name,
             "route": "cuda",

@@ -3,9 +3,15 @@
 The counterpart of ``gpar_tpu/config.py``: one mutable ``config`` object
 holding the Cholesky jitter policy (the ``lab.B.epsilon`` analogue and its
 float32 floor), the escalating retry ladder, the default dtype and the
-default device.  The XLA-only knobs of the JAX package (compile cache,
-Pallas toggle, blocked Cholesky, shape buckets, mesh) have no counterpart
-in eager PyTorch and are not carried over.
+default device; and the row buckets of the scan-fused path
+(:func:`bucket_rows`, the JAX package's default ``bucket_ratio`` and
+``bucket_floor``, ``gpar_tpu/config.py:162-173,324-334``).  On the card
+a bucket is the unit a captured CUDA graph serves: every dataset whose
+row count falls in one bucket replays the same graphs.  The JAX
+package's ``shape_buckets`` switch and sample buckets are not carried
+over: the port always buckets rows, and its predict tail runs eagerly at
+the caller's sample count.  The XLA-only knobs (compile cache, Pallas
+toggle, blocked Cholesky, mesh) have no counterpart here either.
 
 Precision: every float32 Gram, solve and matmul runs in full IEEE float32.
 PyTorch's CUDA matmuls and cuDNN convolutions may otherwise use TF32
@@ -22,11 +28,16 @@ import os
 
 import torch
 
-__all__ = ["config", "default_dtype", "resolve_device"]
+__all__ = ["config", "default_dtype", "resolve_device", "bucket_rows"]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
+
+#: Geometric ratio between consecutive row buckets.
+BUCKET_RATIO = 1.25
+#: Smallest row bucket, and the multiple every bucket rounds up to.
+BUCKET_FLOOR = 64
 
 
 class _Config:
@@ -70,3 +81,17 @@ def resolve_device(device=None):
             "available; pass device='cpu' to run on the host."
         )
     return dev
+
+
+def bucket_rows(n):
+    """Smallest row bucket >= ``n``: geometric steps of
+    :data:`BUCKET_RATIO` from :data:`BUCKET_FLOOR`, each rounded up to a
+    :data:`BUCKET_FLOOR` multiple.  The scan-fused fit pads its data rows,
+    and the predict tail its test rows, to this bucket; padded rows are
+    masked out exactly."""
+    if n <= 0:
+        return n
+    q = b = BUCKET_FLOOR
+    while b < n:
+        b = int(-(-int(b * BUCKET_RATIO) // q) * q)
+    return b

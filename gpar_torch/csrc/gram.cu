@@ -332,7 +332,10 @@ static int launch(const void* xf, const void* yf, const void* par, void* out,
 // Row splits are only as many as it takes to give every SM two blocks (the
 // wrapper's plan, which also sizes the partial buffers).  Shared memory grows
 // with the widest term; past 36 features in float (34 in double) it exceeds
-// the default 48 KB and the launch opts in to more (at most ~157 KB, at 128).
+// the default 48 KB (at most ~157 KB, at 128).  The opt-in to that much is
+// made once, when the library is loaded (gpar_gram_init), not at a launch:
+// a launch may be captured into a CUDA graph, and a capture should hold
+// stream work only.
 // The scalar sums are reduced inside the block in a fixed tree.  A second
 // kernel sums the partials in a fixed order, with up to 8 lanes per entry
 // combined in lane order.  There are no atomics: the result is the same bit
@@ -671,11 +674,6 @@ static int launch_bwd(const void* xf, const void* yf, const void* par, const voi
     Dt = offs[t] + dims[t] > Dt ? offs[t] + dims[t] : Dt;
   }
   const size_t smem = C::smem(dmax);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gram_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   cudaStream_t st = (cudaStream_t)stream;
   gram_bwd_kernel<T><<<dim3(ct, r, n_terms), GPAR_THREADS, smem, st>>>(
       (const T*)xf, (const T*)yf, (const T*)par, (const T*)g, (T*)du_part, (T*)dv_part,
@@ -693,9 +691,24 @@ static int launch_bwd(const void* xf, const void* yf, const void* par, const voi
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+static int opt_in_smem() {
+  // The most shared memory any launch asks for: a term of 128 features.
+  const size_t smem = BwdCfg<T>::smem(128);
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(gram_bwd_kernel<T>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 extern "C" {
 
 int gpar_gram_max_terms() { return GPAR_GRAM_MAX_TERMS; }
+
+// Once per process, on the current device, before any launch.
+int gpar_gram_init() {
+  const int e = opt_in_smem<float>();
+  return e != 0 ? e : opt_in_smem<double>();
+}
 
 int gpar_gram_f32(const void* xf, const void* yf, const void* par, void* out,
                   int n, int m, int D, int n_terms, const int* kinds,

@@ -1,0 +1,755 @@
+"""Scan-fused fit and predict tail: every layer through one step at uniform
+shapes.
+
+Port of the single-device parts of ``gpar_tpu/models/fused.py``.  The JAX
+package makes every layer's body shape-uniform so that one ``lax.scan``
+body serves all p layers; here the same uniformity lets one set of CUDA
+graphs, captured once, serve every layer and every L-BFGS iteration
+(``models/graphs.py``):
+
+- **Uniform widths.** The augmented inputs are allocated at their final
+  width ``W = m + p`` (the last column is gated scratch); layer pi's active
+  columns are selected by 0/1 gates (``ops.kernels.Gate``) instead of
+  ``select``.
+- **Uniform rows.** The ``per_output`` filtering and ``_obs``'s NaN drop
+  become 0/1 row masks over all rows: a masked row has ``D^{-1} = 0`` in
+  the Titsias ELBO (``ops.linalg.titsias_factors(mask=...)``), so the
+  layer NLL equals the filtered one to rounding.  Rows are padded to a
+  shape bucket (``config.bucket_rows``): ``y`` pads with NaN and ``w``
+  with 1, so padded rows drop out of every mask.
+- **Uniform parameters.** Each layer's hyperparameters are gathered from
+  the flat latent vector through per-layer index maps padded with a dummy
+  slot (latent 0, always gated out), and constrained with the store's own
+  transforms.
+
+The plan (:func:`build_scan_data_plan`) is NumPy, built on the host with
+the JAX package's names and dtypes; its row arrays are derived on the
+device from the bucket-padded data (:func:`device_bucket_inputs`).
+
+The fit (:func:`make_scan_fit_body`) is a Python loop over layers running
+one step at the uniform shapes, :class:`ScanStep`: L-BFGS on the layer's
+objective (``params.lbfgs.DeviceLBFGS``), then one augmentation step that
+writes the layer's output column into the augmented inputs in place.  The
+step's bodies are plain functions of fixed-shape buffers; on a CUDA tensor
+they are captured once as CUDA graphs and replayed, on a CPU tensor (or
+when asked) they run eagerly.  Sparse (inducing-point) plans only: the
+dense layer (``_masked_dense_factors``) is ROADMAP A10.2.
+
+The serving tail (:func:`make_scan_predict_tail`, ``replace=True``) runs
+eagerly: per layer the Titsias factors, the posterior at the bucketed and
+masked test rows, one sampling factor and all Monte-Carlo draws as one
+matmul against caller-supplied standard normals.
+"""
+
+import contextlib
+import hashlib
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..ops import gram_kernel as GK
+from ..ops.kernels import EQ, RQ, Const, Linear, gram, kdiag
+from ..ops.linalg import floor_noise, psd_sample_factor, solve_lower, titsias_factors
+from ..params.lbfgs import MAX_LINESEARCH, DeviceLBFGS, iterate, new_stats
+from ..params.optim import check_restarts
+from ..params.store import _Bounded, _Identity, _LowerBounded
+
+__all__ = [
+    "ScanFitPlan",
+    "ScanStep",
+    "Eager",
+    "build_scan_data_plan",
+    "build_scan_fit_plan",
+    "device_bucket_inputs",
+    "pad_plan_rows",
+    "plan_static_fingerprint",
+    "plan_tensors",
+    "make_scan_fit_body",
+    "make_scan_predict_tail",
+    "run_scan_fit",
+]
+
+# Constrained transforms per field, the store's own rules.
+_POS = _LowerBounded(0.0)
+_NOISE = _LowerBounded(1e-8)
+_ALPHA = _Bounded(1e-3, 1e3)
+_ID = _Identity()
+
+#: Plan entries carrying one value per data row (everything else in the
+#: plan is model structure: index maps, gates, column ids).
+_ROW_KEYS = ("route_mask", "obs_mask", "avail", "y_col", "w_col")
+
+
+def pad_plan_rows(plan, n_rows):
+    """Host-side padded copies of the plan's per-layer row arrays: data and
+    masks pad with 0, weights with 1 (they divide the noise).  Returns a
+    dict of (p, n_rows) NumPy arrays."""
+    pad = n_rows - plan.n
+    out = {}
+    for k in _ROW_KEYS:
+        v = np.asarray(plan.xs[k])
+        if pad:
+            v = np.pad(v, ((0, 0), (0, pad)), constant_values=1.0 if k == "w_col" else 0.0)
+        out[k] = v
+    return out
+
+
+def device_bucket_inputs(x, y, w, *, n_b, impute, device):
+    """Bucketed fit inputs: the data padded to ``n_b`` rows on the host (y
+    with NaN, w with 1, so padded rows drop out of every mask), uploaded
+    once, and the per-layer row arrays (:data:`_ROW_KEYS`) derived on the
+    device — the closed-downwards ``per_output`` routing of
+    ``gpar/model.py:325-368`` as cumulative mask algebra.  Values equal
+    ``pad_plan_rows(build_scan_data_plan(...), n_b)`` exactly.  Returns
+    ``(x_pad, rows)``."""
+    x, y, w = np.asarray(x), np.asarray(y), np.asarray(w)
+    pad = n_b - y.shape[0]
+    x_pad = np.pad(x, ((0, pad), (0, 0)))
+    y_pad = np.pad(y, ((0, pad), (0, 0)), constant_values=np.nan)
+    w_pad = np.pad(w.astype(x.dtype), ((0, pad), (0, 0)), constant_values=1.0)
+    up = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return _device_plan_rows(up(x_pad), up(y_pad), up(w_pad), impute=impute)
+
+
+def _device_plan_rows(x_pad, y_pad, w_pad, *, impute):
+    """The device half of :func:`device_bucket_inputs`."""
+    dtype = x_pad.dtype
+    yT = y_pad.T
+    avail_b = ~torch.isnan(yT)  # (p, n_b)
+    avail = avail_b.to(dtype)
+    if impute:
+        # keep[pi] = avail[pi] | any(avail[pi+1:]) for pi < p-1; the last
+        # layer keeps its own availability (per_output keep=True).
+        suffix = torch.flip(torch.cummax(torch.flip(avail_b, [0]).to(torch.int64), dim=0).values, [0])
+        keep = torch.cat([avail_b[:-1] | (suffix[1:] > 0), avail_b[-1:]], dim=0)
+    else:
+        keep = avail_b
+    route = torch.cumprod(keep.to(dtype), dim=0)  # cumulative AND
+    rows = {
+        "route_mask": route,
+        "obs_mask": route * avail,
+        "avail": avail,
+        "y_col": torch.nan_to_num(yT, nan=0.0).to(dtype),
+        "w_col": w_pad.to(dtype).T,
+    }
+    return x_pad, {k: v.contiguous() for k, v in rows.items()}
+
+
+def _mask_test_cov(cov_t, mt):
+    """Neutralise padded test rows in a predictive covariance: masked rows
+    and columns zero, identity on the padded diagonal, so the real block's
+    factor, and its draws, are those of the unpadded matrix."""
+    if mt is None:
+        return cov_t
+    return cov_t * (mt[:, None] * mt[None, :]) + torch.diag(1.0 - mt)
+
+
+@dataclass
+class ScanFitPlan:
+    """Host-side plan of the scan-fused fit (static per dataset and model
+    configuration)."""
+
+    m: int
+    p: int
+    W: int  # augmented width m + p; the last column is gated scratch
+    n: int
+    s_max: int  # padded per-layer latent span
+    n_z: int  # total latents (the dummy slot's index)
+    xs: dict  # stacked per-layer arrays (NumPy)
+    config: dict  # model_config
+    sparse: bool
+    impute: bool
+    replace: bool
+
+
+def plan_static_fingerprint(plan):
+    """Fingerprint of everything the layer step bakes in: the plan
+    scalars, the model-config switches and the data-independent per-layer
+    arrays (index maps, gates) — not the row count or the row arrays, which
+    are loaded into the step's buffers for every fit."""
+
+    def _scalar(v):
+        if isinstance(v, (np.ndarray, list, tuple)):
+            a = np.asarray(v)
+            return (str(a.dtype), a.shape, a.tobytes())
+        return repr(v)
+
+    h = hashlib.sha256()
+    cfg = tuple(sorted((k, _scalar(v)) for k, v in plan.config.items()))
+    h.update(repr((plan.m, plan.p, plan.W, plan.s_max, plan.n_z, plan.sparse, plan.impute,
+                   plan.replace, cfg)).encode())
+    for k in sorted(plan.xs):
+        if k in _ROW_KEYS:
+            continue
+        v = np.ascontiguousarray(np.asarray(plan.xs[k]))
+        h.update(k.encode())
+        h.update(str(v.dtype).encode())
+        h.update(repr(v.shape).encode())
+        h.update(v.tobytes())
+    return h.hexdigest()
+
+
+def _name_offsets(vs, all_names):
+    offsets = {}
+    off = 0
+    for name in all_names:
+        size = int(np.prod(tuple(vs._latents[name].shape)))
+        offsets[name] = (off, size)
+        off += size
+    return offsets, off
+
+
+def _field_idx(offsets, name, actual, padded, dummy, shift=0):
+    """Index map of a (possibly absent or short) variable into the flat
+    latent vector, padded with the dummy slot."""
+    idx = np.full(padded, dummy, dtype=np.int32)
+    if name in offsets and actual > 0:
+        off, size = offsets[name]
+        assert size == actual, (name, size, actual)
+        idx[shift : shift + actual] = np.arange(off, off + actual, dtype=np.int32)
+    return idx
+
+
+def _kernel_field_xs(vs, all_names, m, p, W, cfg, dtype):
+    """Data-independent per-layer arrays: the latent-span gather map and the
+    kernel-field index maps and gates :func:`_layer_kernel` consumes."""
+    offsets, n_z = _name_offsets(vs, all_names)
+    dummy = n_z
+
+    # Per-layer latent spans (the names=[f"{pi}/*"] filter,
+    # ``gpar/regression.py:452-456``) padded to a uniform length.
+    spans = []
+    for pi in range(p):
+        idx = np.concatenate(
+            [np.arange(offsets[nm][0], offsets[nm][0] + offsets[nm][1]) for nm in vs.select([f"{pi}/*"])]
+        ).astype(np.int32)
+        spans.append(idx)
+    s_max = max(len(s) for s in spans)
+    layer_gather = np.full((p, s_max), dummy, dtype=np.int32)
+    for pi, s in enumerate(spans):
+        layer_gather[pi, : len(s)] = s
+
+    from .regressor import _determine_indices
+
+    P1 = W - m  # padded output-column count (incl. the scratch column)
+    xs = {
+        "layer_gather": layer_gather,
+        "in_var": np.zeros((p,), np.int32),
+        "in_scales": np.zeros((p, m), np.int32),
+        "noise": np.zeros((p,), np.int32),
+        "out_gate": np.zeros((p, P1), dtype),
+        "nl_gate": np.zeros((p,), dtype),
+        "outlin_scales": np.zeros((p, P1), np.int32),
+        "outnl_var": np.zeros((p,), np.int32),
+        "outnl_scales": np.zeros((p, P1), np.int32),
+    }
+    if cfg["rq"]:
+        xs["in_alpha"] = np.zeros((p,), np.int32)
+        xs["outnl_alpha"] = np.zeros((p,), np.int32)
+    if cfg["per"]:
+        xs["per_var"] = np.zeros((p,), np.int32)
+        xs["per_scales"] = np.zeros((p, 2 * m), np.int32)
+        xs["per_pers"] = np.zeros((p, m), np.int32)
+        xs["per_decay"] = np.zeros((p, m), np.int32)
+    if cfg["input_linear"]:
+        xs["inlin_scales"] = np.zeros((p, m), np.int32)
+        xs["inlin_const"] = np.zeros((p,), np.int32)
+
+    for pi in range(p):
+        _, p_inds, p_num = _determine_indices(m, pi, cfg["markov"])
+        p_start = (p_inds[0] - m) if p_num > 0 else 0
+
+        xs["in_var"][pi] = _field_idx(offsets, f"{pi}/input/var", 1, 1, dummy)[0]
+        scales_name = f"{0 if cfg['scale_tie'] else pi}/input/scales"
+        xs["in_scales"][pi] = _field_idx(offsets, scales_name, m, m, dummy)
+        xs["noise"][pi] = _field_idx(offsets, f"{pi}/noise", 1, 1, dummy)[0]
+        if cfg["rq"]:
+            xs["in_alpha"][pi] = _field_idx(offsets, f"{pi}/input/alpha", 1, 1, dummy)[0]
+            xs["outnl_alpha"][pi] = _field_idx(offsets, f"{pi}/output/nonlin/alpha", 1, 1, dummy)[0]
+        if cfg["per"]:
+            xs["per_var"][pi] = _field_idx(offsets, f"{pi}/input/per/var", 1, 1, dummy)[0]
+            xs["per_scales"][pi] = _field_idx(offsets, f"{pi}/input/per/scales", 2 * m, 2 * m, dummy)
+            xs["per_pers"][pi] = _field_idx(offsets, f"{pi}/input/per/pers", m, m, dummy)
+            xs["per_decay"][pi] = _field_idx(offsets, f"{pi}/input/per/decay", m, m, dummy)
+        if cfg["input_linear"]:
+            xs["inlin_scales"][pi] = _field_idx(offsets, f"{pi}/input/lin/scales", m, m, dummy)
+            xs["inlin_const"][pi] = _field_idx(offsets, f"{pi}/input/lin/const", 1, 1, dummy)[0]
+
+        if p_num > 0:
+            xs["out_gate"][pi, p_start : p_start + p_num] = 1.0
+            if cfg["linear"]:
+                xs["outlin_scales"][pi] = _field_idx(
+                    offsets, f"{pi}/output/lin/scales", p_num, P1, dummy, shift=p_start
+                )
+        # The output terms exist whenever pi > 0 (``gpar/regression.py:
+        # 141,149`` condition on the layer index, not the selection width):
+        # at markov=0 the nonlinear term degenerates to a constant variance,
+        # so nl_gate keys on pi > 0 while out_gate stays zero.
+        if cfg["nonlinear"] and pi > 0:
+            xs["nl_gate"][pi] = 1.0
+            xs["outnl_var"][pi] = _field_idx(offsets, f"{pi}/output/nonlin/var", 1, 1, dummy)[0]
+            if p_num > 0:
+                xs["outnl_scales"][pi] = _field_idx(
+                    offsets, f"{pi}/output/nonlin/scales", p_num, P1, dummy, shift=p_start
+                )
+
+    xs["col"] = np.arange(p, dtype=np.int32)  # output column index per layer
+    return xs, s_max, n_z
+
+
+def build_scan_fit_plan(reg, all_names):
+    """The plan of the regressor's conditioned data (its host copies)."""
+    return build_scan_data_plan(reg, reg._x_np, reg._y_np, reg._w_np, all_names)
+
+
+def build_scan_data_plan(reg, x_np, y_np, w_np, all_names):
+    """The scan plan of explicit host data: the row arrays carry this
+    data's values and NaN routing; the model-structure arrays depend only
+    on the variable store and the configuration."""
+    cfg = reg.model_config
+    m, p, n = x_np.shape[1], y_np.shape[1], x_np.shape[0]
+    W = m + p  # p - 1 real output columns + one gated scratch column
+    dtype = np.dtype(x_np.dtype)
+
+    avail = ~np.isnan(y_np)
+
+    # Absolute row masks: the cumulative per_output routing
+    # (``gpar/model.py:325-368``) composed onto the original n rows.
+    keep = bool(reg.impute)
+    route = np.ones(n, dtype=bool)
+    route_mask = np.zeros((p, n), dtype=bool)
+    for pi in range(p):
+        if keep and pi < p - 1:
+            layer_keep = avail[:, pi] | avail[:, pi + 1 :].any(axis=1)
+        else:
+            layer_keep = avail[:, pi]
+        route = route & layer_keep
+        route_mask[pi] = route
+    obs_mask = route_mask & avail.T  # (p, n)
+
+    xs, s_max, n_z = _kernel_field_xs(reg.vs, all_names, m, p, W, cfg, dtype)
+    xs["route_mask"] = route_mask.astype(dtype)
+    xs["obs_mask"] = obs_mask.astype(dtype)
+    xs["avail"] = avail.T.astype(dtype)
+    xs["y_col"] = np.nan_to_num(y_np, nan=0.0).T.astype(dtype)
+    xs["w_col"] = w_np.T.astype(dtype)
+
+    return ScanFitPlan(
+        m=m, p=p, W=W, n=n, s_max=s_max, n_z=n_z, xs=xs, config=dict(cfg),
+        sparse=reg.sparse, impute=bool(reg.impute), replace=bool(reg.replace),
+    )
+
+
+def plan_tensors(plan, dtype, device, rows=None):
+    """The plan's stacked arrays on ``device``: index maps as int64, the
+    rest in ``dtype``; ``rows`` (bucket-padded row arrays) replaces the
+    plan's own exact-shape ones."""
+    out = {}
+    for k, v in plan.xs.items():
+        if rows is not None and k in _ROW_KEYS:
+            out[k] = rows[k].to(dtype=dtype, device=device)
+        elif np.issubdtype(np.asarray(v).dtype, np.integer):
+            out[k] = torch.as_tensor(np.asarray(v, dtype=np.int64), device=device)
+        else:
+            out[k] = torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
+    return out
+
+
+def _layer_kernel(plan, lin, z_full):
+    """Layer ``pi``'s prior kernel from gathered parameters: the uniform
+    counterpart of ``_model_generator``'s composition
+    (``gpar/regression.py:92-180``), gates in place of ``select``."""
+    cfg = plan.config
+    m, P1 = plan.m, plan.W - plan.m
+    dt, dev = z_full.dtype, z_full.device
+
+    def nat(tr, idx):
+        # A gather, not ``z_full[idx]``: indexing by a 0-d tensor reads the
+        # index back to the host, which a CUDA graph capture refuses.
+        return tr.constrain(z_full.index_select(0, idx.reshape(-1)).reshape(idx.shape))
+
+    def ones(k):
+        return torch.ones((k,), dtype=dt, device=dev)
+
+    def zeros(k):
+        return torch.zeros((k,), dtype=dt, device=dev)
+
+    gate_in = torch.cat([ones(m), zeros(P1)])
+    gate_out = torch.cat([zeros(m), lin["out_gate"]])
+
+    # Input terms (first m dims; padded dims gated to zero).
+    in_scales = torch.cat([nat(_POS, lin["in_scales"]), ones(P1)])
+    base_in = RQ(nat(_ALPHA, lin["in_alpha"])) if cfg["rq"] else EQ()
+    kin = nat(_POS, lin["in_var"]) * base_in.stretch(in_scales)
+    if cfg["per"]:
+        per_scales = torch.cat([nat(_POS, lin["per_scales"]), ones(2 * P1)])
+        per_pers = torch.cat([nat(_POS, lin["per_pers"]), ones(P1)])
+        per_decay = torch.cat([nat(_POS, lin["per_decay"]), ones(P1)])
+        kin = kin + nat(_POS, lin["per_var"]) * EQ().stretch(per_scales).periodic(
+            per_pers
+        ) * EQ().stretch(per_decay)
+    if cfg["input_linear"]:
+        inlin_scales = torch.cat([nat(_POS, lin["inlin_scales"]), ones(P1)])
+        kin = kin + Linear().stretch(inlin_scales) + Const(nat(_ID, lin["inlin_const"]))
+    kernel = kin.gate(gate_in)
+
+    # Output terms (appended columns, gated by the Markov order; the
+    # nonlinear variance is gated too, because EQ/RQ of all-zero inputs is
+    # 1, not 0).
+    if cfg["linear"]:
+        outlin_scales = torch.cat([ones(m), nat(_POS, lin["outlin_scales"])])
+        kernel = kernel + Linear().stretch(outlin_scales).gate(gate_out)
+    if cfg["nonlinear"]:
+        outnl_scales = torch.cat([ones(m), nat(_POS, lin["outnl_scales"])])
+        base_out = RQ(nat(_ALPHA, lin["outnl_alpha"])) if cfg["rq"] else EQ()
+        kernel = kernel + (lin["nl_gate"] * nat(_POS, lin["outnl_var"])) * (
+            base_out.stretch(outnl_scales).gate(gate_out)
+        )
+
+    return kernel, nat(_NOISE, lin["noise"])
+
+
+def _layer_nll_factors(plan, lin, z_full, x_aug, zi_aug, escalations=None):
+    """Layer NLL and posterior-mean factors at uniform shapes: the masked
+    Titsias ELBO of layer ``lin`` at parameters ``z_full``, and ``(Kmm, Kmn,
+    beta)`` for :func:`_est_from_factors`.  With ``escalations`` the
+    factorisations take the jitter ladder on the device
+    (``ops.linalg.cholesky_ladder_on_device``)."""
+    if not plan.sparse:
+        raise NotImplementedError("gpar_torch: the dense scan layer is not ported yet")
+    kernel, noise = _layer_kernel(plan, lin, z_full)
+    noise_w = floor_noise(noise / lin["w_col"])
+    r = lin["y_col"]  # zero-filled; masked rows neutralised
+    Kmm = gram(kernel, zi_aug, zi_aug)
+    Kmn = gram(kernel, zi_aug, x_aug)
+    knn = kdiag(kernel, x_aug)
+    elbo, _, _, beta = titsias_factors(Kmm, Kmn, knn, r, torch.zeros_like(r), noise_w,
+                                       mask=lin["obs_mask"], escalations=escalations)
+    return -elbo, (Kmm, Kmn, beta)
+
+
+def _est_from_factors(factors):
+    """Posterior-mean estimates at the data rows and the inducing inputs
+    (``gpar/model.py:291-322``)."""
+    Kmm, Kmn, beta = factors
+    return Kmn.T @ beta, Kmm @ beta
+
+
+def _next_column(plan, lin, est_rows):
+    """The output column fed forward, per the impute/replace rules."""
+    avail, y_col = lin["avail"], lin["y_col"]
+    if plan.impute and plan.replace:
+        return est_rows
+    if plan.impute:
+        return torch.where(avail > 0, y_col, est_rows)
+    if plan.replace:
+        return torch.where(avail > 0, est_rows, y_col)
+    return y_col
+
+
+def _augment_cols(plan, lin, y_next, est_ind, x_aug, zi_aug):
+    """One augmentation step, in place: the layer's output column of the
+    augmented data rows and inducing inputs."""
+    col = (plan.m + lin["col"]).reshape(1)
+    x_aug.index_copy_(1, col, y_next[:, None])
+    zi_aug.index_copy_(1, col, est_ind[:, None])
+
+
+class ScanStep:
+    """The layer step of the scan-fused fit at uniform shapes: fixed-shape
+    buffers and the bodies that work on them.
+
+    Buffers: the stacked per-layer plan (model structure set once, row
+    arrays loaded per fit), the current layer's slice ``lin`` and its index
+    ``layer`` (on the device), the latents ``z_ext`` (dummy slot last), the
+    augmented inputs, the layer's L-BFGS (``opt``, a
+    :class:`~gpar_torch.params.lbfgs.DeviceLBFGS`), the per-layer results
+    and ``escalations``, the count of Cholesky factorisations that needed
+    more than the first jitter rung.
+    The bodies read nothing back to the host; every factorisation in them
+    takes the jitter ladder on the device
+    (``ops.linalg.cholesky_ladder_on_device``), with the host ladder's
+    value and gradient:
+
+    - ``layer_init``: copy layer ``layer``'s plan slice, gather its
+      latents, value and gradient there, an empty history;
+    - ``step``, ``trial``, ``commit``: one L-BFGS iteration (see
+      ``params/lbfgs.py``);
+    - ``layer_finish``: the optimum (guarded) into ``z_ext``, the layer's
+      results, and one augmentation step: the layer's posterior-mean
+      estimates written into its output column of the augmented inputs;
+      ``layer += 1``.
+    """
+
+    BODIES = ("layer_init", "step", "trial", "commit", "layer_finish")
+
+    def __init__(self, plan, n_rows, n_ind, dtype, device, gtol=1e-9, memory_size=10):
+        if not plan.sparse:
+            raise NotImplementedError("gpar_torch: the dense scan layer is not ported yet")
+        self.plan, self.n_rows, self.n_ind = plan, n_rows, n_ind
+        self.dtype, self.device = dtype, torch.device(device)
+        self.gtol, self.memory_size = gtol, memory_size
+
+        def zeros(*shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=self.device)
+
+        self.xs = {}
+        for k, v in plan_tensors(plan, dtype, self.device).items():
+            self.xs[k] = zeros(plan.p, n_rows) if k in _ROW_KEYS else v
+        self.lin = {k: torch.zeros_like(v[0]) for k, v in self.xs.items()}
+        self.layer = zeros(1, dt=torch.int64)
+        self.z_ext = zeros(plan.n_z + 1)
+        self.x_aug = zeros(n_rows, plan.W)
+        self.zi_aug = zeros(n_ind, plan.W)
+        self.escalations = zeros(dt=torch.int64)
+        self.opt = DeviceLBFGS(self._value_and_grad, self._value, plan.s_max, dtype, self.device,
+                               memory=memory_size, gtol=gtol)
+        self.out = zeros(3, plan.p)  # per layer: final NLL, initial NLL, iterations
+
+    def _buffers(self):
+        o = self.opt
+        return [
+            *self.xs.values(), *self.lin.values(), self.layer, self.z_ext, self.x_aug,
+            self.zi_aug, self.escalations, *o.state, *o.cand, o.z0, o.f0, o.direction, o.dg, o.t,
+            o.mode, o.flags, self.out,
+        ]
+
+    def clone(self):
+        """A step with copies of every buffer (a CUDA graph's warm-up runs
+        on one, so that it moves none of this step's state)."""
+        other = ScanStep(self.plan, self.n_rows, self.n_ind, self.dtype, self.device,
+                         self.gtol, self.memory_size)
+        for dst, src in zip(other._buffers(), self._buffers()):
+            dst.copy_(src)
+        return other
+
+    def load(self, z_all, x, rows, x_ind):
+        """A fit's inputs: latents, (padded) data rows, their row arrays
+        and the inducing inputs; back to layer 0."""
+        m = self.plan.m
+        self.z_ext.zero_()
+        self.z_ext[:-1].copy_(z_all)
+        self.x_aug.zero_()
+        self.x_aug[:, :m].copy_(x)
+        self.zi_aug.zero_()
+        self.zi_aug[:, :m].copy_(x_ind)
+        for k in _ROW_KEYS:
+            self.xs[k].copy_(rows[k])
+        self.layer.zero_()
+        self.escalations.zero_()
+
+    # -- the layer objective ------------------------------------------------
+
+    def _full(self, z):
+        """``z_ext`` with the layer's latents set to ``z``: a scatter that
+        carries the gradient back to ``z``."""
+        return self.z_ext.index_put((self.lin["layer_gather"],), z)
+
+    def _nll_factors(self, z_full):
+        return _layer_nll_factors(self.plan, self.lin, z_full, self.x_aug, self.zi_aug,
+                                  self.escalations)
+
+    def nll(self, z):
+        return self._nll_factors(self._full(z))[0]
+
+    def _value_and_grad(self, z):
+        z = z.detach().requires_grad_(True)
+        with torch.enable_grad():
+            f = self.nll(z)
+            (g,) = torch.autograd.grad(f, z)
+        return f.detach(), g
+
+    def _value(self, z):
+        with torch.no_grad():
+            return self.nll(z)
+
+    # -- bodies -------------------------------------------------------------
+
+    def layer_init(self):
+        for k, buf in self.lin.items():
+            buf.copy_(self.xs[k].index_select(0, self.layer)[0])
+        self.opt.start(self.z_ext.index_select(0, self.lin["layer_gather"]))
+
+    def step(self):
+        self.opt.step()
+
+    def trial(self):
+        self.opt.trial()
+
+    def commit(self):
+        self.opt.commit()
+
+    def layer_finish(self):
+        z, f = self.opt.final()
+        self.z_ext.index_put_((self.lin["layer_gather"],), z)
+        self.z_ext[-1:].zero_()
+        with torch.no_grad():
+            # The output column written here is gated out of this layer's
+            # kernel, so the estimates do not depend on it.
+            est_rows, est_ind = _est_from_factors(self._nll_factors(self.z_ext)[1])
+        _augment_cols(self.plan, self.lin, _next_column(self.plan, self.lin, est_rows), est_ind,
+                      self.x_aug, self.zi_aug)
+        res = torch.stack([f, self.opt.f0, self.opt.state.it.to(f.dtype)])
+        self.out.index_copy_(1, self.layer, res[:, None])
+        self.layer.add_(1)
+
+    def results(self, stats):
+        """``(z_all, layer_nll, layer_iters, layer_nll0)`` after the last
+        layer: the latents stay on the device; the per-layer results and
+        the escalation count come back in one read
+        (``stats["ladder_escalations"]``)."""
+        stats["host_syncs"] += 1
+        out = torch.cat([self.out.reshape(-1), self.escalations.to(self.out.dtype).reshape(1)]).cpu()
+        out, stats["ladder_escalations"] = out[:-1].numpy().reshape(3, -1), int(out[-1])
+        return self.z_ext[:-1].clone(), out[0], out[2].astype(np.int64), out[1]
+
+
+class Eager:
+    """Runs a :class:`ScanStep`'s bodies now, without graphs."""
+
+    replays = 0  # no graphs, no replays
+    replayed = dict.fromkeys(GK.counters(), 0)
+
+    def __init__(self, step):
+        self.step = step
+
+    def __call__(self, name):
+        getattr(self.step, name)()
+
+
+def run_scan_fit(step, run, iters, stats=None):
+    """The loop over layers: per layer, ``layer_init``, up to ``iters``
+    L-BFGS iterations and ``layer_finish``, each body run by ``run``
+    (eagerly or from its graph).  The host reads the L-BFGS
+    flags once per iteration (and per backtracking trial) and the results
+    once at the end.  Returns :meth:`ScanStep.results`."""
+    stats = new_stats() if stats is None else stats
+    for _ in range(step.plan.p):
+        run("layer_init")
+        it = 0
+        while it < iters:
+            done = iterate(run, step.opt, MAX_LINESEARCH, stats)
+            it += 1
+            if done:
+                break
+        run("layer_finish")
+    return step.results(stats)
+
+
+@contextlib.contextmanager
+def _cusolver(device):
+    """cuSOLVER for the factorisations on the card (MAGMA's cannot be
+    captured), for the eager and the graphed step alike."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+def make_scan_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1, rows_traced=False,
+                       cuda_graphs=True):
+    """The scan-fused whole-fit program ``(z_all, x, xs_rows=None,
+    stats=None) -> (z_final, layer_nll, layer_iters, layer_nll0)`` (the
+    contract of ``gpar_tpu/models/fused.py:909-1047`` without the mesh
+    branch).  ``rows_traced``: ``x`` and ``xs_rows`` are bucket-padded
+    (:func:`device_bucket_inputs`); otherwise ``x`` has the plan's exact
+    rows.  On a CUDA tensor with ``cuda_graphs`` the step's bodies replay
+    CUDA graphs captured once per key (``models/graphs.py``); otherwise
+    they run eagerly.  ``stats`` (``params.lbfgs.new_stats()``) receives
+    the counters, ``graph_replays``, ``replay_counts`` (what the replays
+    added to the Gram counters) and ``capture_s``."""
+    check_restarts(restarts)
+    if not plan.sparse:
+        raise NotImplementedError("gpar_torch: the dense scan fit is not ported yet")
+
+    def program(z_all, x, xs_rows=None, stats=None):
+        stats = new_stats() if stats is None else stats
+        dtype, device = x.dtype, x.device
+        rows = xs_rows if rows_traced else plan_tensors(plan, dtype, device)
+        zi = torch.as_tensor(x_ind, dtype=dtype, device=device)
+        args = (z_all, x, rows, zi)
+        with _cusolver(device):
+            if device.type == "cuda" and cuda_graphs:
+                from .graphs import graphed_step
+
+                step, run, capture_s = graphed_step(plan, x.shape[0], zi.shape[0], dtype, device,
+                                                    iters, gtol, memory_size, args)
+            else:
+                step = ScanStep(plan, x.shape[0], zi.shape[0], dtype, device, gtol, memory_size)
+                step.load(*args)
+                run, capture_s = Eager(step), 0.0
+            replays0, replayed0 = run.replays, dict(run.replayed)
+            out = run_scan_fit(step, run, iters, stats=stats)
+        stats["graph_replays"] = run.replays - replays0
+        stats["replay_counts"] = {k: v - replayed0[k] for k, v in run.replayed.items()}
+        stats["capture_s"] = capture_s
+        return out
+
+    return program
+
+
+def make_scan_predict_tail(plan, x_ind, latent, rows_traced=False):
+    """Posterior conditioning and Monte-Carlo predictive sampling over the
+    layers, ``replace=True`` (``gpar_tpu/models/fused.py:2275-2429``): per
+    layer the Titsias factors on the masked training rows at the final
+    hyperparameters, the posterior mean and covariance at the test rows,
+    one sampling factor, all draws as one matmul, then one augmentation
+    step of the training inputs (impute/replace rules) and of the test
+    inputs (the posterior mean).
+
+    Returns ``tail(z_all, x, x_test, w_test_T, normals, xs_rows=None,
+    mt=None) -> (batch, mean_chain)``: ``normals`` (p, S, n_test) are the
+    standard normals of the draws (JAX's per-sample key stream becomes
+    caller-supplied draws), ``mt`` the test-row mask of a bucketed call;
+    ``batch`` (S, n_test, p) model-space samples, ``mean_chain`` (n_test,
+    p) the per-layer posterior means fed forward."""
+    if not plan.replace:
+        raise ValueError("make_scan_predict_tail requires replace=True chains.")
+    if not plan.sparse:
+        raise NotImplementedError("gpar_torch: the dense scan tail is not ported yet")
+    m, W = plan.m, plan.W
+
+    def tail(z_all, x, x_test, w_test_T, normals, xs_rows=None, mt=None):
+        dtype, device = x.dtype, x.device
+        xs = plan_tensors(plan, dtype, device, rows=xs_rows if rows_traced else None)
+        z_ext = torch.cat([z_all, z_all.new_zeros(1)])
+
+        def widen(a):
+            return torch.cat([a, a.new_zeros((a.shape[0], W - m))], dim=1)
+
+        x_aug, xt_aug = widen(x), widen(x_test)
+        zi_aug = widen(torch.as_tensor(x_ind, dtype=dtype, device=device))
+        ys, means = [], []
+        for pi in range(plan.p):
+            lin = {k: v[pi] for k, v in xs.items()}
+            kernel, noise = _layer_kernel(plan, lin, z_ext)
+            noise_w = floor_noise(noise / lin["w_col"])
+            r = lin["y_col"]
+            Kmm = gram(kernel, zi_aug, zi_aug)
+            Kmn = gram(kernel, zi_aug, x_aug)
+            knn = kdiag(kernel, x_aug)
+            _, Lm, LB, beta = titsias_factors(Kmm, Kmn, knn, r, torch.zeros_like(r), noise_w,
+                                              mask=lin["obs_mask"])
+            # Sparse posterior at the test points (gp/core.SparsePosteriorGP).
+            Kmt = gram(kernel, zi_aug, xt_aug)
+            mean_t = Kmt.T @ beta
+            T1 = solve_lower(Lm, Kmt)
+            T2 = solve_lower(LB, T1)
+            cov_t = _mask_test_cov(gram(kernel, xt_aug, xt_aug) - T1.T @ T1 + T2.T @ T2, mt)
+            if not latent:
+                cov_t = cov_t + torch.diag(floor_noise(noise / w_test_T[pi]))
+            F = psd_sample_factor(cov_t)
+            ys.append(mean_t[None, :] + normals[pi] @ F.T)  # (S, n_test)
+            means.append(mean_t)
+            y_next = _next_column(plan, lin, Kmn.T @ beta)
+            _augment_cols(plan, lin, y_next, Kmm @ beta, x_aug, zi_aug)
+            xt_aug.index_copy_(1, (m + lin["col"]).reshape(1), mean_t[:, None])
+        return torch.stack(ys, dim=-1), torch.stack(means, dim=-1)
+
+    return tail

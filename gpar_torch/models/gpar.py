@@ -236,21 +236,3 @@ def _sample_chain(
             x = torch.cat([x, y_next], dim=1)
     return torch.cat(cols, dim=1)
 
-
-def _sample_chain_batched(fs, noises, x, w, x_ind, normals, *, latent, sparse):
-    """S ancestral samples at once for ``replace=True``, where every layer's
-    inputs are the previous layers' posterior means and so do not depend on
-    the draw: per layer one covariance factor ``L`` and one (S, n) matmul
-    ``m + Z L^T``.  ``normals`` is (p, S, n); returns (S, n, p) — per sample
-    the same as :func:`_sample_chain` with ``replace=True`` (whose
-    observation-noise draws under ``latent`` never reach the output)."""
-    p = len(fs)
-    cols = []
-    for i, f in enumerate(fs):
-        fdd = f(x) if latent else f(x, noises[i] / w[:, i])
-        cols.append(fdd.sample(normals[i])[..., 0])
-        if i < p - 1:
-            if sparse and x_ind is not None and x_ind.shape[0] > 0:
-                x_ind = torch.cat([x_ind, f.mean(x_ind)], dim=1)
-            x = torch.cat([x, f.mean(x)], dim=1)
-    return torch.stack(cols, dim=-1)

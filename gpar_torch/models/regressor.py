@@ -10,28 +10,35 @@ Design, in PyTorch terms:
 
 - Data is ingested on the host (NumPy): transform, NaN-aware
   normalisation and the closed-downwards row plan; the inputs are uploaded
-  once.  Observations stay host-side in the ``per_output`` plan and are
-  moved to the device per layer.
-- ``fit(fix=True)`` runs one L-BFGS per layer, eagerly.  Once layer ``pi``
-  is fitted its hyperparameters are fixed, so its posterior is computed
-  once and its means at the data rows and at the inducing inputs are
-  appended to the augmented inputs for layer ``pi + 1`` (the rule of the
-  JAX package's ``_augment_cols``).  The JAX per-layer loop re-conditions
-  layers ``0..pi-1`` for every layer instead; the numbers are the same.
-- ``predict`` with ``replace=True`` conditions every layer, then draws all
-  Monte-Carlo samples of a layer as one (S, n) matmul against one
-  covariance factor (the inputs of every layer are posterior means, so
-  the covariance is shared by all draws), and reduces to the mean and the
-  2.5 / 97.5 percentiles on the device.  ``torch.quantile`` with
-  ``interpolation="linear"`` is ``jnp.percentile``'s default.
+  once.
+- ``fit(fix=True)`` with ``fused=True`` (the default) is the scan-fused
+  fit of ``models/fused.py``: every layer runs one step at uniform shapes
+  (gates for ``select``, 0/1 row masks for the NaN filtering, rows padded
+  to a shape bucket), L-BFGS on the layer's objective and then one
+  augmentation step.  On a CUDA device the step's bodies are captured once
+  as CUDA graphs and replayed for every layer and iteration
+  (``models/graphs.py``); ``cuda_graphs=False`` runs them eagerly, as a
+  CPU tensor always does.  ``fused=False`` is the per-layer driver, the
+  oracle: one L-BFGS per layer through ``GPAR.logpdf``; once layer ``pi``
+  is fitted its posterior is computed once and its means at the data rows
+  and at the inducing inputs are appended for layer ``pi + 1`` (the rule
+  of the JAX package's ``_augment_cols``).
+- ``predict`` with ``replace=True`` is the scan predict tail
+  (``fused.make_scan_predict_tail``): the test rows are bucketed and
+  masked, every layer is conditioned once, and all Monte-Carlo samples of
+  a layer are one (S, n) matmul against one covariance factor (the inputs
+  of every layer are posterior means, so the covariance is shared by all
+  draws); the mean and the 2.5 / 97.5 percentiles are reduced on the
+  device.  ``torch.quantile`` with ``interpolation="linear"`` is
+  ``jnp.percentile``'s default.
 - Entry points run on ``device`` (default ``"cuda"``; raises without a
   card unless ``device="cpu"``).  Randomness comes from a
   ``torch.Generator`` or from caller-supplied standard normals.
 
 Not ported yet: the dense (no inducing points) path, ``logpdf``,
-``replace=False`` prediction, ``fix=False``, prior ``sample``, restarts,
-greedy ordering, the scan-fused bodies, buckets and the posterior-factor
-cache, ``warmup`` / ``precompute`` and checkpointing.
+``replace=False`` prediction, ``fix=False``, prior ``sample``, restarts
+and ``fused="batched"``/``"unroll"``, greedy ordering, the
+posterior-factor cache, ``warmup`` / ``precompute`` and checkpointing.
 """
 
 import time
@@ -39,13 +46,14 @@ import time
 import numpy as np
 import torch
 
-from ..config import default_dtype, resolve_device
+from ..config import bucket_rows, default_dtype, resolve_device
 from ..gp.core import GP
 from ..ops.kernels import EQ, RQ, Const, Linear, ZeroKernel
-from ..params.optim import minimise_l_bfgs_b
+from ..params.lbfgs import new_stats
+from ..params.optim import check_restarts, minimise_l_bfgs_b
 from ..params.store import Vars, load_latents
 from ..utils.rng import default_generator
-from .gpar import GPAR, _sample_chain_batched, per_output
+from .gpar import GPAR, per_output
 
 __all__ = ["GPARRegressor", "log_transform", "squishing_transform"]
 
@@ -281,7 +289,9 @@ class GPARRegressor:
         self.vs = Vars(dtype=self.dtype, device=self.device)
         self.is_conditioned = False
         #: The most recent fit: per-layer initial and final NLL, L-BFGS
-        #: iterations, wall-clock.
+        #: iterations, wall-clock; on the scan path also the CUDA graph
+        #: replays, host reads, backtracking trials and the Cholesky
+        #: factorisations that escalated past the first jitter rung.
         self.last_fit_report = None
         self.compat = compat
         self.normalise_y = normalise_y
@@ -289,6 +299,7 @@ class GPARRegressor:
         self._transform_y, self._untransform_y = transform_y
         self._vars_ready = None
         self._y_cache = None
+        self._plan_cache = self._bucket_cache = None  # scan plan, bucketed inputs
         self.x = None  # conditioned inputs (device)
         self._x_np = self._y_np = self._w_np = None
         self.n = self.m = self.p = None
@@ -349,6 +360,7 @@ class GPARRegressor:
         self._y_cache = {
             keep: list(per_output(y_np, w_np, keep=keep)) for keep in (False, True)
         }
+        self._plan_cache = self._bucket_cache = None
         self.x = self._upload(x_np)
         self._vars_ready = None
         self.is_conditioned = True
@@ -358,25 +370,70 @@ class GPARRegressor:
             y = y * self._upload(self._stds) + self._upload(self._means)
         return self._untransform_y(y)
 
-    def fit(self, x, y, w=None, greedy=False, fix=True, iters=1000, gtol=1e-9, memory_size=10):
+    def fit(self, x, y, w=None, greedy=False, fix=True, iters=1000, gtol=1e-9, memory_size=10,
+            fused=True, restarts=1, cuda_graphs=True):
         """Fit the model to data (``gpar/regression.py:391-459``): one
         L-BFGS per layer over that layer's variables, layers fixed once
-        fitted (``fix=True``)."""
+        fitted (``fix=True``).
+
+        ``fused=True`` (default): the scan-fused fit (``models/fused.py``),
+        its layer step captured as CUDA graphs on a CUDA device unless
+        ``cuda_graphs=False``; ``fused=False``: the per-layer driver.
+        ``"batched"``/``"unroll"`` and ``restarts > 1`` are not ported."""
         if greedy:
             raise NotImplementedError("Greedy search is not implemented yet.")
         if not fix:
             raise NotImplementedError("gpar_torch: fit(fix=False) is not ported yet")
+        if fused not in (True, False):
+            raise NotImplementedError(f"gpar_torch: fit(fused={fused!r}) is not ported yet")
+        check_restarts(restarts)
         self.condition(x, y, w)
         self._ensure_vars(self.p)
         t0 = time.perf_counter()
-        nll0, nll, its = self._fit_per_layer_loop(iters, gtol, memory_size)
-        self.last_fit_report = {
-            "layer_nll0": np.asarray(nll0),
-            "layer_nll": np.asarray(nll),
-            "layer_iters": np.asarray(its),
-            "wall_clock_s": time.perf_counter() - t0,
-            "fused": False,
-        }
+        if fused:
+            report = self._fit_scan(iters, gtol, memory_size, cuda_graphs)
+        else:
+            nll0, nll, its = self._fit_per_layer_loop(iters, gtol, memory_size)
+            report = {"layer_nll0": np.asarray(nll0), "layer_nll": np.asarray(nll),
+                      "layer_iters": np.asarray(its), "fused": False, "graph_replays": 0}
+        report["wall_clock_s"] = time.perf_counter() - t0
+        self.last_fit_report = report
+
+    def _scan_fit_plan(self, names):
+        """The conditioned data's scan plan, cached per variable layout."""
+        from .fused import build_scan_fit_plan
+
+        key = tuple(names)
+        if self._plan_cache is None or self._plan_cache[0] != key:
+            self._plan_cache = (key, build_scan_fit_plan(self, names))
+        return self._plan_cache[1]
+
+    def _bucket_fit_inputs(self, plan):
+        """``(x_pad, rows)``: the conditioned data padded to its row bucket
+        on the device, and the per-layer row arrays derived there; cached
+        per dataset and bucket."""
+        from .fused import device_bucket_inputs
+
+        n_b = bucket_rows(plan.n)
+        if self._bucket_cache is None or self._bucket_cache[0] != n_b:
+            self._bucket_cache = (n_b, *device_bucket_inputs(
+                self._x_np, self._y_np, self._w_np, n_b=n_b, impute=bool(self.impute),
+                device=self.device,
+            ))
+        return self._bucket_cache[1:]
+
+    def _fit_scan(self, iters, gtol, memory_size, cuda_graphs):
+        from .fused import make_scan_fit_body
+
+        names = self.vs.select(None)
+        plan = self._scan_fit_plan(names)
+        x_pad, rows = self._bucket_fit_inputs(plan)
+        program = make_scan_fit_body(plan, self.x_ind, iters, gtol, memory_size,
+                                     rows_traced=True, cuda_graphs=cuda_graphs)
+        stats = new_stats()
+        z, nll, its, nll0 = program(self.vs.latent_vector(names), x_pad, rows, stats=stats)
+        self.vs.set_latent_vector(names, z)
+        return {"layer_nll0": nll0, "layer_nll": nll, "layer_iters": its, "fused": True, **stats}
 
     def _fit_per_layer_loop(self, iters, gtol, memory_size):
         y_cached = self._y_cache
@@ -446,13 +503,11 @@ class GPARRegressor:
             )
         if not self.replace:
             raise NotImplementedError("gpar_torch: predict with replace=False is not ported yet")
-        x = self._upload(_uprank_np(x, self._np_dtype))
-        nt = x.shape[0]
-        w = (
-            torch.ones((nt, self.p), dtype=self.dtype, device=self.device)
-            if w is None
-            else self._upload(_uprank_np(w, self._np_dtype))
-        )
+        from .fused import make_scan_predict_tail
+
+        x_np = _uprank_np(x, self._np_dtype)
+        nt = x_np.shape[0]
+        w_np = np.ones((nt, self.p), self._np_dtype) if w is None else _uprank_np(w, self._np_dtype)
         if normals is None:
             gen = default_generator(self.device) if generator is None else generator
             normals = torch.randn(
@@ -465,21 +520,21 @@ class GPARRegressor:
                     f"normals has shape {tuple(normals.shape)}; expected "
                     f"{(self.p, num_samples, nt)}"
                 )
+        # Test rows padded to their bucket and masked out of the
+        # covariance; padded draws are sliced off.
+        pad = bucket_rows(nt) - nt
+        x_t = self._upload(np.pad(x_np, ((0, pad), (0, 0))))
+        w_t = self._upload(np.pad(w_np, ((0, pad), (0, 0)), constant_values=1.0).T)
+        mt = self._upload(np.arange(nt + pad) < nt)
+        normals = torch.nn.functional.pad(normals, (0, pad))
         self._ensure_vars(self.p)
+        names = self.vs.select(None)
+        plan = self._scan_fit_plan(names)
+        x_pad, rows = self._bucket_fit_inputs(plan)
+        tail = make_scan_predict_tail(plan, self.x_ind, latent, rows_traced=True)
         with torch.no_grad():
-            gpar = _construct_gpar(self, self.vs, self.m, self.p) | (self.x, self._y_cache, None)
-            models = [mo() for mo in gpar.layers]
-            batch = _sample_chain_batched(
-                tuple(f for f, _ in models),
-                tuple(n for _, n in models),
-                x,
-                w,
-                gpar.x_ind,
-                normals,
-                latent=latent,
-                sparse=self.sparse,
-            )
-            batch = self._undo_transforms(batch)
+            batch, _ = tail(self.vs.latent_vector(names), x_pad, x_t, w_t, normals, rows, mt)
+            batch = self._undo_transforms(batch[:, :nt])
             out = [torch.mean(batch, dim=0)]
             if credible_bounds:
                 q = torch.tensor([0.025, 0.975], dtype=self.dtype, device=self.device)

@@ -98,13 +98,17 @@ def _declare(lib):
         f.restype = ci
     lib.gpar_gram_max_terms.argtypes = []
     lib.gpar_gram_max_terms.restype = ci
+    lib.gpar_gram_init.argtypes = []
+    lib.gpar_gram_init.restype = ci
     lib.gpar_cuda_error_string.argtypes = [ci]
     lib.gpar_cuda_error_string.restype = ctypes.c_char_p
 
 
 def load_library(name="gram"):
     """The loaded ``ctypes`` library ``name``, building it on first use.
-    Checks that the library's term limit is the wrapper's ``MAX_TERMS``."""
+    Checks that the library's term limit is the wrapper's ``MAX_TERMS`` and
+    makes the backward kernel's opt-in to more than 48 KB of shared memory
+    (``gpar_gram_init``), so that no launch sets a function attribute."""
     lib = _libs.get(name)
     if lib is None:
         from .gram_kernel import MAX_TERMS
@@ -116,5 +120,9 @@ def load_library(name="gram"):
                 f"gpar_torch: {SOURCES[name]} takes {lib.gpar_gram_max_terms()} "
                 f"terms per launch, the wrapper assumes {MAX_TERMS}"
             )
+        rc = lib.gpar_gram_init()
+        if rc != 0:
+            raise RuntimeError(f"gpar_torch: gpar_gram_init failed ({rc}): "
+                               f"{lib.gpar_cuda_error_string(rc).decode()}")
         _libs[name] = lib
     return lib

@@ -34,6 +34,7 @@ C++, forward and backward in ``gpar_torch/csrc/gram.cu``, built by
 
 import ctypes
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -55,6 +56,10 @@ __all__ = [
     "gram_plain_cuda_calls",
     "gram_bwd_kernel_launches",
     "gram_eval_cuda_calls",
+    "gram_autograd_calls",
+    "counters",
+    "add_counters",
+    "set_counters",
     "map_leaves",
 ]
 
@@ -62,6 +67,14 @@ LANES = 128
 #: Most terms one launch takes (``GPAR_GRAM_MAX_TERMS`` in ``gram.cu``).
 MAX_TERMS = 32
 KIND_CODES = {"rbf": 0, "rq": 1, "lin": 2}
+
+# Counters.  Each is incremented by Python where the work is issued, so
+# work captured into a CUDA graph would count once, at the capture, and a
+# replay, which runs no Python, not at all.  The graph runner
+# (``models/graphs.py``) therefore takes what a capture added back out
+# (:func:`set_counters`) and adds it again on every replay
+# (:func:`add_counters`): the counts are per launch that ran, replays
+# included.
 
 #: Launches of the CUDA Gram kernel (incremented by the wrapper only).
 gram_kernel_launches = 0
@@ -72,15 +85,34 @@ gram_bwd_kernel_launches = 0
 gram_plain_cuda_calls = 0
 #: Calls of ``ops.kernels.gram_eval`` on CUDA tensors, from anywhere.
 gram_eval_cuda_calls = 0
+#: Fused Grams of CUDA tensors taken under autograd: each must come back
+#: through the backward kernel once.
+gram_autograd_calls = 0
+
+_COUNTERS = (
+    "gram_kernel_launches",
+    "gram_bwd_kernel_launches",
+    "gram_plain_cuda_calls",
+    "gram_eval_cuda_calls",
+    "gram_autograd_calls",
+)
+
+
+def counters():
+    """The counters by name."""
+    return {k: globals()[k] for k in _COUNTERS}
+
+
+def set_counters(values):
+    globals().update({k: values[k] for k in _COUNTERS})
+
+
+def add_counters(delta):
+    globals().update({k: globals()[k] + delta[k] for k in _COUNTERS})
 
 
 def reset_counters():
-    global gram_kernel_launches, gram_bwd_kernel_launches
-    global gram_plain_cuda_calls, gram_eval_cuda_calls
-    gram_kernel_launches = 0
-    gram_bwd_kernel_launches = 0
-    gram_plain_cuda_calls = 0
-    gram_eval_cuda_calls = 0
+    set_counters(dict.fromkeys(_COUNTERS, 0))
 
 
 class _Term(NamedTuple):
@@ -369,13 +401,19 @@ _BWD_COLS = {torch.float32: 128, torch.float64: 64}
 _BWD_ROWS = 16
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _bwd_plan(n, m, n_terms, dtype, device):
     """``(column tiles, row splits, rows per split)`` of one backward launch,
     which size its partial buffers.  Rows are split only as far as it takes
-    to give every SM two blocks."""
+    to give every SM two blocks.  The device's SM count is read once and
+    cached (the plan runs inside CUDA graph captures)."""
     ct = -(-m // _BWD_COLS[dtype])
     steps = -(-n // _BWD_ROWS)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _sm_count(device)
     splits = min(max(-(-2 * sms // (ct * n_terms)), 1), steps)
     rps = -(-steps // splits) * _BWD_ROWS
     return ct, -(-n // rps), rps
@@ -466,9 +504,13 @@ class _GramFn(torch.autograd.Function):
 def gram_fused_or_none(kernel, x, y):
     """Fused Gram, or None when the analyser refuses the tree (the dispatch
     in :func:`gpar_torch.ops.kernels.gram` then evaluates ``gram_eval``)."""
+    global gram_autograd_calls
     if x.ndim != 2 or y.ndim != 2 or x.dtype not in (torch.float32, torch.float64):
         return None
     parsed = analyze_kernel(kernel, x.shape[1])
     if parsed is None:
         return None
-    return _GramFn.apply(*_prepare(*parsed, x, y))
+    out = _GramFn.apply(*_prepare(*parsed, x, y))
+    if out.is_cuda and out.requires_grad:
+        gram_autograd_calls += 1
+    return out

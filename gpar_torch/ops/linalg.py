@@ -16,6 +16,17 @@ rung tried.  In eager PyTorch the rungs are real branches: a failed rung
 never enters the autograd graph, so the JAX package's NaN-proof Cholesky
 VJP (``_chol_grad_safe``) is not needed — the gradient is that of the rung
 that succeeded.
+
+A CUDA graph can hold no host read, so a caller that passes an
+``escalations`` counter to :func:`titsias_factors` gets
+:func:`cholesky_ladder_on_device` for its factorisations: every rung is
+tried on the device without autograd, the first that holds is chosen by
+``torch.where``, and the matrix is factored once more at that rung's
+jitter, with autograd.  Value and gradient are bit for bit those of the
+host-read ladder (the same factorisation of the same matrix; the
+unchosen rungs add exact zeros), so a captured step computes what the
+eager one does, at the price of the probes.  The JAX counterpart is the
+ladder through ``lax.cond`` (``gpar_tpu/ops/linalg.py:337-380``).
 """
 
 import torch
@@ -28,6 +39,7 @@ __all__ = [
     "floor_noise",
     "add_jitter",
     "safe_cholesky",
+    "cholesky_ladder_on_device",
     "psd_sample_factor",
     "solve_lower",
     "solve_chol",
@@ -40,7 +52,6 @@ __all__ = [
 ]
 
 LOG_2PI = 1.8378770664093453  # log(2 * pi)
-
 
 def resolve_epsilon(dtype, epsilon=None):
     """Effective Cholesky jitter for ``dtype``: an explicit ``epsilon``
@@ -72,6 +83,31 @@ def _attempt(K, e):
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     L, info = torch.linalg.cholesky_ex(K + e * eye)
     return L, bool(info.item() == 0)
+
+
+def cholesky_ladder_on_device(K, escalations, epsilon=None):
+    """:func:`safe_cholesky` with no host read.  Every rung's factorisation
+    is tried without autograd, the jitter of the first that holds is
+    selected on the device, and ``K`` plus that jitter is factored again
+    with autograd; a NaN matrix if every rung fails.  A factorisation that
+    needed more than the first rung adds one to the integer device tensor
+    ``escalations``."""
+    eps = resolve_epsilon(K.dtype, epsilon)
+    if K.shape[-1] == 0:
+        return torch.zeros_like(K)
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+    # The relative rung's jitter keeps its gradient, as in the eager ladder;
+    # the where-chain passes it on only when that rung is chosen.
+    rel = torch.clamp_min(1e-6 * torch.max(torch.abs(torch.diagonal(K))), eps)
+    rungs = [eps] + [eps * f for f in config.cholesky_retry_factors]
+    with torch.no_grad():
+        ok = [torch.linalg.cholesky_ex(K + e * eye)[1] == 0 for e in rungs + [rel]]
+        escalations.add_((~ok[0]).to(escalations.dtype))
+    e = rel
+    for r, held in zip(reversed(rungs), reversed(ok[:-1])):
+        e = torch.where(held, r, e)
+    L, _ = torch.linalg.cholesky_ex(K + e * eye)
+    return torch.where(torch.stack(ok).any(), L, float("nan"))
 
 
 def safe_cholesky(K, epsilon=None):
@@ -159,7 +195,14 @@ def titsias_elbo(Kmm, Kmn, knn_diag, y, mean, noise_diag, epsilon=None):
     return titsias_factors(Kmm, Kmn, knn_diag, y, mean, noise_diag, epsilon)[0]
 
 
-def titsias_factors(Kmm, Kmn, knn_diag, y, mean, noise_diag, epsilon=None, mask=None):
+def _cholesky(K, epsilon, escalations):
+    if escalations is None:
+        return safe_cholesky(K, epsilon)
+    return cholesky_ladder_on_device(K, escalations, epsilon)
+
+
+def titsias_factors(Kmm, Kmn, knn_diag, y, mean, noise_diag, epsilon=None, mask=None,
+                    escalations=None):
     """Collapsed Titsias ELBO and the sparse-posterior factors from one
     factorisation pass: ``(elbo, Lm, LB, beta)`` with ``Lm = chol(Kmm)``,
     ``LB = chol(I + Lm^{-1} Kmn D^{-1} Knm Lm^{-T})`` and
@@ -167,6 +210,10 @@ def titsias_factors(Kmm, Kmn, knn_diag, y, mean, noise_diag, epsilon=None, mask=
 
     ``mask`` (optional (n,) of 0/1) excludes rows exactly: a masked row's
     ``D^{-1}`` is zero and its logdet/count contributions vanish.
+
+    ``escalations`` (optional integer device tensor): factor through
+    :func:`cholesky_ladder_on_device`, which reads nothing back to the host
+    and counts into it, instead of :func:`safe_cholesky`.
 
     The cancellation-free float32 form of the JAX package: ``A0 = Lm^{-1}
     Kmn`` stays at O(1) scale and both differences — the trace
@@ -189,27 +236,28 @@ def titsias_factors(Kmm, Kmn, knn_diag, y, mean, noise_diag, epsilon=None, mask=
         logdet_d = torch.sum(torch.log(noise_diag) * mask)
         n_eff = torch.sum(mask)
 
-    Lm = safe_cholesky(Kmm, epsilon)
+    Lm = _cholesky(Kmm, epsilon, escalations)
     A0 = solve_lower(Lm, Kmn)  # (m, n), O(1) entries
     qnn = torch.sum(A0 * A0, dim=0)
     trace_num = torch.sum(torch.clamp_min(knn_diag - qnn, 0.0) * d_inv)
     G = (A0 * d_inv[None, :]) @ A0.T
     u = A0 @ (r * d_inv)
-    LB, w, beta = titsias_solve(G, u, Lm)
+    LB, w, beta = titsias_solve(G, u, Lm, escalations)
     est = A0.T @ w
     quad = torch.sum(r * (r - est) * d_inv)
     elbo = titsias_assemble(logdet_d, LB, quad, trace_num, n_eff)
     return elbo, Lm, LB, beta
 
 
-def titsias_solve(G, u, Lm):
+def titsias_solve(G, u, Lm, escalations=None):
     """The O(m^3) core of the collapsed ELBO: ``LB = chol(I + G)`` (through
     the retry ladder — in float32 near the noise floor ``I + G`` can be
     numerically indefinite), ``w = LB^{-T} LB^{-1} u`` and
-    ``beta = Lm^{-T} w``.  ``G`` is resymmetrised first."""
+    ``beta = Lm^{-T} w``.  ``G`` is resymmetrised first; ``escalations``
+    as in :func:`titsias_factors`."""
     m = G.shape[-1]
     G = 0.5 * (G + G.T)
-    LB = safe_cholesky(G + torch.eye(m, dtype=G.dtype, device=G.device))
+    LB = _cholesky(G + torch.eye(m, dtype=G.dtype, device=G.device), None, escalations)
     c = solve_lower(LB, u)
     w = _solve_lower_t(LB, c)
     beta = _solve_lower_t(Lm, w)

@@ -4,12 +4,21 @@
 
 Box constraints are unnecessary: every bound is a store transform
 (``params/store.py``).  The gradient is ``torch.autograd.grad`` of the
-objective evaluated at a latent vector that requires grad.
+objective evaluated at a latent vector that requires grad.  The scan-fused
+fit's counterpart of ``lbfgs_traced_restarts`` (``optim.py:44-80``) is
+:func:`check_restarts` and the step's device-state L-BFGS
+(``models/fused.py``).
 """
 
 from .lbfgs import lbfgs_minimize
 
-__all__ = ["minimise_l_bfgs_b"]
+__all__ = ["minimise_l_bfgs_b", "check_restarts"]
+
+
+def check_restarts(restarts):
+    """Only single-start fits are ported (multi-start is ROADMAP A10.6)."""
+    if restarts != 1:
+        raise NotImplementedError("gpar_torch: restarts > 1 is not ported yet")
 
 
 def minimise_l_bfgs_b(
@@ -21,8 +30,7 @@ def minimise_l_bfgs_b(
     Returns ``(f0, f, iterations)``: the objective at the initial and the
     final latents (floats) and the number of L-BFGS iterations taken.
     """
-    if restarts != 1:
-        raise NotImplementedError("gpar_torch: restarts > 1 is not ported yet")
+    check_restarts(restarts)
     sel = vs.select(names)
     if not sel:
         # Variables are created lazily on first access.

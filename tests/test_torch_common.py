@@ -11,6 +11,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from numpy.testing import assert_allclose  # noqa: E402
 
+from .torch_cases import bench_kwargs, chain_data  # noqa: E402
+
 __all__ = [
     "torch",
     "jax",
@@ -32,36 +34,6 @@ def np_(a):
 
 def close(a, b, rtol, atol=0.0):
     assert_allclose(np_(a), np_(b), rtol=rtol, atol=atol)
-
-
-def chain_data(n=100, p=3, seed=0, n_test=20):
-    """A small closed-downwards chain shaped like the benchmark's data
-    (each output a nonlinear function of the previous one and the input)."""
-    rng = np.random.default_rng(seed)
-    x = np.sort(rng.uniform(0.0, 10.0, n))
-    cols = [np.sin(x) - x**2 / 50.0]
-    for i in range(1, p):
-        cols.append(np.cos(cols[-1]) ** 2 + np.sin((i + 1) * x / 3.0) / (1 + i / 8.0))
-    y = np.stack(cols, axis=1) + 0.05 * rng.standard_normal((n, p))
-    x_test = np.linspace(0.2, 9.8, n_test)
-    return x, y, x_test
-
-
-def bench_kwargs(n_ind=8, lo=0.0, hi=10.0):
-    """The benchmark's model configuration (``bench.py:54-69``) with
-    ``n_ind`` inducing points."""
-    return dict(
-        scale=0.2,
-        linear=True,
-        linear_scale=10.0,
-        nonlinear=True,
-        nonlinear_scale=1.0,
-        noise=0.1,
-        impute=True,
-        replace=True,
-        normalise_y=True,
-        x_ind=np.linspace(lo, hi, n_ind),
-    )
 
 
 def jax_chain_normals(key, p, n, num_samples=None, dtype=jnp.float64):

@@ -1,0 +1,129 @@
+"""Card-only tests of gpar_torch: the hand-written CUDA kernels against
+their plain PyTorch versions, and the CUDA graphs of the scan-fused layer
+step against the same step run eagerly.
+
+This file imports neither JAX nor ``gpar_tpu``, so it runs on a machine
+with PyTorch for CUDA alone; the suite's ``conftest.py`` configures JAX, so
+skip it there::
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
+
+Every test skips without a CUDA device (a CUDA kernel has no CPU mode).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from gpar_torch import GPARRegressor  # noqa: E402
+from gpar_torch.models.fused import Eager, ScanStep, build_scan_fit_plan  # noqa: E402
+from gpar_torch.ops import gram_kernel as GK  # noqa: E402
+
+from .torch_cases import CASES, FUSED, TorchFW, _inputs, bench_kwargs, chain_data  # noqa: E402
+
+
+def _need_cuda():
+    # Decided in the test, not at import: every worker must collect the same tests.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+
+def _tree(case, npdt, device):
+    build, d = CASES[case]
+    tree, _ = GK.map_leaves(build(TorchFW(npdt)), lambda l: l.to(device))
+    return tree, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_cuda_kernel_matches_plain(dtype, tol):
+    _need_cuda()
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    dev = torch.device("cuda")
+    for case in FUSED:
+        tree, d = _tree(case, npdt, dev)
+        x, y = _inputs(d, npdt, n=300, m=133)
+        prep = GK.prepare_terms(tree, torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev))
+        got = GK.gram_kernel_launch(*prep)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, GK.gram_terms_plain(*prep), rtol=tol, atol=tol, msg=case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+def test_cuda_backward_kernel_matches_plain(dtype, tol):
+    _need_cuda()
+    # Tolerance relative to the largest entry of each plain gradient: the
+    # kernel sums over 133 or 300 terms in another order than the plain
+    # version.
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    dev = torch.device("cuda")
+    for case in FUSED:
+        tree, d = _tree(case, npdt, dev)
+        x, y = _inputs(d, npdt, n=300, m=133)
+        prep = GK.prepare_terms(tree, torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev))
+        g = torch.as_tensor(np.random.default_rng(9).normal(size=(300, 133)).astype(npdt), device=dev)
+        got = GK.gram_bwd_kernel_launch(*prep, g)
+        torch.cuda.synchronize()
+        for a, b in zip(got, GK.gram_terms_plain_vjp(*prep, g)):
+            scale = max(float(b.abs().max()), 1e-30)
+            assert float((a - b).abs().max()) <= tol * scale, case
+
+
+def _small_step(dtype):
+    x, y, _ = chain_data(n=100, p=3, seed=0)
+    y[::7, 2] = np.nan
+    reg = GPARRegressor(**bench_kwargs(n_ind=8), device="cuda", dtype=dtype)
+    reg.condition(x, y)
+    reg._ensure_vars(reg.p)
+    names = reg.vs.select(None)
+    plan = build_scan_fit_plan(reg, names)
+    x_pad, rows = reg._bucket_fit_inputs(plan)
+    step = ScanStep(plan, x_pad.shape[0], 8, dtype, "cuda")
+    step.load(reg.vs.latent_vector(names), x_pad, rows, reg.x_ind)
+    return reg, x, y, step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_graphed_layer_step_matches_eager_step(dtype):
+    _need_cuda()
+    # The same bodies from the same buffers: replayed graphs and the eager
+    # run give the same bits.
+    from gpar_torch.models.fused import _cusolver
+    from gpar_torch.models.graphs import GraphedStep
+
+    _, _, _, step = _small_step(dtype)
+    twin = step.clone()
+    with _cusolver("cuda"):
+        graphs = GraphedStep(step)
+        eager = Eager(twin)
+        GK.reset_counters()
+        for name in ("layer_init", "step", "commit", "step", "trial", "layer_finish", "layer_init"):
+            graphs(name)
+            eager(name)
+        torch.cuda.synchronize()
+    for a, b in zip(step._buffers(), twin._buffers()):
+        assert torch.equal(a, b)
+    assert graphs.replays == 7
+    counts = GK.counters()
+    # Replays count their launches like the eager run does.
+    assert counts["gram_kernel_launches"] > 0 and counts["gram_plain_cuda_calls"] == 0
+    assert counts["gram_bwd_kernel_launches"] == counts["gram_autograd_calls"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_fit_equals_eager_fit():
+    _need_cuda()
+    reg, x, y, _ = _small_step(torch.float64)
+    z0 = reg.vs.snapshot()
+    reg.fit(x, y, iters=5)
+    graphed = (reg.last_fit_report, reg.vs.snapshot())
+    reg.vs.restore(z0)
+    reg.fit(x, y, iters=5, cuda_graphs=False)
+    eager = (reg.last_fit_report, reg.vs.snapshot())
+    assert graphed[0]["graph_replays"] > 0 and eager[0]["graph_replays"] == 0
+    np.testing.assert_array_equal(graphed[0]["layer_nll"], eager[0]["layer_nll"])
+    for k, v in eager[1].items():
+        np.testing.assert_array_equal(graphed[1][k], v)

@@ -85,21 +85,6 @@ def test_sample_chain_with_jax_normals_matches_jax(models, replace):
         post_j.replace = post_t.replace = True
 
 
-def test_batched_chain_equals_per_sample_chain(models):
-    post_t = models["post_t"]
-    fs_noises = [m() for m in post_t.layers]
-    fs, noises = tuple(f for f, _ in fs_noises), tuple(n for _, n in fs_noises)
-    xs = torch.as_tensor(np.linspace(0.5, 9.5, 9)[:, None])
-    w = torch.ones((9, P), dtype=torch.float64)
-    normals = torch.as_tensor(np.random.default_rng(2).standard_normal((P, 4, 9)))
-    batch = TG._sample_chain_batched(fs, noises, xs, w, post_t.x_ind, normals,
-                                     latent=False, sparse=True)
-    for s in range(4):
-        one = TG._sample_chain(fs, noises, xs, w, post_t.x_ind, normals[:, s],
-                               latent=False, replace=True, sparse=True)
-        close(batch[s], one, rtol=1e-10, atol=1e-12)
-
-
 def test_routing_helpers_match_jax():
     r = np.random.default_rng(4)
     y = r.normal(size=(12, 3))

@@ -23,129 +23,41 @@ from gpar_tpu.ops.pallas_gram import gram_fused as j_gram_fused  # noqa: E402
 from gpar_tpu.params.store import Vars as JVars  # noqa: E402
 
 import gpar_torch.ops.kernels as TK  # noqa: E402
-from gpar_torch.models.regressor import GPARRegressor as TReg  # noqa: E402
-from gpar_torch.models.regressor import _model_generator as t_generator  # noqa: E402
 from gpar_torch.ops import gram_kernel as GK  # noqa: E402
-from gpar_torch.params.store import Vars as TVars  # noqa: E402
-from gpar_torch.params.store import load_latents  # noqa: E402
+
+from .torch_cases import CASES, FUSED, TorchFW, _inputs  # noqa: E402, F401
 
 
-class _FW:
-    """One framework's constructors, so a case builds the same tree in
-    both packages."""
+class _JaxFW:
+    """The JAX package's constructors for the tree cases of
+    ``torch_cases.py`` (``TorchFW`` is the port's)."""
 
-    def __init__(self, name, dtype):
-        self.name, self.dtype = name, dtype
-        if name == "jax":
-            self.K = JK
-            self.P = lambda a: jnp.asarray(np.asarray(a, dtype))
-        else:
-            self.K = TK
-            self.P = lambda a: torch.as_tensor(np.asarray(a, dtype))
+    name = "jax"
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+        self.K = JK
+        self.P = lambda a: jnp.asarray(np.asarray(a, dtype))
 
     def bench_tree(self, pi, m=1):
         """Layer ``pi``'s kernel exactly as the estimator builds it for the
-        benchmark's configuration, at seeded, perturbed hyperparameters."""
-        kw = bench_kwargs()
-        if self.name == "jax":
-            cfg = JReg(**kw).model_config
-            vs = JVars(dtype=np.dtype(self.dtype).name)
-            gen = j_generator(vs, m, pi, **cfg)
-        else:
-            cfg = TReg(**kw, device="cpu").model_config
-            tdt = torch.float32 if self.dtype == np.float32 else torch.float64
-            vs = TVars(dtype=tdt, device="cpu")
-            gen = t_generator(vs, m, pi, **cfg)
+        benchmark's configuration, at the hyperparameters of
+        ``TorchFW.bench_tree``."""
+        cfg = JReg(**bench_kwargs()).model_config
+        vs = JVars(dtype=np.dtype(self.dtype).name)
+        gen = j_generator(vs, m, pi, **cfg)
         gen()
         r = np.random.default_rng(100 + pi)
         snap0 = vs.snapshot()
         snap = {k: snap0[k] + 0.3 * r.standard_normal(np.shape(snap0[k])) for k in vs.names}
-        if self.name == "jax":
-            vs.restore({k: np.asarray(v, self.dtype) for k, v in snap.items()})
-        else:
-            load_latents(vs, snap)
+        vs.restore({k: np.asarray(v, self.dtype) for k, v in snap.items()})
         f, _ = gen()
         return f.kernel
 
 
-def _layer_kernel_tree(fw, m=1, P1=3, pi=2):
-    """A gated layer kernel built like the scan body's ``_layer_kernel``
-    (``gpar_tpu/models/fused.py:547-607``): input terms gated to the first
-    ``m`` columns, output terms gated to the ``pi`` modelled outputs."""
-    P, K = fw.P, fw.K
-    out_gate = (np.arange(P1) < pi).astype(float)
-    gate_in = P(np.r_[np.ones(m), np.zeros(P1)])
-    gate_out = P(np.r_[np.zeros(m), out_gate])
-    kin = P(1.3) * K.EQ().stretch(P(np.r_[[0.7] * m, np.ones(P1)]))
-    kernel = kin.gate(gate_in)
-    kernel = kernel + K.Linear().stretch(P(np.r_[np.ones(m), [3.0, 2.0, 4.0][:P1]])).gate(gate_out)
-    kernel = kernel + (P(1.0) * P(0.8)) * K.EQ().stretch(
-        P(np.r_[np.ones(m), [0.9, 1.4, 1.1][:P1]])
-    ).gate(gate_out)
-    return kernel
-
-
-# name -> (build(fw) -> kernel, input width)
-CASES = {
-    "eq": (lambda fw: fw.K.EQ(), 2),
-    "rq": (lambda fw: fw.K.RQ(fw.P(0.8)), 2),
-    "linear": (lambda fw: fw.K.Linear(), 2),
-    "const": (lambda fw: fw.K.Const(fw.P(1.3)), 2),
-    "zero-sum": (lambda fw: fw.K.ZeroKernel() + fw.K.EQ(), 2),
-    "sum": (lambda fw: 2.0 * fw.K.EQ() + fw.K.Linear() + fw.K.Const(fw.P(0.3)), 2),
-    "product": (
-        lambda fw: fw.K.EQ().stretch(fw.P([0.7, 1.3])) * fw.K.EQ().stretch(fw.P([2.0, 0.5])),
-        2,
-    ),
-    "scaled-stretch-eq": (lambda fw: fw.P(1.7) * fw.K.EQ().stretch(fw.P([0.6, 1.8])), 2),
-    "stretch-linear": (lambda fw: fw.K.Linear().stretch(fw.P([0.6, 1.8])), 2),
-    "periodic": (
-        lambda fw: 0.5
-        * (
-            fw.K.EQ().stretch(fw.P([0.8, 1.2, 1.5, 0.7])).periodic(fw.P([1.1, 1.9]))
-            * fw.K.EQ().stretch(fw.P([6.0, 8.0]))
-        ),
-        2,
-    ),
-    "select": (
-        lambda fw: (fw.P(0.9) * fw.K.EQ().stretch(fw.P([1.5]))).select([1])
-        + fw.K.Linear().select([0]),
-        2,
-    ),
-    "gate": (
-        lambda fw: (fw.P(1.2) * fw.K.EQ().stretch(fw.P([0.5, 0.9]))).gate(fw.P([1.0, 0.0])),
-        2,
-    ),
-    "rq-product": (lambda fw: fw.K.RQ(fw.P(0.5)) * fw.K.RQ(fw.P(0.7)), 2),
-    "bench-pi0": (lambda fw: fw.bench_tree(0), 1),
-    "bench-pi1": (lambda fw: fw.bench_tree(1), 2),
-    "bench-pi2": (lambda fw: fw.bench_tree(2), 3),
-    "layer-kernel-gated": (lambda fw: _layer_kernel_tree(fw), 4),
-    # 264 features (rbf and lin terms of 120, rq of 24): wider than the CUDA
-    # kernels' staging chunks and the backward's default shared memory.
-    "wide": (
-        lambda fw: fw.P(1.1) * fw.K.EQ().stretch(fw.P(np.linspace(6.0, 10.0, 120)))
-        + fw.K.Linear().stretch(fw.P(np.linspace(8.0, 12.0, 120)))
-        + fw.K.RQ(fw.P(0.8)).stretch(fw.P(np.linspace(2.0, 4.0, 24))).select(list(range(24))),
-        120,
-    ),
-}
-#: Cases the Pallas TPU kernel's test file covers (tests/test_pallas_gram.py)
-#: plus the benchmark's select tree, a gate tree and the wide tree.
-FUSED = [
-    "eq", "scaled-stretch-eq", "rq", "stretch-linear", "sum", "periodic",
-    "select", "gate", "bench-pi1", "bench-pi2", "layer-kernel-gated", "wide",
-]
-
-
-def _inputs(d, dtype, n=37, m=23, seed=5):
-    r = np.random.default_rng(seed)
-    return r.normal(size=(n, d)).astype(dtype), r.normal(size=(m, d)).astype(dtype)
-
-
 def _build(case, dtype):
     build, d = CASES[case]
-    return build(_FW("jax", dtype)), build(_FW("torch", dtype)), d
+    return build(_JaxFW(dtype)), build(TorchFW(dtype)), d
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -252,20 +164,3 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     kinds, dims, xf, yf, par = GK.prepare_terms(kt, torch.as_tensor(x), torch.as_tensor(y))
     with pytest.raises(ValueError, match="CUDA"):
         GK.gram_kernel_launch(kinds, dims, xf, yf, par)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
-def test_cuda_kernel_matches_plain(dtype, tol):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    npdt = np.float32 if dtype == torch.float32 else np.float64
-    for case in FUSED:
-        _, kt, d = _build(case, npdt)
-        x, y = _inputs(d, npdt, n=300, m=133)
-        dev = torch.device("cuda")
-        kt_dev, _ = GK.map_leaves(kt, lambda l: l.to(dev))
-        prep = GK.prepare_terms(kt_dev, torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev))
-        got = GK.gram_kernel_launch(*prep)
-        torch.cuda.synchronize()
-        close(got, GK.gram_terms_plain(*prep), rtol=tol, atol=tol)

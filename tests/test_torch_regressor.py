@@ -173,7 +173,9 @@ def test_port_sources_never_import_jax_or_gpar_tpu():
         r"^\s*(import|from)\s+(jax|gpar_tpu)\b|import_module\(\s*['\"](jax|gpar_tpu)",
         re.MULTILINE,
     )
-    files = sorted((REPO / "gpar_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "gpar_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py", REPO / "tests" / "torch_cases.py",
+    ]
     assert len(files) > 10
     for f in files:
         assert not pattern.search(f.read_text()), f
