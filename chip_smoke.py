@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of gpar_torch on one CUDA card.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--kernels-only]
 
 Phases (each raises on failure; the script exits 0 only if all pass):
 
@@ -14,11 +14,15 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    (256, 1024), (1024, 1024), input widths 1 and 16 — plus the scan
    path's gated layer kernel (width W = m + p = 17, three terms) at its
    shapes: Kmn (256, 11840), Kmm (256, 256), Kmt (256, 1216) and the test
-   covariance (1216, 1216); a ragged (37, 23) shape, and a tree of 264
+   covariance (1216, 1216); a ragged (37, 23) shape, a tree of 264
    features (one term of 120), wider than the kernels' staging chunks, at
-   (37, 23) and (256, 1024).  Forward: rtol/atol 1e-5 in float32, 1e-12
-   in float64.  Backward: max |err| / max |plain| at most 1e-4 in float32 (its
-   10 000-long sums run in another order) and 1e-10 in float64.  The
+   (37, 23) and (256, 1024), and a tree whose terms sit at the edges of the
+   backward's lane maps (rbf 2, rq 15, lin 17, rq 33, rbf 64 features) at
+   (37, 23), (300, 133) and (256, 11840).  Forward: rtol/atol 1e-5 in
+   float32, 1e-12 in float64.  Backward: max |err| / max |plain| at most
+   1e-4 in float32 (its 10 000-long sums run in another order) and 1e-10
+   in float64; two backward launches at (256, 11840) must give the same
+   bits, and the backward's plan there is printed.  The
    gradient of the fused Gram against autograd of the plain recursion run
    in float64 (on the upcast inputs in the float32 case): max |err| /
    max |ref| at most 1e-10 in float64 and 1e-5 in float32.  Device times of
@@ -50,7 +54,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 ``--profile DIR`` additionally traces one warm (graphed) fit_predict with
 ``torch.profiler``, writes the per-kernel table to ``DIR``, prints the
 device time by kind of kernel and holds the Gram kernels' launch counters
-against the profiler's count of their kernels.
+against the profiler's count of their kernels.  ``--kernels-only`` runs
+phases 1 and 2 alone, for iterating on the kernels, and prints no result
+line.
 """
 
 import json
@@ -245,6 +251,28 @@ def wide_tree(dtype, device):
     return k + RQ(P(0.8)).stretch(P(np.linspace(2.0, 4.0, 24))).select(list(range(24)))
 
 
+def edge_tree(dtype, device):
+    """Terms at the edges of the backward's lane maps, on 64 input columns:
+    rbf 2, rq 15, lin 17, rq 33 and rbf 64 features, which reach every tail
+    of the du sum's feature groups (8, 4 or 2 at a time by tile, then 4, 2
+    and 1) and, past 24 features, its chunks."""
+    import torch
+
+    from gpar_torch.ops.kernels import EQ, RQ, Linear
+
+    def P(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def first(d):
+        return list(range(d))
+
+    k = EQ().stretch(P([0.9, 1.4])).select(first(2))
+    k = k + RQ(P(0.7)).stretch(P(np.linspace(2.0, 4.0, 15))).select(first(15))
+    k = k + P(0.6) * Linear().stretch(P(np.linspace(6.0, 9.0, 17))).select(first(17))
+    k = k + RQ(P(1.3)).stretch(P(np.linspace(3.0, 6.0, 33))).select(first(33))
+    return k + P(1.2) * EQ().stretch(P(np.linspace(6.0, 10.0, 64)))
+
+
 def inputs(n, d, dtype, device, seed):
     import torch
 
@@ -266,6 +294,17 @@ def rel_err(got, want):
     return rel, ab
 
 
+def bwd_plan_text(GK, n, m, n_terms, dtype, device):
+    """The backward's grid at one shape, as the wrapper plans it."""
+    import torch
+
+    ct, r, rps, step = GK._bwd_plan(n, m, n_terms, dtype, device)
+    blocks = ct * r * n_terms
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return (f"plan {ct} column tiles x {r} row splits of {rps} rows (steps of {step}) x {n_terms} "
+            f"terms = {blocks} blocks, {blocks / sms:.2f} per SM (busiest {-(-blocks // sms)})")
+
+
 def phase_kernel_check(device):
     import torch
 
@@ -283,7 +322,9 @@ def phase_kernel_check(device):
         cases.append(("bench-pi15", layer_tree(15, dtype, device), 16))
         cases.append(("gated", gated_tree(dtype, device), 17))
         cases.append(("wide", wide_tree(dtype, device), 120))
-        only = {"gated": SCAN_SHAPES, "wide": [(37, 23), (256, 1024)]}
+        cases.append(("edges", edge_tree(dtype, device), 64))
+        only = {"gated": SCAN_SHAPES, "wide": [(37, 23), (256, 1024)],
+                "edges": [(37, 23), (300, 133), SCAN_SHAPES[0]]}
         for name, tree, d in cases:
             for n, m in only.get(name, shapes + [(37, 23)]):
                 x = inputs(n, d, dtype, device, seed=n + d)
@@ -317,8 +358,18 @@ def phase_kernel_check(device):
                     raise AssertionError(f"gram backward kernel disagrees with its plain version: "
                                          f"{name} {dtype} {(n, m)}")
                 worst["gram_bwd"][dtype] = max(worst["gram_bwd"][dtype], babs)
+                if (n, m) == SCAN_SHAPES[0]:
+                    # No atomics: a second launch gives the same bits.
+                    again = GK.gram_bwd_kernel_launch(*prep, g)
+                    torch.cuda.synchronize()
+                    bits = all(torch.equal(a, b) for a, b in zip(bgot, again))
+                    print(f"[kernel] backward {name} {str(dtype)[6:]} ({n}, {m}): "
+                          f"{bwd_plan_text(GK, n, m, len(prep[0]), dtype, x.device)}; two launches "
+                          f"give the same bits: {bits}")
+                    if not bits:
+                        raise AssertionError(f"two backward launches differ: {name} {dtype} {(n, m)}")
 
-                if dtype == torch.float32 and name != "wide" and (n, m) != (37, 23):
+                if dtype == torch.float32 and name not in ("wide", "edges") and (n, m) != (37, 23):
                     kinds, dims = prep[0], prep[1]
                     for kname, fk, fp, bound, e in (
                         ("gram", lambda: GK.gram_kernel_launch(*prep),
@@ -333,6 +384,8 @@ def phase_kernel_check(device):
                                                 bound_ms=b_ms, bound_by=b_by, max_abs_err=e))
                         print(f"[kernel] time {kname} {name} ({n}, {m}) f32: kernel {k_ms:.5f} ms device, "
                               f"plain {p_ms:.5f} ms device, bound {b_ms:.6f} ms ({b_by})")
+                    print(f"[kernel] backward plan {name} ({n}, {m}) f32: "
+                          f"{bwd_plan_text(GK, n, m, len(kinds), dtype, x.device)}")
 
     # Gradient of the fused Gram (both kernels, through the feature maps)
     # against autograd through the plain recursion.  The recursion forms
@@ -617,6 +670,9 @@ def main(argv):
             print(f"[build] {line.strip()}")
 
     rows, worst = phase_kernel_check("cuda")
+    if "--kernels-only" in argv:
+        print("[kernel] " + json.dumps(rows))
+        return 0
     main_res, state = phase_main_path("cuda")
     phase_small_agreement()
     if "--profile" in argv:

@@ -314,34 +314,60 @@ static int launch(const void* xf, const void* yf, const void* par, void* out,
 //   rbf and rq: du_ik = 2 sum_j P_ij (u_ik - v_jk), dv_jk = -2 sum_i P_ij (u_ik - v_jk)
 //   lin: du = w G v, dv = w G^T u, dw = sum G (u v^T)
 //   and dc = sum G for the constant.
-// The differences are formed directly, as in the forward: no cancellation.
+// The differences are formed directly, as in the forward.  The norm
+// identity du_ik = 2 (u_ik sum_j P_ij - sum_j P_ij v_jk) would save the
+// subtraction, but at the main path's input scale (|u| ~ 50, distances of
+// a few length scales) its two sums cancel to 1 part in ~50 and, summed over
+// 10 000 columns in float32, would lose the 1e-4 the fit's gradient is
+// held to; the direct form loses nothing.
 //
 // Design.  Terms are independent in the backward, so the grid is
 // (column tiles, row splits, terms): a block owns BC columns of one term
 // (128 in float, 64 in double) and walks the rows of its split in steps of
-// BR = 16.  Per step it stages the step's u rows, reads its G tile once with
-// 16-byte loads (a warp reads whole 512-byte row segments in float),
-// recomputes s from features in shared memory, forms P in shared memory,
-// and then
-//   - sums du over its BC columns for the step's rows (four chains per
-//     thread, 16-byte shared loads) and writes that partial, one per column
-//     tile, straight out;
-//   - adds dv for its columns into shared memory over the whole row walk
-//     (four columns and two features per thread, so each P load serves
-//     eight products), written once at the end, one partial per row split.
-// Row splits are only as many as it takes to give every SM two blocks (the
-// wrapper's plan, which also sizes the partial buffers).  Shared memory grows
-// with the widest term; past 36 features in float (34 in double) it exceeds
-// the default 48 KB (at most ~157 KB, at 128).  The opt-in to that much is
-// made once, when the library is loaded (gpar_gram_init), not at a launch:
-// a launch may be captured into a CUDA graph, and a capture should hold
-// stream work only.
-// The scalar sums are reduced inside the block in a fixed tree.  A second
-// kernel sums the partials in a fixed order, with up to 8 lanes per entry
-// combined in lane order.  There are no atomics: the result is the same bit
-// for bit from call to call.  On the main path (256 x 10 000, three terms,
-// 31 features) the short side is the 256 inducing points, so the du
-// partials are small (79 column tiles x 256 x 32).
+// BR rows.  A thread owns a register tile of R rows by VEC columns of the
+// step: its warp covers R rows by all BC columns, the 8 warps the step's BR
+// rows.  There are two tiles: the big one (R = 8, BR = 64 in float; R = 4,
+// BR = 32 in double) and a small one (R = 2, BR = 16) for grids where the
+// big one, at one step per split, would leave more than half the SMs idle
+// (at 256 x 256: 24 blocks, the small one 96): there a block's latency, not
+// the work, sets the time.
+// Per step
+// it stages the step's u rows, loads its G tile with 16-byte loads (a warp
+// reads whole 512-byte row segments), and then
+//   - forms s over the term's features from u and v in shared memory: per
+//     feature one 16-byte load of v (conflict-free across the warp) and
+//     R / 4 broadcast loads of u serve 2 R VEC floating-point operations;
+//   - forms P in place of G, in registers;
+//   - takes du and dv together, per feature with the same loads, one
+//     difference and two fused multiply-adds per tile entry, one into the
+//     row sums (du), one into the column sums (dv).
+// dv: a lane owns its columns for the whole walk, so its column sums go
+// into its own entries of its warp's accumulators in shared memory, with no
+// barrier; the 8 warps' accumulators are summed, in warp order, once per
+// block and written as the row split's partial.  du: the 32 lanes of a
+// warp share its rows, so the row sums of a group of KG features (R KG = 16
+// values per lane) are combined across the warp by a transpose-reduce in
+// registers, about one shuffle per value, and written as the column tile's
+// partial.  Neither map depends on the term's width: a lane owns columns,
+// never features, and groups of KG, 4, 2 and 1 cover any width, so no lane
+// idles at d = 17.  A wide term is taken in chunks of KC = 24 features, each
+// walking the rows again (s and P are recomputed), so that the
+// accumulators fit: a term of 128 features needs 197 KiB of shared memory
+// in float (202 KiB in double), past the default 48 KB; the opt-in to that
+// much is made once, when the library is loaded (gpar_gram_init), not at a
+// launch: a launch may be captured into a CUDA graph, and a capture should
+// hold stream work only.
+// The wrapper's plan (gram_kernel._bwd_plan) picks the tile and splits rows
+// in whole steps until the SMs hold at least 3 blocks each and the busiest
+// holds at most 1.2 times the mean (at 256 x 11 840 with three terms: the
+// big tile, 2 splits, 558 blocks, 4.23 per SM, 5 on the busiest), else one
+// step per split: an SM holds two big-tile blocks at a time,
+// a third overlaps their loads and barriers, and every block pays for
+// staging v and writing its dv partial, so more splits cost more than the
+// balance they buy.  The scalar sums are reduced inside the block in a fixed
+// tree.  A second kernel sums the partials in a fixed order, one lane per
+// 8 partials (at most 8 lanes) per entry, combined in lane order.  There
+// are no atomics: the result is the same bit for bit from call to call.
 //
 // What bounds it on an H100: the function reads G, xf and yf once and
 // writes dxf, dyf (bytes: (n m + 2 (n + m) D) sizeof(T)).  Its operations,
@@ -351,30 +377,46 @@ static int launch(const void* xf, const void* yf, const void* par, void* out,
 // a tail of 4 per rbf term (exp, G e, its sum, P), 10 per rq term (h, log1p,
 // exp, G r^(-a), its sum, the da summand and its sum, P) and 1 per lin term
 // (P = w G), and 1 for the constant's sum.  At the widest main-path layer
-// (rbf of 1 feature, lin and rbf of 15) that is 166 per output, so it is
-// bound by operations at 67 TFLOP/s in float32; the one-feature first layer
-// is bound by bytes.  This kernel's direct form spends 6 floating-point instructions per
-// feature and output element for every kind (3 subtractions, 3 fused
-// multiply-adds; a lin term runs the same loops with u = 0) and, above all,
-// shared-memory traffic: the du sum reloads P and v for every feature, which
-// makes the shared-memory pipe, not the arithmetic, its limit.  It reads G
-// once per term (the second and third reads mostly from L2).
-// exp / log1p are the accurate versions; no tensor cores (TF32 is off).
+// that is bound by operations at 67 TFLOP/s in float32; the one-feature
+// first layer is bound by bytes.  This kernel spends 5 floating-point
+// instructions per feature and tile entry of an rbf or rq term (2 in the s
+// loop, 3 in the du/dv loop; 4 for a lin term) and about one shuffle, two
+// selects and an add per du value: instruction throughput, not shared memory,
+// is its limit.  It reads G once per term (the second and third reads
+// mostly from L2).  exp / log1p are the accurate versions; no tensor cores
+// (TF32 is off).
 
+// The row tiles, in rows per thread and step: BIG_ROWS (a 64-row step in
+// float, 32 in double), and SMALL_ROWS (a 16-row step) for the grids that
+// the big one would leave latency-bound.
 template <typename T>
+struct BwdTiles {
+  static constexpr int BIG_ROWS = sizeof(T) == 4 ? 8 : 4;
+  static constexpr int SMALL_ROWS = 2;
+};
+
+template <typename T, int ROWS>
 struct BwdCfg {
-  static constexpr int BC = sizeof(T) == 4 ? 128 : 64;  // columns a block owns
-  static constexpr int BR = 16;                         // rows per step
-  static constexpr int TPR = BC / 4;                    // threads per G-tile row
-  static constexpr int RPP = GPAR_THREADS / TPR;        // G-tile rows per pass
-  static constexpr int PASSES = BR / RPP;
-  static constexpr int SV = BC + 4;  // padded stride of vT and Ps, keeps 16-byte rows
-  static constexpr int DU_LANES = GPAR_THREADS / BR;    // threads per row in the du sum
-  static constexpr int DV_LANES = GPAR_THREADS / (BC / 4);  // threads per column quad in dv
-  static size_t smem(int dmax) {
-    return sizeof(T) * ((size_t)dmax * (SV + BC + BR) + (size_t)BR * SV);
+  using type = T;
+  static constexpr int VEC = 16 / sizeof(T);  // columns per thread: one 16-byte vector
+  static constexpr int BC = 32 * VEC;         // columns a block owns (128 float, 64 double)
+  static constexpr int WARPS = GPAR_THREADS / 32;
+  static constexpr int R = ROWS;              // rows per thread and step
+  static constexpr int BR = WARPS * R;        // rows per step
+  static constexpr int KG = 16 / R;           // features per du group, at most (R KG = 16 sums)
+  static constexpr int KC = 24;               // features per chunk of the dv accumulators
+  static constexpr int SV = BC + 4;           // padded stride of vT and dvw, keeps 16-byte rows
+  static constexpr size_t smem(int dmax) {
+    return sizeof(T) * ((size_t)dmax * (SV + BR) + (size_t)WARPS * (dmax < KC ? dmax : KC) * SV);
   }
 };
+
+__device__ __forceinline__ void stsv(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void stsv(double* p, const double* v) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -383,203 +425,293 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(GPAR_THREADS)
+__device__ __forceinline__ void lds2(const float* p, float* v) {
+  const float2 q = *reinterpret_cast<const float2*>(p);
+  v[0] = q.x; v[1] = q.y;
+}
+__device__ __forceinline__ void lds2(const double* p, double* v) { ldsv(p, v); }
+
+// The thread's R rows of feature k of the step's u (uT is [d][BR]).
+template <typename C, typename T = typename C::type>
+__device__ __forceinline__ void lds_rows(const T* __restrict__ uT, int k, int wp, T (&a)[C::R]) {
+  const T* p = uT + k * C::BR + C::R * wp;
+  if constexpr (C::R % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < C::R; h += 4) lds4(p + h, a + h);
+  } else {
+    static_assert(C::R == 2, "rows per thread: a multiple of 4, or 2");
+    lds2(p, a);
+  }
+}
+
+// One stage of a transpose-reduce across the warp, then the rest: at
+// shuffle distance O a lane keeps the half of its values [0, 2H) that its
+// bit O selects and adds its partner's copy of that half; once one value
+// is left, the remaining distances add whole sums.  The stages are
+// templates so that every index into val is a compile-time constant (a
+// loop over two induction variables is not unrolled, and a runtime index
+// puts the array behind predicated moves).
+template <int H, int O, typename T, int V>
+__device__ __forceinline__ void transpose_reduce(T (&val)[V], int lane) {
+  if constexpr (O >= 1) {
+    if constexpr (H >= 1) {
+      const bool upper = (lane & O) != 0;
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        const T mine = upper ? val[i + H] : val[i];
+        const T theirs = upper ? val[i] : val[i + H];
+        val[i] = mine + __shfl_xor_sync(0xffffffffu, theirs, O);
+      }
+    } else {
+      val[0] += __shfl_xor_sync(0xffffffffu, val[0], O);
+    }
+    transpose_reduce<H / 2, O / 2>(val, lane);
+  }
+}
+
+// du and dv of the G features [k, k + G) of a term, from P in registers.
+// Per feature a thread forms P (u - v) over its R x VEC tile (a lin term:
+// P v for du, P u for dv) and sums it over its columns for du and over its
+// rows for dv.  The dv sums are added to the thread's own entries of its
+// warp's accumulators (dvw, at chunk-relative feature kk): no other thread
+// touches them until the chunk ends.  The 32 lanes of the warp share the
+// rows: the R x G du sums are combined by a transpose-reduce, where at
+// shuffle distance 16, 8, ... a lane keeps half of its values and adds its
+// partner's copy of that half (V - 1 + log2(32 / V) shuffles for V = R G
+// values, in a fixed order).  Lane l ends with value l / (32 / V), row
+// value / G and feature value % G, which the first lane of each run of
+// 32 / V writes if the row is live.
+template <typename C, int G, bool LIN, typename T = typename C::type>
+__device__ __forceinline__ void du_dv_group(const T (&P)[C::R][C::VEC],
+                                            const T* __restrict__ uT, const T* __restrict__ vT,
+                                            T* __restrict__ dvw, int k, int kk,
+                                            T* __restrict__ du_rows, int D, int live_rows) {
+  constexpr int R = C::R, VEC = C::VEC, V = R * G, SPAN = 32 / V;
+  static_assert(V <= 32, "a group's du sums must fit the lanes of a warp");
+  const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  T val[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) val[i] = T(0);
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    T a[R], b[VEC], dv[VEC];
+    lds_rows<C>(uT, k + g, wp, a);
+    ldsv(vT + (k + g) * C::SV + VEC * lane, b);
+    T* const acc = dvw + (kk + g) * C::SV + VEC * lane;
+    ldsv(acc, dv);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) {
+        if (LIN) {
+          val[i * G + g] += P[i][q] * b[q];
+          dv[q] += P[i][q] * a[i];
+        } else {
+          const T diff = a[i] - b[q];
+          val[i * G + g] += P[i][q] * diff;
+          dv[q] += P[i][q] * diff;
+        }
+      }
+    stsv(acc, dv);
+  }
+  transpose_reduce<V / 2, 16>(val, lane);
+  const int idx = lane / SPAN;
+  if (lane % SPAN == 0 && idx / G < live_rows)
+    du_rows[(idx / G) * D + k + idx % G] = (LIN ? T(1) : T(2)) * val[0];
+}
+
+// du and dv of the features [k0, k0 + kn) of the term for one step: groups
+// of KG, then one each of 4, 2 and 1 as the width needs.  No barrier: a
+// warp reads only the staged u and v and writes only its own accumulators.
+template <typename C, bool LIN, typename T = typename C::type>
+__device__ __forceinline__ void du_dv_step(const T (&P)[C::R][C::VEC],
+                                           const T* __restrict__ uT, const T* __restrict__ vT,
+                                           T* __restrict__ dvw, int k0, int kn,
+                                           T* __restrict__ du_rows, int D, int live_rows) {
+  static_assert(C::KG == 2 || C::KG == 4 || C::KG == 8, "the tail below takes groups of 4, 2 and 1");
+  int kk = 0;
+  for (; kk + C::KG <= kn; kk += C::KG)
+    du_dv_group<C, C::KG, LIN>(P, uT, vT, dvw, k0 + kk, kk, du_rows, D, live_rows);
+  if constexpr (C::KG >= 8) {
+    if (kn - kk >= 4) {
+      du_dv_group<C, 4, LIN>(P, uT, vT, dvw, k0 + kk, kk, du_rows, D, live_rows);
+      kk += 4;
+    }
+  }
+  if constexpr (C::KG >= 4) {
+    if (kn - kk >= 2) {
+      du_dv_group<C, 2, LIN>(P, uT, vT, dvw, k0 + kk, kk, du_rows, D, live_rows);
+      kk += 2;
+    }
+  }
+  if (kn - kk >= 1) du_dv_group<C, 1, LIN>(P, uT, vT, dvw, k0 + kk, kk, du_rows, D, live_rows);
+}
+
+template <typename T, int ROWS>
+__global__ void __launch_bounds__(GPAR_THREADS, 2)
 gram_bwd_kernel(const T* __restrict__ xf, const T* __restrict__ yf,
                 const T* __restrict__ par, const T* __restrict__ g,
                 T* __restrict__ du_part, T* __restrict__ dv_part,
                 T* __restrict__ sc_part, int n, int m, int D, int rows_per_split,
                 int dmax, TermSpec spec) {
-  using C = BwdCfg<T>;
-  constexpr int BC = C::BC, BR = C::BR, TPR = C::TPR, RPP = C::RPP, SV = C::SV;
+  using C = BwdCfg<T, ROWS>;
+  constexpr int BC = C::BC, BR = C::BR, R = C::R, VEC = C::VEC, SV = C::SV, KC = C::KC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* vT = reinterpret_cast<T*>(smem_raw);  // [dmax][SV]  v, feature-major
-  T* Ps = vT + (size_t)dmax * SV;          // [BR][SV]    P of the step
-  T* uT = Ps + BR * SV;                    // [dmax][BR]  u of the step
-  T* dvacc = uT + (size_t)dmax * BR;       // [dmax][BC]  dv over the row walk
-  __shared__ T red[GPAR_THREADS / 32][3];
+  T* uT = vT + (size_t)dmax * SV;          // [dmax][BR]  u of the step
+  T* dvw = uT + (size_t)dmax * BR;         // [WARPS][min(dmax, KC)][SV]  dv of a chunk by warp
+  __shared__ T red[C::WARPS][3];
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5;
   const int t = blockIdx.z, ct = blockIdx.x, rs = blockIdx.y;
   const int kind = spec.kind[t], off = spec.off[t], d = spec.dim[t];
   const int c0 = ct * BC;
   const int rbeg = rs * rows_per_split;
   const int rend = min(n, rbeg + rows_per_split);
 
+  // v, feature fastest: a warp reads runs of d consecutive features of a
+  // row of yf.
   for (int e = tid; e < d * BC; e += GPAR_THREADS) {
-    const int j = e % BC, k = e / BC;
+    const int j = e / d, k = e - j * d;
     vT[k * SV + j] = c0 + j < m ? yf[(size_t)(c0 + j) * D + off + k] : T(0);
-    dvacc[k * BC + j] = T(0);
   }
   const T w = par[t];
   const T alpha = kind == KIND_RQ ? par[spec.n_terms + t] : T(1);
-  const bool vec_ok = (m % 4 == 0) && ((uintptr_t)g % 16 == 0);
-  const int px = tid % TPR, py = tid / TPR;
-  const int du_i = tid / C::DU_LANES, du_k = tid % C::DU_LANES;
-  const int dv_c = 4 * (tid % (BC / 4)), dv_k = tid / (BC / 4);
+  const bool lin = kind == KIND_LIN;
+  const bool vec_ok = (m % VEC == 0) && ((uintptr_t)g % 16 == 0);
+  const int cl = VEC * lane;  // the thread's first column in the tile
+  const int kw = min(dmax, KC);
+  T* const dvw_w = dvw + (size_t)wp * kw * SV;  // this warp's accumulators
+  T* const du_tile = du_part + (size_t)ct * n * D + off;
   T sdw = T(0), sda = T(0), sdc = T(0);
 
-  for (int r0 = rbeg; r0 < rend; r0 += BR) {
-    __syncthreads();  // staged v / the previous step's readers of uT and Ps are done
-    for (int e = tid; e < d * BR; e += GPAR_THREADS) {
-      const int i = e % BR, k = e / BR;
-      uT[k * BR + i] = r0 + i < rend ? xf[(size_t)(r0 + i) * D + off + k] : T(0);
+  // The term's features in chunks of KC (one chunk up to 24 features, so
+  // on the main path): each chunk walks the rows of the split, recomputing
+  // s and P, and takes du and dv of its own features.
+  for (int k0 = 0; k0 < d; k0 += KC) {
+    const int kn = min(KC, d - k0);
+    for (int kk = 0; kk < kn; ++kk) {
+      T z[VEC];
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) z[q] = T(0);
+      stsv(dvw_w + kk * SV + cl, z);
     }
-    T gv[C::PASSES][4];
-#pragma unroll
-    for (int p = 0; p < C::PASSES; ++p) {
-      const int r = r0 + py + RPP * p, c = c0 + 4 * px;
-      if (r < rend && vec_ok && c + 4 <= m) {
-        load4(g + (size_t)r * m + c, gv[p]);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          gv[p][q] = (r < rend && c + q < m) ? g[(size_t)r * m + c + q] : T(0);
+    for (int r0 = rbeg; r0 < rend; r0 += BR) {
+      __syncthreads();  // staged v / the previous step's readers of uT are done
+      for (int e = tid; e < d * BR; e += GPAR_THREADS) {
+        const int i = e % BR, k = e / BR;
+        uT[k * BR + i] = r0 + i < rend ? xf[(size_t)(r0 + i) * D + off + k] : T(0);
       }
-    }
-    __syncthreads();
-
-    T s[C::PASSES][4];
+      // G of the thread's tile, which P replaces below; rows past the split
+      // and columns past m read 0, so they add nothing anywhere.
+      const int rt = r0 + R * wp;
+      T P[R][VEC];
 #pragma unroll
-    for (int p = 0; p < C::PASSES; ++p)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) s[p][q] = T(0);
-    if (kind == KIND_LIN) {
-#pragma unroll 4
-      for (int k = 0; k < d; ++k) {
-        T b[4];
-        lds4(vT + k * SV + 4 * px, b);
-#pragma unroll
-        for (int p = 0; p < C::PASSES; ++p) {
-          const T a = uT[k * BR + py + RPP * p];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) s[p][q] += a * b[q];
-        }
-      }
-    } else {
-#pragma unroll 4
-      for (int k = 0; k < d; ++k) {
-        T b[4];
-        lds4(vT + k * SV + 4 * px, b);
-#pragma unroll
-        for (int p = 0; p < C::PASSES; ++p) {
-          const T a = uT[k * BR + py + RPP * p];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const T diff = a - b[q];
-            s[p][q] += diff * diff;
-          }
-        }
-      }
-    }
-
-#pragma unroll
-    for (int p = 0; p < C::PASSES; ++p) {
-      T P[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const T G = gv[p][q], S = s[p][q];
-        sdc += G;
-        if (kind == KIND_RBF) {
-          const T ge = G * dev_exp(T(-0.5) * S);
-          sdw += ge;
-          P[q] = T(-0.5) * w * ge;
-        } else if (kind == KIND_RQ) {
-          const T h = S / (T(2) * alpha);
-          const T lr = dev_log1p(h);
-          const T gr = G * dev_exp(-alpha * lr);
-          sdw += gr;
-          sda += w * gr * (h / (T(1) + h) - lr);
-          P[q] = T(-0.5) * w * gr / (T(1) + h);
+      for (int i = 0; i < R; ++i) {
+        const int c = c0 + cl;
+        if (rt + i < rend && vec_ok && c + VEC <= m) {
+          ldgv(g + (size_t)(rt + i) * m + c, P[i]);
         } else {
-          sdw += G * S;
-          P[q] = w * G;
+#pragma unroll
+          for (int q = 0; q < VEC; ++q)
+            P[i][q] = rt + i < rend && c + q < m ? g[(size_t)(rt + i) * m + c + q] : T(0);
         }
       }
-      T* dst = Ps + (py + RPP * p) * SV + 4 * px;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) dst[q] = P[q];
-    }
+      __syncthreads();
 
-    __syncthreads();  // Ps is complete
-
-    // du over this block's columns, for the step's rows: four chains per
-    // thread over the columns, 16-byte shared loads.
-    {
-      const int r = r0 + du_i;
-      const T* prow = Ps + du_i * SV;
-      for (int k = du_k; k < d; k += C::DU_LANES) {
-        const T* vrow = vT + k * SV;
-        // With ui = 0 a lin term's sum is -(G v)_ik w.
-        const T ui = kind == KIND_LIN ? T(0) : uT[k * BR + du_i];
-        T acc[4] = {T(0), T(0), T(0), T(0)};
-#pragma unroll 4
-        for (int j = 0; j < BC; j += 4) {
-          T pj[4], vj[4];
-          lds4(prow + j, pj);
-          lds4(vrow + j, vj);
+      T s[R][VEC];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) acc[q] += pj[q] * (ui - vj[q]);
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) s[i][q] = T(0);
+      if (lin) {
+#pragma unroll 2
+        for (int k = 0; k < d; ++k) {
+          T a[R], b[VEC];
+          lds_rows<C>(uT, k, wp, a);
+          ldsv(vT + k * SV + cl, b);
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int q = 0; q < VEC; ++q) s[i][q] += a[i] * b[q];
         }
-        const T sum = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-        if (r < rend) du_part[((size_t)ct * n + r) * D + off + k] = (kind == KIND_LIN ? T(-1) : T(2)) * sum;
+      } else {
+#pragma unroll 2
+        for (int k = 0; k < d; ++k) {
+          T a[R], b[VEC];
+          lds_rows<C>(uT, k, wp, a);
+          ldsv(vT + k * SV + cl, b);
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int q = 0; q < VEC; ++q) {
+              const T diff = a[i] - b[q];
+              s[i][q] += diff * diff;
+            }
+        }
       }
-    }
 
-    // dv for this block's columns, four columns and two features per
-    // thread (each P load serves both), added over the row walk.
-    for (int k0 = dv_k; k0 < d; k0 += 2 * C::DV_LANES) {
-      const int k1 = k0 + C::DV_LANES;
-      const bool has1 = k1 < d;
-      T v0[4], v1[4] = {T(0), T(0), T(0), T(0)};
-      T a0[4] = {T(0), T(0), T(0), T(0)}, a1[4] = {T(0), T(0), T(0), T(0)};
-      lds4(vT + k0 * SV + dv_c, v0);
-      if (has1) lds4(vT + k1 * SV + dv_c, v1);
-      if (kind == KIND_LIN) v0[0] = v0[1] = v0[2] = v0[3] = v1[0] = v1[1] = v1[2] = v1[3] = T(0);
+      // P in place of G; the scalar sums once, in the first chunk.
+      const bool first = k0 == 0;
 #pragma unroll
-      for (int i = 0; i < BR; i += 4) {
-        T u0[4], u1[4] = {T(0), T(0), T(0), T(0)};
-        lds4(uT + k0 * BR + i, u0);
-        if (has1) lds4(uT + k1 * BR + i, u1);
+      for (int i = 0; i < R; ++i) {
 #pragma unroll
-        for (int h = 0; h < 4; ++h) {
-          T pi[4];
-          lds4(Ps + (i + h) * SV + dv_c, pi);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            a0[q] += pi[q] * (u0[h] - v0[q]);
-            a1[q] += pi[q] * (u1[h] - v1[q]);
+        for (int q = 0; q < VEC; ++q) {
+          const T G = P[i][q], S = s[i][q];
+          if (first) sdc += G;
+          if (kind == KIND_RBF) {
+            const T ge = G * dev_exp(T(-0.5) * S);
+            if (first) sdw += ge;
+            P[i][q] = T(-0.5) * w * ge;
+          } else if (kind == KIND_RQ) {
+            const T hh = S / (T(2) * alpha);
+            const T lr = dev_log1p(hh);
+            const T gr = G * dev_exp(-alpha * lr);
+            if (first) {
+              sdw += gr;
+              sda += w * gr * (hh / (T(1) + hh) - lr);
+            }
+            P[i][q] = T(-0.5) * w * gr / (T(1) + hh);
+          } else {
+            if (first) sdw += G * S;
+            P[i][q] = w * G;
           }
         }
       }
-      const T scale = kind == KIND_LIN ? T(1) : T(-2);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) dvacc[k0 * BC + dv_c + q] += scale * a0[q];
-      if (has1)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) dvacc[k1 * BC + dv_c + q] += scale * a1[q];
-    }
-  }
 
-  __syncthreads();  // dvacc was zeroed under another mapping
-  for (int k = dv_k; k < d; k += C::DV_LANES)
+      T* const du_rows = du_tile + (size_t)rt * D;
+      if (lin)
+        du_dv_step<C, true>(P, uT, vT, dvw_w, k0, kn, du_rows, D, rend - rt);
+      else
+        du_dv_step<C, false>(P, uT, vT, dvw_w, k0, kn, du_rows, D, rend - rt);
+    }
+
+    __syncthreads();  // every warp's dv sums of the chunk are in dvw
+    // The warps' sums in warp order, feature fastest: a warp writes runs of
+    // kn consecutive entries of a row of the dv partials.
+    const T scale = lin ? T(1) : T(-2);
+    for (int e = tid; e < kn * BC; e += GPAR_THREADS) {
+      const int j = e / kn, kk = e - j * kn;
+      T sum = T(0);
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (c0 + dv_c + q < m)
-        dv_part[((size_t)rs * m + c0 + dv_c + q) * D + off + k] = dvacc[k * BC + dv_c + q];
+      for (int wi = 0; wi < C::WARPS; ++wi) sum += dvw[((size_t)wi * kw + kk) * SV + j];
+      if (c0 + j < m) dv_part[((size_t)rs * m + c0 + j) * D + off + k0 + kk] = scale * sum;
+    }
+    __syncthreads();  // the next chunk clears dvw
+  }
 
   sdw = warp_sum(sdw);
   sda = warp_sum(sda);
   sdc = warp_sum(sdc);
-  if ((tid & 31) == 0) {
-    red[tid >> 5][0] = sdw;
-    red[tid >> 5][1] = sda;
-    red[tid >> 5][2] = sdc;
+  if (lane == 0) {
+    red[wp][0] = sdw;
+    red[wp][1] = sda;
+    red[wp][2] = sdc;
   }
   __syncthreads();
   if (tid < 3) {
     T acc = T(0);
-    for (int wi = 0; wi < GPAR_THREADS / 32; ++wi) acc += red[wi][tid];
+    for (int wi = 0; wi < C::WARPS; ++wi) acc += red[wi][tid];
     sc_part[(((size_t)tid * spec.n_terms + t) * gridDim.x + ct) * gridDim.y + rs] = acc;
   }
 }
@@ -646,26 +778,41 @@ gram_bwd_reduce(const T* __restrict__ du_part, const T* __restrict__ dv_part,
   }
 }
 
+// Lanes per entry of the reduction: one per 8 partials, at most 8, so that a
+// sum of a few row splits' partials takes one lane and 256 entries a block.
 static int lanes_for(int parts) {
   int l = 1;
-  while (l < 8 && l < parts) l *= 2;
+  while (l < 8 && 8 * l < parts) l *= 2;
   return l;
+}
+
+template <typename T, int ROWS>
+static void launch_bwd_tile(const void* xf, const void* yf, const void* par, const void* g,
+                            void* du_part, void* dv_part, void* sc_part, int n, int m, int D,
+                            int n_terms, int ct, int r, int rps, int dmax, const TermSpec& spec,
+                            cudaStream_t st) {
+  const size_t smem = BwdCfg<T, ROWS>::smem(dmax);
+  gram_bwd_kernel<T, ROWS><<<dim3(ct, r, n_terms), GPAR_THREADS, smem, st>>>(
+      (const T*)xf, (const T*)yf, (const T*)par, (const T*)g, (T*)du_part, (T*)dv_part,
+      (T*)sc_part, n, m, D, rps, dmax, spec);
 }
 
 template <typename T>
 static int launch_bwd(const void* xf, const void* yf, const void* par, const void* g,
                       void* dxf, void* dyf, void* dpar, void* du_part, void* dv_part,
                       void* sc_part, int n, int m, int D, int n_terms, const int* kinds,
-                      const int* offs, const int* dims, int ct, int r, int rps,
+                      const int* offs, const int* dims, int ct, int r, int rps, int step,
                       void* stream) {
-  using C = BwdCfg<T>;
+  constexpr int BIG = BwdTiles<T>::BIG_ROWS, SMALL = BwdTiles<T>::SMALL_ROWS;
+  constexpr int BC = BwdCfg<T, BIG>::BC;
   TermSpec spec;
   if (n < 1 || m < 1 || !fill_spec(spec, n_terms, kinds, offs, dims, D))
     return (int)cudaErrorInvalidValue;
-  // The wrapper's plan (gram_kernel._bwd_plan) sized the partial buffers:
-  // ct column tiles, r row splits of rps rows, a whole number of steps each.
-  if (ct != (m + C::BC - 1) / C::BC || rps < C::BR || rps % C::BR != 0 ||
-      r != (n + rps - 1) / rps)
+  // The wrapper's plan (gram_kernel._bwd_plan) chose the tile's step (rows
+  // per step, one of the two tiles') and sized the partial buffers: ct
+  // column tiles, r row splits of rps rows, a whole number of steps each.
+  if ((step != BwdCfg<T, BIG>::BR && step != BwdCfg<T, SMALL>::BR) || ct != (m + BC - 1) / BC ||
+      rps < step || rps % step != 0 || r != (n + rps - 1) / rps)
     return (int)cudaErrorInvalidValue;
   if (r > 65535) return (int)cudaErrorInvalidConfiguration;
   int dmax = 0, Dt = 0;
@@ -673,11 +820,13 @@ static int launch_bwd(const void* xf, const void* yf, const void* par, const voi
     dmax = dims[t] > dmax ? dims[t] : dmax;
     Dt = offs[t] + dims[t] > Dt ? offs[t] + dims[t] : Dt;
   }
-  const size_t smem = C::smem(dmax);
   cudaStream_t st = (cudaStream_t)stream;
-  gram_bwd_kernel<T><<<dim3(ct, r, n_terms), GPAR_THREADS, smem, st>>>(
-      (const T*)xf, (const T*)yf, (const T*)par, (const T*)g, (T*)du_part, (T*)dv_part,
-      (T*)sc_part, n, m, D, rps, dmax, spec);
+  if (step == BwdCfg<T, BIG>::BR)
+    launch_bwd_tile<T, BIG>(xf, yf, par, g, du_part, dv_part, sc_part, n, m, D, n_terms, ct, r,
+                            rps, dmax, spec, st);
+  else
+    launch_bwd_tile<T, SMALL>(xf, yf, par, g, du_part, dv_part, sc_part, n, m, D, n_terms, ct,
+                              r, rps, dmax, spec, st);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int lx = lanes_for(ct), ly = lanes_for(r);
@@ -691,12 +840,12 @@ static int launch_bwd(const void* xf, const void* yf, const void* par, const voi
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int ROWS>
 static int opt_in_smem() {
   // The most shared memory any launch asks for: a term of 128 features.
-  const size_t smem = BwdCfg<T>::smem(128);
+  const size_t smem = BwdCfg<T, ROWS>::smem(128);
   if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(gram_bwd_kernel<T>,
+  return (int)cudaFuncSetAttribute(gram_bwd_kernel<T, ROWS>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
@@ -706,8 +855,10 @@ int gpar_gram_max_terms() { return GPAR_GRAM_MAX_TERMS; }
 
 // Once per process, on the current device, before any launch.
 int gpar_gram_init() {
-  const int e = opt_in_smem<float>();
-  return e != 0 ? e : opt_in_smem<double>();
+  int e = opt_in_smem<float, BwdTiles<float>::BIG_ROWS>();
+  if (e == 0) e = opt_in_smem<float, BwdTiles<float>::SMALL_ROWS>();
+  if (e == 0) e = opt_in_smem<double, BwdTiles<double>::BIG_ROWS>();
+  return e != 0 ? e : opt_in_smem<double, BwdTiles<double>::SMALL_ROWS>();
 }
 
 int gpar_gram_f32(const void* xf, const void* yf, const void* par, void* out,
@@ -724,23 +875,24 @@ int gpar_gram_f64(const void* xf, const void* yf, const void* par, void* out,
                         stream);
 }
 
-// du_part is (ct, n, D), dv_part (r, m, D), sc_part (3, T, ct, r).
+// du_part is (ct, n, D), dv_part (r, m, D), sc_part (3, T, ct, r); step is
+// the row tile's rows per step.
 int gpar_gram_bwd_f32(const void* xf, const void* yf, const void* par, const void* g,
                       void* dxf, void* dyf, void* dpar, void* du_part, void* dv_part,
                       void* sc_part, int n, int m, int D, int n_terms, const int* kinds,
-                      const int* offs, const int* dims, int ct, int r, int rps,
+                      const int* offs, const int* dims, int ct, int r, int rps, int step,
                       void* stream) {
   return launch_bwd<float>(xf, yf, par, g, dxf, dyf, dpar, du_part, dv_part, sc_part,
-                           n, m, D, n_terms, kinds, offs, dims, ct, r, rps, stream);
+                           n, m, D, n_terms, kinds, offs, dims, ct, r, rps, step, stream);
 }
 
 int gpar_gram_bwd_f64(const void* xf, const void* yf, const void* par, const void* g,
                       void* dxf, void* dyf, void* dpar, void* du_part, void* dv_part,
                       void* sc_part, int n, int m, int D, int n_terms, const int* kinds,
-                      const int* offs, const int* dims, int ct, int r, int rps,
+                      const int* offs, const int* dims, int ct, int r, int rps, int step,
                       void* stream) {
   return launch_bwd<double>(xf, yf, par, g, dxf, dyf, dpar, du_part, dv_part, sc_part,
-                            n, m, D, n_terms, kinds, offs, dims, ct, r, rps, stream);
+                            n, m, D, n_terms, kinds, offs, dims, ct, r, rps, step, stream);
 }
 
 const char* gpar_cuda_error_string(int code) {

@@ -35,6 +35,7 @@ C++, forward and backward in ``gpar_torch/csrc/gram.cu``, built by
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -395,10 +396,16 @@ def gram_kernel_launch(kinds, dims, xf, yf, par):
     return out
 
 
-#: The backward kernel's tile (``BwdCfg`` in ``gram.cu``, which checks the
-#: plan): columns a block owns, by dtype, and rows per step.
+#: The backward kernel's tiles (``BwdTiles``/``BwdCfg`` in ``gram.cu``, which
+#: checks the plan), by dtype: columns a block owns, and the rows per step
+#: of the big tile and of the small one.
 _BWD_COLS = {torch.float32: 128, torch.float64: 64}
-_BWD_ROWS = 16
+_BWD_ROWS = {torch.float32: (64, 16), torch.float64: (32, 16)}
+#: The backward's grid: blocks per SM at least ``_BWD_MIN_PER_SM`` (an SM
+#: holds two at a time, so a third overlaps their loads and barriers), and
+#: the busiest SM's blocks at most ``_BWD_BALANCE`` times the mean.
+_BWD_MIN_PER_SM = 3
+_BWD_BALANCE = 1.2
 
 
 @functools.lru_cache(maxsize=None)
@@ -407,16 +414,28 @@ def _sm_count(device):
 
 
 def _bwd_plan(n, m, n_terms, dtype, device):
-    """``(column tiles, row splits, rows per split)`` of one backward launch,
-    which size its partial buffers.  Rows are split only as far as it takes
-    to give every SM two blocks.  The device's SM count is read once and
-    cached (the plan runs inside CUDA graph captures)."""
+    """``(column tiles, row splits, rows per split, rows per step)`` of one
+    backward launch; the first three size its partial buffers.  The big
+    tile, unless one step per split of it would still leave more than half
+    the SMs without a block: such a grid is latency-bound, and the small
+    tile gives it more blocks of less work each.  Rows are split in whole
+    steps of the tile, into the fewest splits that give every SM at least
+    ``_BWD_MIN_PER_SM`` blocks with the busiest SM's count within
+    ``_BWD_BALANCE`` of the mean; where no split does, one step per split.
+    The device's SM count is read once and cached (the plan runs inside
+    CUDA graph captures)."""
     ct = -(-m // _BWD_COLS[dtype])
-    steps = -(-n // _BWD_ROWS)
     sms = _sm_count(device)
-    splits = min(max(-(-2 * sms // (ct * n_terms)), 1), steps)
-    rps = -(-steps // splits) * _BWD_ROWS
-    return ct, -(-n // rps), rps
+    big, small = _BWD_ROWS[dtype]
+    step = small if 2 * ct * n_terms * -(-n // big) < sms else big
+    steps = -(-n // step)
+    for splits in range(1, steps + 1):
+        rps = -(-steps // splits) * step
+        r = -(-n // rps)
+        per_sm = ct * n_terms * r / sms
+        if per_sm >= _BWD_MIN_PER_SM and math.ceil(per_sm) <= _BWD_BALANCE * per_sm:
+            break
+    return ct, r, rps, step
 
 
 def gram_bwd_kernel_launch(kinds, dims, xf, yf, par, g):
@@ -438,7 +457,7 @@ def gram_bwd_kernel_launch(kinds, dims, xf, yf, par, g):
 
     lib = load_library()
     T = len(kinds)
-    ct, r, rps = _bwd_plan(n, m, T, xf.dtype, xf.device)
+    ct, r, rps, step = _bwd_plan(n, m, T, xf.dtype, xf.device)
     fn = lib.gpar_gram_bwd_f64 if xf.dtype == torch.float64 else lib.gpar_gram_bwd_f32
     # Per-block partials, summed in a fixed order by the second kernel.
     du_part = torch.empty((ct, n, D), dtype=xf.dtype, device=xf.device)
@@ -450,7 +469,7 @@ def gram_bwd_kernel_launch(kinds, dims, xf, yf, par, g):
             xf.data_ptr(), yf.data_ptr(), par.data_ptr(), g.data_ptr(),
             dxf.data_ptr(), dyf.data_ptr(), dpar.data_ptr(),
             du_part.data_ptr(), dv_part.data_ptr(), sc_part.data_ptr(),
-            n, m, D, T, *_c_terms(kinds, dims), ct, r, rps, stream,
+            n, m, D, T, *_c_terms(kinds, dims), ct, r, rps, step, stream,
         )
     _raise_on(lib, rc, "gram backward kernel launch")
     gram_bwd_kernel_launches += 1

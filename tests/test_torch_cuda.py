@@ -71,6 +71,30 @@ def test_cuda_backward_kernel_matches_plain(dtype, tol):
             assert float((a - b).abs().max()) <= tol * scale, case
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+def test_cuda_backward_kernel_at_the_lane_maps_edges_gives_the_same_bits(dtype, tol):
+    _need_cuda()
+    # Terms of 2, 15, 17, 33 and 64 features at ragged shapes on both row
+    # tiles (index into _BWD_ROWS, by dtype; on 132 SMs); a second launch
+    # gives the same bits (fixed-order sums, no atomics).
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    dev = torch.device("cuda")
+    tree, d = _tree("edges", npdt, dev)
+    small = 1 if dtype == torch.float32 else 0
+    for n, m, tile in ((37, 23, 1), (300, 133, small), (1100, 700, 0)):
+        x, y = _inputs(d, npdt, n=n, m=m)
+        prep = GK.prepare_terms(tree, torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev))
+        assert GK._bwd_plan(n, m, len(prep[0]), dtype, dev)[3] == GK._BWD_ROWS[dtype][tile]
+        g = torch.as_tensor(np.random.default_rng(n).normal(size=(n, m)).astype(npdt), device=dev)
+        got = GK.gram_bwd_kernel_launch(*prep, g)
+        again = GK.gram_bwd_kernel_launch(*prep, g)
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, again, GK.gram_terms_plain_vjp(*prep, g)):
+            assert torch.equal(a, b), (n, m)
+            assert float((a - c).abs().max()) <= tol * max(float(c.abs().max()), 1e-30), (n, m)
+
+
 def _small_step(dtype):
     x, y, _ = chain_data(n=100, p=3, seed=0)
     y[::7, 2] = np.nan

@@ -94,3 +94,61 @@ def test_cpu_backward_launches_nothing_and_never_evaluates_the_tree(monkeypatch)
     kinds, dims, xf, yf, par = GK.prepare_terms(kt, torch.as_tensor(x), torch.as_tensor(y))
     with pytest.raises(ValueError, match="CUDA"):
         GK.gram_bwd_kernel_launch(kinds, dims, xf, yf, par, out.detach())
+
+
+# The scan path's Gram shapes (Kmn, Kmm, Kmt, the test covariance) and a
+# ragged one, with the gated tree's three terms, on an H100's 132 SMs, and
+# the plan worked out by hand for each: (column tiles, row splits, rows per
+# split, rows per step).  The big tile (64 rows a step in float32, 32 in
+# float64) where one step per split of it gives at least 66 blocks (half the
+# SMs), else the small one (16 rows); then the fewest splits with at least 3
+# blocks per SM and the busiest SM within 1.2 times the mean, else one step
+# per split.
+_PLANS = {
+    torch.float32: {
+        # 93 x 3 x 4 = 1116 blocks at most: big; 1 split gives 2.11 per SM,
+        # 2 give 4.23 (busiest 5 <= 5.07).
+        (256, 11_840): (93, 2, 128, 64),
+        # 2 x 3 x 4 = 24 < 66: small; 6 blocks a split never reach 3 per SM.
+        (256, 256): (2, 16, 16, 16),
+        # 10 x 3 x 4 = 120 >= 66: big; 4 splits give 0.91 per SM, so one
+        # step per split.
+        (256, 1216): (10, 4, 64, 64),
+        # 10 x 3 x 19 = 570: big; 10 splits give 2.27 per SM, 19 give 4.32
+        # (busiest 5 <= 5.18).
+        (1216, 1216): (10, 19, 64, 64),
+        # 1 x 3 x 1 = 3 < 66: small, 3 steps of 16, never 3 per SM.
+        (37, 23): (1, 3, 16, 16),
+    },
+    torch.float64: {
+        # 185 x 3 = 555 blocks with no split: 4.20 per SM (busiest 5 <= 5.05).
+        (256, 11_840): (185, 1, 256, 32),
+        # 4 x 3 x 8 = 96 >= 66: big; 12 blocks a split never reach 3 per SM.
+        (256, 256): (4, 8, 32, 32),
+        # 19 x 3 x 8 = 456: big; 4 splits give 1.73 per SM, 8 give 3.45
+        # (busiest 4 <= 4.15).
+        (256, 1216): (19, 8, 32, 32),
+        # 19 x 3 x 38 = 2166: big; 7 splits give 3.02 per SM but 4 on the
+        # busiest (> 3.63), 8 splits of 5 steps give 3.45 (busiest 4 <= 4.15).
+        (1216, 1216): (19, 8, 160, 32),
+        # 1 x 3 x 2 = 6 < 66: small, 3 steps of 16, never 3 per SM.
+        (37, 23): (1, 3, 16, 16),
+    },
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m", list(_PLANS[torch.float32]))
+def test_backward_plan_covers_rows_in_whole_steps_and_balances_the_sms(monkeypatch, n, m, dtype):
+    monkeypatch.setattr(GK, "_sm_count", lambda device: 132)
+    ct, r, rps, step = GK._bwd_plan(n, m, 3, dtype, "cuda")
+    assert (ct, r, rps, step) == _PLANS[dtype][(n, m)]
+    # One of the kernel's tiles, whole steps per split, and the sizes the
+    # launch checks the partial buffers against (gram.cu, launch_bwd).
+    assert step in GK._BWD_ROWS[dtype]
+    assert rps >= step and rps % step == 0
+    assert ct == -(-m // GK._BWD_COLS[dtype]) and r == -(-n // rps)
+    # Every row in exactly one split, no split empty.
+    rows = np.concatenate([np.arange(s * rps, min(n, (s + 1) * rps)) for s in range(r)])
+    np.testing.assert_array_equal(rows, np.arange(n))
+    assert (r - 1) * rps < n

@@ -135,12 +135,24 @@ CASES = {
         + fw.K.RQ(fw.P(0.8)).stretch(fw.P(np.linspace(2.0, 4.0, 24))).select(list(range(24))),
         120,
     ),
+    # Terms at the edges of the CUDA backward's lane maps (rbf 2, rq 15,
+    # lin 17, rq 33, rbf 64 features): its du/dv groups of 8, 4, 2 and 1
+    # features in every combination, and past 24 features its chunks.
+    "edges": (
+        lambda fw: fw.K.EQ().stretch(fw.P([0.9, 1.4])).select([0, 1])
+        + fw.K.RQ(fw.P(0.7)).stretch(fw.P(np.linspace(2.0, 4.0, 15))).select(list(range(15)))
+        + fw.P(0.6) * fw.K.Linear().stretch(fw.P(np.linspace(6.0, 9.0, 17))).select(list(range(17)))
+        + fw.K.RQ(fw.P(1.3)).stretch(fw.P(np.linspace(3.0, 6.0, 33))).select(list(range(33)))
+        + fw.P(1.2) * fw.K.EQ().stretch(fw.P(np.linspace(6.0, 10.0, 64))),
+        64,
+    ),
 }
 #: Cases the Pallas TPU kernel's test file covers (tests/test_pallas_gram.py)
-#: plus the benchmark's select tree, a gate tree and the wide tree.
+#: plus the benchmark's select tree, a gate tree, the wide tree and the
+#: edge-width tree.
 FUSED = [
     "eq", "scaled-stretch-eq", "rq", "stretch-linear", "sum", "periodic",
-    "select", "gate", "bench-pi1", "bench-pi2", "layer-kernel-gated", "wide",
+    "select", "gate", "bench-pi1", "bench-pi2", "layer-kernel-gated", "wide", "edges",
 ]
 
 
