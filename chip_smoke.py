@@ -18,11 +18,15 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    features (one term of 120), wider than the kernels' staging chunks, at
    (37, 23) and (256, 1024), and a tree whose terms sit at the edges of the
    backward's lane maps (rbf 2, rq 15, lin 17, rq 33, rbf 64 features) at
-   (37, 23), (300, 133) and (256, 11840).  Forward: rtol/atol 1e-5 in
-   float32, 1e-12 in float64.  Backward: max |err| / max |plain| at most
-   1e-4 in float32 (its 10 000-long sums run in another order) and 1e-10
-   in float64; two backward launches at (256, 11840) must give the same
-   bits, and the backward's plan there is printed.  The
+   (37, 23), (300, 133) and (256, 11840); and the dense path's (no inducing
+   points) shapes of the gated kernel, K (11840, 11840) and the test
+   cross-covariance (11840, 1216), held against the plain versions run in
+   1024-row blocks in float64 (the plain Gram builds an (n, m, d)
+   difference tensor).  Forward: rtol/atol 1e-5 in float32, 1e-12 in
+   float64.  Backward: max |err| / max |plain| at most 1e-4 in float32 (its
+   10 000-long sums run in another order) and 1e-10 in float64; two
+   backward launches at (256, 11840) and at (11840, 11840) must give the
+   same bits, and the backward's plan there is printed.  The
    gradient of the fused Gram against autograd of the plain recursion run
    in float64 (on the upcast inputs in the float32 case): max |err| /
    max |ref| at most 1e-10 in float64 and 1e-5 in float32.  Device times of
@@ -43,18 +47,28 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    Then the same fit with the step run eagerly on the card
    (``cuda_graphs=False``), which
    must give the graphed run's bits, and the per-layer driver
-   (``fused=False``), which must pass the gates too.
-4. Small-input agreement: a float64 fit_predict (p=3, n=100, 8 inducing
-   points) through the scan path on the card (graphed) against the same
-   run on the CPU (eager; the CPU route is held against the JAX package by
-   the test suite), rtol 1e-6.
-5. Summary: a ``kernels`` JSON line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+   (``fused=False``), which must pass the gates too.  Each run prints its
+   fit and predict wall-clocks and its peak device memory.
+4. The dense path at full width (``[dense]`` lines): the same request and
+   the same checks with ``x_ind=None`` (no inducing points: the exact
+   marginal likelihood over the (11840, 11840) bucketed rows, every Gram of
+   the fit at that shape), and the memory the cached graphed step pins;
+   then one evaluation of the dense layer objective under
+   ``torch.profiler``, with the scan step's on-device Cholesky ladder and
+   with the per-layer driver's host ladder: the factorisations (cuSOLVER
+   ``potrf``) each runs and their device time.
+5. Small-input agreement: a float64 fit_predict (p=3, n=100, sparse with
+   8 inducing points and dense) through the scan path on the card
+   (graphed) against the same run on the CPU (eager; the CPU route is held
+   against the JAX package by the test suite), rtol 1e-6.
+6. Summary: ``[main]`` and ``[dense]`` JSON lines, a ``kernels`` JSON line
+   (launches of the sparse and the dense graphed cold runs), the card
+   line, and last ``{"ok": true, "device": {...}}``.
 
-``--profile DIR`` additionally traces one warm (graphed) fit_predict with
-``torch.profiler``, writes the per-kernel table to ``DIR``, prints the
-device time by kind of kernel and holds the Gram kernels' launch counters
-against the profiler's count of their kernels.  ``--kernels-only`` runs
+``--profile DIR`` additionally traces one warm (graphed) fit_predict of each
+path with ``torch.profiler``, writes the per-kernel tables to ``DIR``,
+prints the device time by kind of kernel and holds the Gram kernels' launch
+counters against the profiler's count of their kernels.  ``--kernels-only`` runs
 phases 1 and 2 alone, for iterating on the kernels, and prints no result
 line.
 """
@@ -80,6 +94,13 @@ GATES = dict(mean_smse=5e-4, worst_smse=2e-3, nll_decrease=5e4)
 #: bucketed 10 000 -> 11 840), Kmt and the test covariance of the predict
 #: tail (test rows 1024 -> 1216).
 SCAN_SHAPES = [(256, 11_840), (256, 256), (256, 1216), (1216, 1216)]
+#: The dense path's (no inducing points) Grams beyond those: K of the fit
+#: and the tail, and the tail's test cross-covariance (the test covariance is
+#: SCAN_SHAPES[3]).  Their plain versions are run in row blocks.
+DENSE_SHAPES = [(11_840, 11_840), (11_840, 1216)]
+#: Rows per block of a plain version at a dense shape: the plain Gram builds
+#: an (n, m, d) difference tensor, 9.5 GB per term at 11 840^2 in float32.
+PLAIN_ROWS = 1024
 
 
 def make_data(n=10_000, p=16, seed=0):
@@ -294,6 +315,29 @@ def rel_err(got, want):
     return rel, ab
 
 
+def plain_by_rows(GK, prep, g=None, dtype=None):
+    """The plain Gram (``g`` None) or its VJP for ``g`` on ``PLAIN_ROWS``-row
+    blocks of u against all of v, in ``dtype`` (default: the inputs'):
+    the Gram's blocks stacked, or dxf's blocks stacked with dyf and dpar
+    summed over the blocks.  In float64 the order of those sums does not
+    matter at the tolerances held."""
+    import torch
+
+    kinds, dims, xf, yf, par = prep
+    dtype = xf.dtype if dtype is None else dtype
+    xf, yf, par = (a.to(dtype) for a in (xf, yf, par))
+    blocks = range(0, xf.shape[0], PLAIN_ROWS)
+    if g is None:
+        return torch.cat([GK.gram_terms_plain(kinds, dims, xf[i:i + PLAIN_ROWS], yf, par) for i in blocks])
+    dx, dy, dp = [], 0, 0
+    for i in blocks:
+        a, b, c = GK.gram_terms_plain_vjp(kinds, dims, xf[i:i + PLAIN_ROWS], yf, par,
+                                          g[i:i + PLAIN_ROWS].to(dtype))
+        dx.append(a)
+        dy, dp = dy + b, dp + c
+    return torch.cat(dx), dy, dp
+
+
 def bwd_plan_text(GK, n, m, n_terms, dtype, device):
     """The backward's grid at one shape, as the wrapper plans it."""
     import torch
@@ -323,7 +367,7 @@ def phase_kernel_check(device):
         cases.append(("gated", gated_tree(dtype, device), 17))
         cases.append(("wide", wide_tree(dtype, device), 120))
         cases.append(("edges", edge_tree(dtype, device), 64))
-        only = {"gated": SCAN_SHAPES, "wide": [(37, 23), (256, 1024)],
+        only = {"gated": SCAN_SHAPES + DENSE_SHAPES, "wide": [(37, 23), (256, 1024)],
                 "edges": [(37, 23), (300, 133), SCAN_SHAPES[0]]}
         for name, tree, d in cases:
             for n, m in only.get(name, shapes + [(37, 23)]):
@@ -331,9 +375,14 @@ def phase_kernel_check(device):
                 y = inputs(m, d, dtype, device, seed=m + 7 * d)
                 with torch.no_grad():
                     prep = GK.prepare_terms(tree, x, y)
+                dense = (n, m) in DENSE_SHAPES
                 got = GK.gram_kernel_launch(*prep)
                 torch.cuda.synchronize()
-                want = GK.gram_terms_plain(*prep)
+                if dense:  # in float64 row blocks, against the kernel's output upcast
+                    want = plain_by_rows(GK, prep, dtype=torch.float64)
+                    got = got.to(torch.float64)
+                else:
+                    want = GK.gram_terms_plain(*prep)
                 torch.cuda.synchronize()
                 err = float(torch.max(torch.abs(got - want)))
                 scale = float(torch.max(torch.abs(want)))
@@ -348,7 +397,11 @@ def phase_kernel_check(device):
                                 generator=torch.Generator(device).manual_seed(n + m))
                 bgot = GK.gram_bwd_kernel_launch(*prep, g)
                 torch.cuda.synchronize()
-                bwant = GK.gram_terms_plain_vjp(*prep, g)
+                if dense:
+                    bwant = plain_by_rows(GK, prep, g, dtype=torch.float64)
+                    bgot = tuple(a.to(torch.float64) for a in bgot)
+                else:
+                    bwant = GK.gram_terms_plain_vjp(*prep, g)
                 torch.cuda.synchronize()
                 brel, babs = rel_err(bgot, bwant)
                 bok = brel <= bwd_tol[dtype]
@@ -358,11 +411,12 @@ def phase_kernel_check(device):
                     raise AssertionError(f"gram backward kernel disagrees with its plain version: "
                                          f"{name} {dtype} {(n, m)}")
                 worst["gram_bwd"][dtype] = max(worst["gram_bwd"][dtype], babs)
-                if (n, m) == SCAN_SHAPES[0]:
+                del want, bwant
+                if (n, m) in (SCAN_SHAPES[0], DENSE_SHAPES[0]):
                     # No atomics: a second launch gives the same bits.
                     again = GK.gram_bwd_kernel_launch(*prep, g)
                     torch.cuda.synchronize()
-                    bits = all(torch.equal(a, b) for a, b in zip(bgot, again))
+                    bits = all(torch.equal(a.to(b.dtype), b) for a, b in zip(bgot, again))
                     print(f"[kernel] backward {name} {str(dtype)[6:]} ({n}, {m}): "
                           f"{bwd_plan_text(GK, n, m, len(prep[0]), dtype, x.device)}; two launches "
                           f"give the same bits: {bits}")
@@ -371,14 +425,18 @@ def phase_kernel_check(device):
 
                 if dtype == torch.float32 and name not in ("wide", "edges") and (n, m) != (37, 23):
                     kinds, dims = prep[0], prep[1]
+                    # At a dense shape the plain version is timed as it is
+                    # checked, in row blocks (in float32).
                     for kname, fk, fp, bound, e in (
                         ("gram", lambda: GK.gram_kernel_launch(*prep),
-                         lambda: GK.gram_terms_plain(*prep), gram_bound_ms, err),
+                         (lambda: plain_by_rows(GK, prep)) if dense else (lambda: GK.gram_terms_plain(*prep)),
+                         gram_bound_ms, err),
                         ("gram_bwd", lambda: GK.gram_bwd_kernel_launch(*prep, g),
-                         lambda: GK.gram_terms_plain_vjp(*prep, g), gram_bwd_bound_ms, babs),
+                         (lambda: plain_by_rows(GK, prep, g)) if dense
+                         else (lambda: GK.gram_terms_plain_vjp(*prep, g)), gram_bwd_bound_ms, babs),
                     ):
-                        k_ms = device_ms(fk, 50)
-                        p_ms = device_ms(fp, 10)
+                        k_ms = device_ms(fk, 20 if dense else 50)
+                        p_ms = device_ms(fp, 2 if dense else 10)
                         b_ms, b_by = bound(kinds, dims, n, m, 4)
                         rows[kname].append(dict(tree=name, n=n, m=m, d=d, ms=k_ms, plain_ms=p_ms,
                                                 bound_ms=b_ms, bound_by=b_by, max_abs_err=e))
@@ -420,7 +478,14 @@ def phase_kernel_check(device):
     return rows, worst
 
 
-def phase_main_path(device):
+def phase_main_path(device, dense=False):
+    """The benchmark's request at full width through every route: graphed
+    cold and warm, the eager step and the per-layer driver; ``dense`` drops
+    the inducing points (``x_ind=None``: the exact marginal likelihood over
+    the (11 840, 11 840) bucketed rows).  Lines are tagged ``[main]`` or
+    ``[dense]``."""
+    import gc
+
     import torch
 
     import gpar_torch
@@ -428,17 +493,29 @@ def phase_main_path(device):
     from gpar_torch.ops import gram_kernel as GK
     from gpar_torch.utils.metrics import smse
 
+    P = "[dense]" if dense else "[main]"
     gpar_torch.config.epsilon = 1e-6  # float32 jitter floor, as bench.py
     n, p, n_test, num_samples, iters = 10_000, 16, 1024, 100, 10
     x, y, f = make_data(n, p)
     test_idx = np.arange(n)[:: n // n_test][:n_test]
     x_test, f_test = x[test_idx], f[test_idx]
 
-    reg = GPARRegressor(**model_kwargs(x), device=device)
-    assert reg.dtype == torch.float32
+    kw = model_kwargs(x)
+    if dense:
+        kw["x_ind"] = None
+    reg = GPARRegressor(**kw, device=device)
+    assert reg.dtype == torch.float32 and reg.sparse == (not dense)
     reg.condition(x, y)
     reg._ensure_vars(reg.p)
     z_init = reg.vs.snapshot()
+
+    def reserved():
+        """Memory the allocator holds once its unused cache is released: the
+        live tensors and the captured graphs' pools."""
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
 
     def run(**kw):
         """One request from the same initial latents; the Gram counters are
@@ -446,12 +523,15 @@ def phase_main_path(device):
         reg.vs.restore(z_init)
         gen = torch.Generator(device).manual_seed(0)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         GK.reset_counters()
         t0 = time.perf_counter()
         out = reg.fit_predict(x, y, x_test, iters=iters, num_samples=num_samples,
                               credible_bounds=True, generator=gen, **kw)
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, reg.last_fit_report, GK.counters()
+        wall = time.perf_counter() - t0
+        rep = dict(reg.last_fit_report, peak_bytes=torch.cuda.max_memory_allocated())
+        return out, wall, rep, GK.counters()
 
     def quality(tag, out, rep):
         mean, lo, hi = out
@@ -462,7 +542,7 @@ def phase_main_path(device):
         sm = smse(mean, f_test)
         q = dict(nll0=nll0, nll=nll, nll_decrease=nll0 - nll, mean_smse=float(np.nanmean(sm)),
                  worst_smse=float(np.nanmax(sm)))
-        print(f"[main] {tag}: sum NLL {nll0:.1f} -> {nll:.1f} (decrease {nll0 - nll:.1f}); SMSE vs "
+        print(f"{P} {tag}: sum NLL {nll0:.1f} -> {nll:.1f} (decrease {nll0 - nll:.1f}); SMSE vs "
               f"noiseless truth mean {q['mean_smse']:.3e}, worst {q['worst_smse']:.3e}; L-BFGS "
               f"iterations per layer {rep['layer_iters'].tolist()}")
         if q["nll_decrease"] < GATES["nll_decrease"]:
@@ -484,7 +564,14 @@ def phase_main_path(device):
         if not 0 < counts["gram_bwd_kernel_launches"] == counts["gram_autograd_calls"]:
             raise AssertionError(f"{tag}: backward launches do not match the Grams under autograd: {counts}")
 
+    def timing(tag, wall, rep):
+        return (f"{P} {tag}: fit_predict {wall:.3f} s (fit {rep['wall_clock_s']:.3f} s, predict "
+                f"{wall - rep['wall_clock_s']:.3f} s); peak device memory "
+                f"{rep['peak_bytes'] / 2**30:.2f} GiB")
+
+    before = reserved()
     cold = run()
+    pinned = reserved() - before
     warm = run()
     res = {}
     for tag, (out, wall, rep, counts) in (("graphed cold", cold), ("graphed warm", warm)):
@@ -492,13 +579,12 @@ def phase_main_path(device):
         rc = rep["replay_counts"]
         bound = (int(np.sum(rep["layer_iters"])) + rep["linesearch_trials"] + rep["linesearch_episodes"]
                  + 1)
-        print(f"[main] {tag}: fit_predict {wall:.3f} s (fit {rep['wall_clock_s']:.3f} s, of which "
-              f"capture {rep['capture_s']:.3f} s); graph replays {rep['graph_replays']}; host reads "
-              f"{rep['host_syncs']} (bound {bound}: L-BFGS iterations {int(np.sum(rep['layer_iters']))} "
-              f"+ backtracking trials {rep['linesearch_trials']} + episodes {rep['linesearch_episodes']} "
-              f"+ 1 for the results); factorisations past the first jitter rung "
-              f"{rep['ladder_escalations']}")
-        print(f"[main] {tag}: gram kernel launches {counts['gram_kernel_launches']} (replays "
+        print(timing(tag, wall, rep) + f"; capture {rep['capture_s']:.3f} s; graph replays "
+              f"{rep['graph_replays']}; host reads {rep['host_syncs']} (bound {bound}: L-BFGS iterations "
+              f"{int(np.sum(rep['layer_iters']))} + backtracking trials {rep['linesearch_trials']} + "
+              f"episodes {rep['linesearch_episodes']} + 1 for the results); factorisations past the "
+              f"first jitter rung {rep['ladder_escalations']}")
+        print(f"{P} {tag}: gram kernel launches {counts['gram_kernel_launches']} (replays "
               f"{rc['gram_kernel_launches']}), backward kernel launches {counts['gram_bwd_kernel_launches']} "
               f"(replays {rc['gram_bwd_kernel_launches']}) for {counts['gram_autograd_calls']} Grams under "
               f"autograd (replays {rc['gram_autograd_calls']}), plain-route CUDA Grams "
@@ -510,8 +596,10 @@ def phase_main_path(device):
             raise AssertionError(f"{tag}: the graph replays did not launch both kernels: {rc}")
         if rep["host_syncs"] > bound:
             raise AssertionError(f"{tag}: {rep['host_syncs']} host reads, more than {bound}")
+    print(f"{P} the cached graphed step (its buffers and its graphs' memory pools) pins "
+          f"{pinned / 2**30:.2f} GiB of device memory")
     identical = same(cold, warm)
-    print(f"[main] cold and warm runs identical (layer NLLs and predictions): {identical}")
+    print(f"{P} cold and warm runs identical (layer NLLs and predictions): {identical}")
     if not identical:
         raise AssertionError("cold and warm runs differ: the main path is not deterministic")
 
@@ -520,9 +608,9 @@ def phase_main_path(device):
     d_nll = float(np.max(np.abs(eager[2]["layer_nll"] - warm[2]["layer_nll"])))
     d_pred = max(float(np.max(np.abs(a - b))) for a, b in zip(eager[0], warm[0]))
     eq = same(eager, warm)
-    print(f"[main] eager step on the card: fit_predict {eager[1]:.3f} s (fit {eager[2]['wall_clock_s']:.3f} s), "
-          f"host reads {eager[2]['host_syncs']}; identical to the graphed run: {eq} (max |d layer NLL| "
-          f"{d_nll:.3e}, max |d prediction| {d_pred:.3e})")
+    print(timing("eager step on the card", eager[1], eager[2]) + f"; host reads {eager[2]['host_syncs']}; "
+          f"identical to the graphed run: {eq} (max |d layer NLL| {d_nll:.3e}, max |d prediction| "
+          f"{d_pred:.3e})")
     if not eq:
         raise AssertionError("the graphed scan step and the eager scan step differ on the card")
 
@@ -533,11 +621,11 @@ def phase_main_path(device):
     driver = run(fused=False)
     res["driver"] = quality("per-layer driver", driver[0], driver[2])
     dc = driver[3]
-    print(f"[main] per-layer driver (fused=False): fit_predict {driver[1]:.3f} s (fit "
-          f"{driver[2]['wall_clock_s']:.3f} s); sum of layer NLLs {res['driver']['nll']:.1f} against the "
-          f"scan path's {res['graphed warm']['nll']:.1f}; gram kernel launches {dc['gram_kernel_launches']}, "
-          f"backward kernel launches {dc['gram_bwd_kernel_launches']} for {dc['gram_autograd_calls']} Grams "
-          f"under autograd, plain-route CUDA Grams {dc['gram_plain_cuda_calls']}, gram_eval on CUDA "
+    print(timing("per-layer driver (fused=False)", driver[1], driver[2]) + f"; sum of layer NLLs "
+          f"{res['driver']['nll']:.1f} against the scan path's {res['graphed warm']['nll']:.1f}; gram "
+          f"kernel launches {dc['gram_kernel_launches']}, backward kernel launches "
+          f"{dc['gram_bwd_kernel_launches']} for {dc['gram_autograd_calls']} Grams under autograd, "
+          f"plain-route CUDA Grams {dc['gram_plain_cuda_calls']}, gram_eval on CUDA "
           f"{dc['gram_eval_cuda_calls']}")
     if driver[2]["fused"]:
         raise AssertionError("fused=False did not run the per-layer driver")
@@ -553,9 +641,72 @@ def phase_main_path(device):
         ladder_escalations=warm[2]["ladder_escalations"], linesearch_trials=warm[2]["linesearch_trials"],
         linesearch_episodes=warm[2]["linesearch_episodes"],
         layer_iters=int(np.sum(warm[2]["layer_iters"])), eager_s=eager[1], driver_s=driver[1],
+        driver_fit_s=driver[2]["wall_clock_s"], peak_gib_cold=cold[2]["peak_bytes"] / 2**30,
+        peak_gib_warm=warm[2]["peak_bytes"] / 2**30, peak_gib_eager=eager[2]["peak_bytes"] / 2**30,
+        peak_gib_driver=driver[2]["peak_bytes"] / 2**30, pinned_gib=pinned / 2**30,
         **{f"{k}_{q}": v for k, qs in (("scan", res["graphed warm"]), ("driver", res["driver"]))
            for q, v in qs.items()},
     ), (reg, x, y, x_test, z_init)
+
+
+def phase_dense_evaluation(reg, device):
+    """One evaluation (value and gradient) of the dense layer objective at
+    the fitted latents, layer 0, at the bucketed (rows, rows) shape,
+    eagerly under ``torch.profiler``: the Cholesky factorisations it runs
+    (``aten::linalg_cholesky_ex``, cuSOLVER ``potrf``) and their device time,
+    with the scan step's on-device ladder (every rung probed, then the
+    chosen one factored again) against the host ladder of the per-layer
+    driver (``ops.linalg.safe_cholesky``: the rungs it needs), on the same
+    matrix."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpar_torch.models.fused import ScanStep, _cusolver, _layer_nll_factors
+
+    names = reg.vs.select(None)
+    plan = reg._scan_fit_plan(names)
+    x_pad, rows = reg._bucket_fit_inputs(plan)
+    n_b = x_pad.shape[0]
+    step = ScanStep(plan, n_b, 0, reg.dtype, device)
+    step.load(reg.vs.latent_vector(names), x_pad, rows, x_pad.new_zeros((0, plan.m)))
+    out = {}
+    with _cusolver(device):
+        step.layer_init()  # layer 0's plan slice, and a first evaluation
+        z = step.z_ext.index_select(0, step.lin["layer_gather"])
+
+        def evaluation(escalations):
+            zz = z.detach().requires_grad_(True)
+            with torch.enable_grad():
+                nll = _layer_nll_factors(plan, step.lin, step._full(zz), step.x_aug, step.zi_aug,
+                                         escalations)[0]
+                torch.autograd.grad(nll, zz)
+
+        for ladder, esc in (("on-device ladder (scan step)", step.escalations),
+                            ("host ladder (per-layer driver)", None)):
+            evaluation(esc)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                evaluation(esc)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            cuda = torch.autograd.DeviceType.CUDA
+            total = sum(e.device_time for e in prof.events() if e.device_type == cuda) / 1e3
+            chol = [e for e in prof.key_averages() if e.key == "aten::linalg_cholesky_ex"]
+            calls = chol[0].count if chol else 0
+            chol_ms = chol[0].device_time_total / 1e3 if chol else 0.0
+            # Device time by operator, kernels of nested operators included
+            # in their parents' (the Cholesky backward holds a matmul and
+            # two triangular solves).
+            ops = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                          if e.cpu_time_total > 0 and e.device_time_total > 0), key=lambda t: -t[1])[:8]
+            out[ladder] = dict(cholesky_calls=calls, cholesky_ms=chol_ms, device_ms=total, wall_ms=1e3 * wall,
+                               ops={k: [ms, c] for k, ms, c in ops})
+            print(f"[dense] one evaluation (value and gradient, layer 0, {n_b} x {n_b}, {str(reg.dtype)[6:]}), "
+                  f"{ladder}: {calls} Cholesky factorisations (cuSOLVER potrf) taking {chol_ms:.2f} ms of "
+                  f"{total:.2f} ms device time; wall {1e3 * wall:.2f} ms; by operator: "
+                  + ", ".join(f"{k} {ms:.2f} ms ({c})" for k, ms, c in ops))
+    return out
 
 
 def phase_small_agreement():
@@ -568,24 +719,28 @@ def phase_small_agreement():
     x, y = x.astype(np.float64), y.astype(np.float64)
     xt = np.linspace(0.3, 9.7, 15)
     normals = rng.standard_normal((3, 8, 15))
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        reg = GPARRegressor(**model_kwargs(x, n_ind=8), device=dev, dtype=torch.float64)
-        res = reg.fit_predict(x, y, xt, iters=5, num_samples=8, credible_bounds=True, normals=normals)
-        rep = reg.last_fit_report
-        assert rep["fused"] and (rep["graph_replays"] > 0) == (dev == "cuda"), rep
-        outs[dev] = (res, reg.vs.snapshot(), rep["layer_nll"])
-    (rc, lc, nc), (rh, lh, nh) = outs["cuda"], outs["cpu"]
-    np.testing.assert_allclose(nc, nh, rtol=1e-6)
-    for k in lh:
-        np.testing.assert_allclose(lc[k], lh[k], rtol=1e-6, atol=1e-8)
-    for a, b in zip(rc, rh):
-        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-8)
-    print(f"[small] float64 scan-path fit_predict, graphed on cuda == eager on cpu (rtol 1e-6): "
-          f"layer NLL {nc.tolist()}")
+    for model, n_ind in (("sparse", 8), ("dense", None)):
+        kw = model_kwargs(x, n_ind=n_ind or 8)
+        if n_ind is None:
+            kw["x_ind"] = None
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            reg = GPARRegressor(**kw, device=dev, dtype=torch.float64)
+            res = reg.fit_predict(x, y, xt, iters=5, num_samples=8, credible_bounds=True, normals=normals)
+            rep = reg.last_fit_report
+            assert rep["fused"] and (rep["graph_replays"] > 0) == (dev == "cuda"), rep
+            outs[dev] = (res, reg.vs.snapshot(), rep["layer_nll"])
+        (rc, lc, nc), (rh, lh, nh) = outs["cuda"], outs["cpu"]
+        np.testing.assert_allclose(nc, nh, rtol=1e-6)
+        for k in lh:
+            np.testing.assert_allclose(lc[k], lh[k], rtol=1e-6, atol=1e-8)
+        for a, b in zip(rc, rh):
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-8)
+        print(f"[small] float64 {model} scan-path fit_predict, graphed on cuda == eager on cpu (rtol 1e-6): "
+              f"layer NLL {nc.tolist()}")
 
 
-def phase_profile(state, out_dir):
+def phase_profile(state, out_dir, tag="main"):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -604,7 +759,7 @@ def phase_profile(state, out_dir):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     counts = GK.counters()
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=60)
-    with open(os.path.join(out_dir, "profile_table.txt"), "w") as fh:
+    with open(os.path.join(out_dir, f"profile_table_{tag}.txt"), "w") as fh:
         fh.write(table)
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time for e in events) / 1e3
@@ -615,19 +770,20 @@ def phase_profile(state, out_dir):
 
     # Device time by kind of kernel (the first kind whose key is in the name).
     kinds = {"potrf": ("getrf", "potrf", "trf4_set_info"), "trsm/trsv": ("trsm", "trsv"),
-             "gemm/gemv": ("gemm", "gemv", "splitKreduce"), "gram": ("gram_tile_kernel", "gram_bwd")}
+             "gemm/gemv": ("gemm", "gemv", "splitKreduce"), "syrk": ("syrk",),
+             "gram": ("gram_tile_kernel", "gram_bwd")}
     by_kind = {k: [0.0, 0] for k in [*kinds, "other"]}
     for e in events:
         k = next((k for k, keys in kinds.items() if any(s in e.name for s in keys)), "other")
         by_kind[k][0] += e.device_time / 1e3
         by_kind[k][1] += 1
-    print("[profile] device time by kind: " + ", ".join(
+    print(f"[profile {tag}] device time by kind: " + ", ".join(
         f"{k} {t:.1f} ms ({c} kernels)" for k, (t, c) in by_kind.items()))
     fwd, n_fwd = kernel_ms("gram_tile_kernel")
     bwd, n_bwd = kernel_ms("gram_bwd_kernel")
     red, n_red = kernel_ms("gram_bwd_reduce")
     rep = reg.last_fit_report
-    print(f"[profile] warm graphed fit_predict under the profiler: wall {wall_ms:.1f} ms (fit "
+    print(f"[profile {tag}] warm graphed fit_predict under the profiler: wall {wall_ms:.1f} ms (fit "
           f"{1e3 * rep['wall_clock_s']:.1f} ms), device kernel time {busy:.1f} ms over {len(events)} "
           f"kernels (busy {100 * busy / wall_ms:.1f}%), of which gram kernel {fwd:.2f} ms ({n_fwd} "
           f"launches), gram backward kernel {bwd:.2f} ms ({n_bwd}) and its reduction {red:.2f} ms "
@@ -642,13 +798,12 @@ def phase_profile(state, out_dir):
     verdict = ("agree, replays included" if seen == total else
                "agree with the eager launches only: the profiler does not see kernels inside graphs"
                if seen == eager else "DIFFER")
-    print(f"[profile] launch counters of that run: gram kernel {total[0]}, backward {total[1]} (from "
+    print(f"[profile {tag}] launch counters of that run: gram kernel {total[0]}, backward {total[1]} (from "
           f"replays, by the counts recorded at capture: {rc['gram_kernel_launches']}, "
           f"{rc['gram_bwd_kernel_launches']}); profiler's kernel events: gram_tile_kernel {n_fwd}, "
           f"gram_bwd_kernel {n_bwd}: {verdict}")
     if verdict == "DIFFER":
         raise AssertionError("the launch counters disagree with the profiler's kernel events")
-    print(table)
 
 
 def main(argv):
@@ -674,9 +829,13 @@ def main(argv):
         print("[kernel] " + json.dumps(rows))
         return 0
     main_res, state = phase_main_path("cuda")
+    dense_res, dense_state = phase_main_path("cuda", dense=True)
+    dense_res["evaluation"] = phase_dense_evaluation(dense_state[0], "cuda")
     phase_small_agreement()
     if "--profile" in argv:
-        phase_profile(state, argv[argv.index("--profile") + 1])
+        out_dir = argv[argv.index("--profile") + 1]
+        phase_profile(state, out_dir, "main")
+        phase_profile(dense_state, out_dir, "dense")
 
     sources = {
         "gram": ("gpar_torch/csrc/gram.cu", "gpar_tpu/ops/pallas_gram.py:167", "launches",
@@ -694,7 +853,10 @@ def main(argv):
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": main_res[count],
+            # The sparse and the dense main paths' graphed cold runs, each
+            # counted from 0.
+            "launches": main_res[count] + dense_res[count],
+            "launches_by_path": {"sparse": main_res[count], "dense": dense_res[count]},
             "check": check,
             "max_abs_err": worst[name][torch.float32],
             "ms": big["ms"],
@@ -708,6 +870,7 @@ def main(argv):
             "per_shape": rows[name],
         })
     print("[main] " + json.dumps(main_res))
+    print("[dense] " + json.dumps(dense_res))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,17 +1,19 @@
-"""Gaussian-process core: priors, finite-dimensional distributions, sparse
-(Titsias) observations and posteriors.
+"""Gaussian-process core: priors, finite-dimensional distributions,
+observations and posteriors.
 
-Port of the sparse slice of ``gpar_tpu/gp/core.py`` (the ``stheno`` surface
-the reference uses, ``gpar/model.py:5``):
+Port of the single-device slice of ``gpar_tpu/gp/core.py`` (the ``stheno``
+surface the reference uses, ``gpar/model.py:5``):
 
 - ``GP(kernel)``: zero-mean prior;
 - ``f(x, noise)``: ``FDD`` with per-point noise (``noise / w``,
-  ``gpar/model.py:270,287``), with ``sample``;
+  ``gpar/model.py:270,287``), with ``sample``, ``chol`` and ``logpdf``;
+- ``Obs(f(x, noise), y)``: exact observations; ``obs.logpdf`` is the
+  marginal likelihood (``gpar/model.py:226``);
 - ``PseudoObs(f(x_ind), f(x, noise), y)``: the collapsed Titsias ELBO
   (``gpar/model.py:286-289``) and the posterior factors, from one pass;
-- ``f | obs``: the sparse posterior, with ``mean`` / ``cov``.
+- ``f | obs``: the exact or the sparse posterior, with ``mean`` / ``cov``.
 
-The dense ``Obs`` / exact posterior path is not ported yet.
+The JAX package's row-sharded ``Obs`` (under a device mesh) is not ported.
 """
 
 from dataclasses import dataclass
@@ -22,7 +24,10 @@ import torch
 from ..ops.kernels import Kernel, gram, kdiag
 from ..ops.linalg import (
     floor_noise,
+    mvn_logpdf_chol,
     psd_sample_factor,
+    safe_cholesky,
+    solve_chol,
     solve_lower,
     titsias_factors,
 )
@@ -30,8 +35,11 @@ from ..ops.linalg import (
 __all__ = [
     "GP",
     "FDD",
+    "Obs",
     "PseudoObs",
+    "DenseObs",
     "TitsiasObs",
+    "PosteriorGP",
     "SparsePosteriorGP",
     "condition",
 ]
@@ -90,6 +98,39 @@ class GP(AbstractGP):
 
 
 @dataclass(frozen=True, eq=False)
+class PosteriorGP(AbstractGP):
+    """Exact posterior of a zero-mean GP given noisy observations; keeps the
+    conditioning set so that a further exact conditioning refactors the
+    union::
+
+        mean(x*) = K(x*, X) alpha,  alpha = (K(X, X) + D)^{-1} y
+        cov(x*, y*) = K(x*, y*) - V_x^T V_y,  V_x = L^{-1} K(X, x*).
+    """
+
+    kernel: Kernel
+    x_data: torch.Tensor  # (n, d)
+    y_data: torch.Tensor  # (n,)
+    noise_diag: torch.Tensor  # (n,)
+    L: torch.Tensor  # (n, n) chol of K + D
+    alpha: torch.Tensor  # (n,)
+
+    def mean_vec(self, x):
+        return gram(self.kernel, x, self.x_data) @ self.alpha
+
+    def cov(self, x, y=None):
+        x = _upcol(x)
+        y = x if y is None else _upcol(y)
+        Vx = solve_lower(self.L, gram(self.kernel, self.x_data, x))
+        Vy = Vx if y is x else solve_lower(self.L, gram(self.kernel, self.x_data, y))
+        return gram(self.kernel, x, y) - Vx.T @ Vy
+
+    def cov_diag(self, x):
+        x = _upcol(x)
+        Vx = solve_lower(self.L, gram(self.kernel, self.x_data, x))
+        return kdiag(self.kernel, x) - torch.sum(Vx * Vx, dim=0)
+
+
+@dataclass(frozen=True, eq=False)
 class SparsePosteriorGP(AbstractGP):
     """Titsias variational posterior of a base GP::
 
@@ -141,6 +182,13 @@ class FDD:
             K = K + torch.diag(self.noise)
         return K
 
+    def chol(self):
+        return safe_cholesky(self.cov())
+
+    def logpdf(self, y):
+        """Exact MVN log density (``tests/test_model.py:137-147``)."""
+        return mvn_logpdf_chol(_vec(y), self.mean_vec(), self.chol())
+
     def sample(self, normals=None, generator=None, num_samples=None):
         """Joint MVN draw(s): (n, 1) for one sample, (num_samples, n, 1)
         otherwise.  ``normals`` supplies the standard normals — shape (n,)
@@ -160,6 +208,32 @@ class FDD:
         if normals.ndim == 1:
             return (m + L @ normals)[:, None]
         return (m + normals @ L.T)[..., None]
+
+
+@dataclass(frozen=True, eq=False)
+class DenseObs:
+    """Exact observations with the factor of ``cov + D``.  Build via
+    :func:`Obs`."""
+
+    fdd: FDD
+    y: torch.Tensor  # (n,)
+    L: torch.Tensor  # chol of cov + D
+    residual: torch.Tensor  # y - mean
+
+    @property
+    def logpdf(self):
+        """Marginal likelihood of ``y`` under the FDD: for a prior ``f`` the
+        training objective's term (``gpar/model.py:226``); zero for no
+        rows."""
+        if self.y.shape[0] == 0:
+            return self.fdd.x.new_zeros(())
+        return mvn_logpdf_chol(self.residual, torch.zeros_like(self.residual), self.L)
+
+
+def Obs(fdd, y):
+    """Exact observations ``Obs(f(x, noise), y)`` (``gpar/model.py:289``)."""
+    y = _vec(y)
+    return DenseObs(fdd=fdd, y=y, L=fdd.chol(), residual=y - fdd.mean_vec())
 
 
 @dataclass(frozen=True, eq=False)
@@ -198,17 +272,39 @@ def PseudoObs(fdd_ind, fdd, y):
 
 
 def condition(f, obs):
-    """Posterior ``f | obs`` (``gpar/model.py:170,298``) for Titsias
-    observations built from ``f`` (or a structurally identical process)."""
-    if not isinstance(obs, TitsiasObs):
-        raise NotImplementedError(
-            f"gpar_torch: conditioning on {type(obs).__name__} is not ported yet"
-        )
+    """Posterior ``f | obs`` (``gpar/model.py:170,298``) for observations
+    built from ``f`` (or a structurally identical process).  Exact
+    observations of a prior reuse its factor; of an exact posterior, they
+    condition it on the union of the data."""
     if f is not obs.fdd.f and type(f) is not type(obs.fdd.f):
         raise ValueError(
             "condition(f, obs): `obs` was built from a structurally different "
             "process than `f`; condition the process the observations came from."
         )
-    return SparsePosteriorGP(
-        base=f, x_ind=obs.fdd_ind.x, Lm=obs.Lm, LB=obs.LB, beta=obs.beta
-    )
+    if isinstance(obs, TitsiasObs):
+        return SparsePosteriorGP(
+            base=f, x_ind=obs.fdd_ind.x, Lm=obs.Lm, LB=obs.LB, beta=obs.beta
+        )
+    if not isinstance(obs, DenseObs):
+        raise TypeError(f"Cannot condition on {type(obs)!r}")
+    x_new, y_new = obs.fdd.x, obs.y
+    noise_new = obs.fdd.noise
+    if noise_new is None:
+        noise_new = x_new.new_zeros(x_new.shape[0])
+    if isinstance(f, GP):
+        return PosteriorGP(kernel=f.kernel, x_data=x_new, y_data=y_new, noise_diag=noise_new,
+                           L=obs.L, alpha=solve_chol(obs.L, obs.residual))
+    if isinstance(f, PosteriorGP):
+        return _condition_dense(
+            f.kernel,
+            torch.cat([f.x_data, x_new], dim=0),
+            torch.cat([f.y_data, y_new], dim=0),
+            torch.cat([f.noise_diag, noise_new], dim=0),
+        )
+    raise NotImplementedError(f"Cannot condition {type(f)!r} on exact obs.")
+
+
+def _condition_dense(kernel, x, y, noise_diag):
+    L = safe_cholesky(gram(kernel, x, x) + torch.diag(noise_diag))
+    return PosteriorGP(kernel=kernel, x_data=x, y_data=y, noise_diag=noise_diag, L=L,
+                       alpha=solve_chol(L, y))

@@ -32,13 +32,15 @@ objective (``params.lbfgs.DeviceLBFGS``), then one augmentation step that
 writes the layer's output column into the augmented inputs in place.  The
 step's bodies are plain functions of fixed-shape buffers; on a CUDA tensor
 they are captured once as CUDA graphs and replayed, on a CPU tensor (or
-when asked) they run eagerly.  Sparse (inducing-point) plans only: the
-dense layer (``_masked_dense_factors``) is ROADMAP A10.2.
+when asked) they run eagerly.  A sparse plan (inducing points) takes the
+masked Titsias ELBO; a dense one (``x_ind=None``) the exact marginal
+likelihood of the (rows, rows) covariance with masked rows made identity
+rows (:func:`_masked_dense_factors`), and no inducing inputs.
 
 The serving tail (:func:`make_scan_predict_tail`, ``replace=True``) runs
-eagerly: per layer the Titsias factors, the posterior at the bucketed and
-masked test rows, one sampling factor and all Monte-Carlo draws as one
-matmul against caller-supplied standard normals.
+eagerly: per layer the Titsias or exact factors, the posterior at the
+bucketed and masked test rows, one sampling factor and all Monte-Carlo
+draws as one matmul against caller-supplied standard normals.
 """
 
 import contextlib
@@ -50,7 +52,16 @@ import torch
 
 from ..ops import gram_kernel as GK
 from ..ops.kernels import EQ, RQ, Const, Linear, gram, kdiag
-from ..ops.linalg import floor_noise, psd_sample_factor, solve_lower, titsias_factors
+from ..ops.linalg import (
+    LOG_2PI,
+    _cholesky,
+    floor_noise,
+    psd_sample_factor,
+    resolve_epsilon,
+    solve_chol,
+    solve_lower,
+    titsias_factors,
+)
 from ..params.lbfgs import MAX_LINESEARCH, DeviceLBFGS, iterate, new_stats
 from ..params.optim import check_restarts
 from ..params.store import _Bounded, _Identity, _LowerBounded
@@ -410,17 +421,43 @@ def _layer_kernel(plan, lin, z_full):
     return kernel, nat(_NOISE, lin["noise"])
 
 
+def _masked_dense_factors(K, r, mask, noise_w, eps, escalations=None):
+    """Exact masked marginal likelihood and posterior-mean weights:
+    ``(logpdf, alpha, L)``.  Masked rows become identity rows, so they add
+    exactly nothing to the logdet, the quadratic form or ``alpha``; the
+    factorisation adds ``eps`` to the whole diagonal, so a masked diagonal
+    is set to ``1 - eps`` to land at 1.  With ``escalations`` the Cholesky
+    takes the jitter ladder on the device
+    (``ops.linalg.cholesky_ladder_on_device``), else the host ladder.
+
+    ``K`` is (rows, rows): the masking multiplies by the two mask vectors
+    (no (rows, rows) mask is formed or kept for the backward) and the
+    diagonal is added in place."""
+    A = K * mask[:, None] * mask[None, :]
+    torch.diagonal(A).add_(mask * noise_w + (1.0 - mask) * (1.0 - eps))
+    L = _cholesky(A, None, escalations)
+    rm = r * mask
+    v = solve_lower(L, rm)
+    logpdf = (-0.5 * torch.sum(mask) * LOG_2PI - torch.sum(torch.log(torch.diagonal(L)) * mask)
+              - 0.5 * torch.sum(v * v))
+    return logpdf, solve_chol(L, rm), L
+
+
 def _layer_nll_factors(plan, lin, z_full, x_aug, zi_aug, escalations=None):
     """Layer NLL and posterior-mean factors at uniform shapes: the masked
-    Titsias ELBO of layer ``lin`` at parameters ``z_full``, and ``(Kmm, Kmn,
-    beta)`` for :func:`_est_from_factors`.  With ``escalations`` the
-    factorisations take the jitter ladder on the device
-    (``ops.linalg.cholesky_ladder_on_device``)."""
-    if not plan.sparse:
-        raise NotImplementedError("gpar_torch: the dense scan layer is not ported yet")
+    Titsias ELBO (sparse) or exact marginal likelihood (dense) of layer
+    ``lin`` at parameters ``z_full``, and the factors of
+    :func:`_est_from_factors`, ``(Kmm, Kmn, beta)`` or ``(K, alpha)``.
+    With ``escalations`` the factorisations take the jitter ladder on the
+    device (``ops.linalg.cholesky_ladder_on_device``)."""
     kernel, noise = _layer_kernel(plan, lin, z_full)
     noise_w = floor_noise(noise / lin["w_col"])
     r = lin["y_col"]  # zero-filled; masked rows neutralised
+    if not plan.sparse:
+        K = gram(kernel, x_aug, x_aug)
+        logpdf, alpha, _ = _masked_dense_factors(K, r, lin["obs_mask"], noise_w,
+                                                 resolve_epsilon(K.dtype), escalations)
+        return -logpdf, (K, alpha)
     Kmm = gram(kernel, zi_aug, zi_aug)
     Kmn = gram(kernel, zi_aug, x_aug)
     knn = kdiag(kernel, x_aug)
@@ -429,9 +466,12 @@ def _layer_nll_factors(plan, lin, z_full, x_aug, zi_aug, escalations=None):
     return -elbo, (Kmm, Kmn, beta)
 
 
-def _est_from_factors(factors):
-    """Posterior-mean estimates at the data rows and the inducing inputs
-    (``gpar/model.py:291-322``)."""
+def _est_from_factors(plan, factors):
+    """Posterior-mean estimates at the data rows and, sparse, at the
+    inducing inputs (``gpar/model.py:291-322``)."""
+    if not plan.sparse:
+        K, alpha = factors
+        return K @ alpha, None
     Kmm, Kmn, beta = factors
     return Kmn.T @ beta, Kmm @ beta
 
@@ -450,10 +490,11 @@ def _next_column(plan, lin, est_rows):
 
 def _augment_cols(plan, lin, y_next, est_ind, x_aug, zi_aug):
     """One augmentation step, in place: the layer's output column of the
-    augmented data rows and inducing inputs."""
+    augmented data rows and, sparse, of the inducing inputs."""
     col = (plan.m + lin["col"]).reshape(1)
     x_aug.index_copy_(1, col, y_next[:, None])
-    zi_aug.index_copy_(1, col, est_ind[:, None])
+    if plan.sparse:
+        zi_aug.index_copy_(1, col, est_ind[:, None])
 
 
 class ScanStep:
@@ -485,8 +526,6 @@ class ScanStep:
     BODIES = ("layer_init", "step", "trial", "commit", "layer_finish")
 
     def __init__(self, plan, n_rows, n_ind, dtype, device, gtol=1e-9, memory_size=10):
-        if not plan.sparse:
-            raise NotImplementedError("gpar_torch: the dense scan layer is not ported yet")
         self.plan, self.n_rows, self.n_ind = plan, n_rows, n_ind
         self.dtype, self.device = dtype, torch.device(device)
         self.gtol, self.memory_size = gtol, memory_size
@@ -526,7 +565,8 @@ class ScanStep:
 
     def load(self, z_all, x, rows, x_ind):
         """A fit's inputs: latents, (padded) data rows, their row arrays
-        and the inducing inputs; back to layer 0."""
+        and the inducing inputs ((0, m) for a dense plan); back to layer
+        0."""
         m = self.plan.m
         self.z_ext.zero_()
         self.z_ext[:-1].copy_(z_all)
@@ -587,7 +627,7 @@ class ScanStep:
         with torch.no_grad():
             # The output column written here is gated out of this layer's
             # kernel, so the estimates do not depend on it.
-            est_rows, est_ind = _est_from_factors(self._nll_factors(self.z_ext)[1])
+            est_rows, est_ind = _est_from_factors(self.plan, self._nll_factors(self.z_ext)[1])
         _augment_cols(self.plan, self.lin, _next_column(self.plan, self.lin, est_rows), est_ind,
                       self.x_aug, self.zi_aug)
         res = torch.stack([f, self.opt.f0, self.opt.state.it.to(f.dtype)])
@@ -637,6 +677,13 @@ def run_scan_fit(step, run, iters, stats=None):
     return step.results(stats)
 
 
+def _inducing(x_ind, m, dtype, device):
+    """The inducing inputs as a tensor; (0, m) for a dense plan."""
+    if x_ind is None:
+        return torch.zeros((0, m), dtype=dtype, device=device)
+    return torch.as_tensor(x_ind, dtype=dtype, device=device)
+
+
 @contextlib.contextmanager
 def _cusolver(device):
     """cuSOLVER for the factorisations on the card (MAGMA's cannot be
@@ -665,14 +712,12 @@ def make_scan_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1, rows_t
     the counters, ``graph_replays``, ``replay_counts`` (what the replays
     added to the Gram counters) and ``capture_s``."""
     check_restarts(restarts)
-    if not plan.sparse:
-        raise NotImplementedError("gpar_torch: the dense scan fit is not ported yet")
 
     def program(z_all, x, xs_rows=None, stats=None):
         stats = new_stats() if stats is None else stats
         dtype, device = x.dtype, x.device
         rows = xs_rows if rows_traced else plan_tensors(plan, dtype, device)
-        zi = torch.as_tensor(x_ind, dtype=dtype, device=device)
+        zi = _inducing(x_ind, plan.m, dtype, device)
         args = (z_all, x, rows, zi)
         with _cusolver(device):
             if device.type == "cuda" and cuda_graphs:
@@ -697,11 +742,12 @@ def make_scan_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1, rows_t
 def make_scan_predict_tail(plan, x_ind, latent, rows_traced=False):
     """Posterior conditioning and Monte-Carlo predictive sampling over the
     layers, ``replace=True`` (``gpar_tpu/models/fused.py:2275-2429``): per
-    layer the Titsias factors on the masked training rows at the final
-    hyperparameters, the posterior mean and covariance at the test rows,
-    one sampling factor, all draws as one matmul, then one augmentation
-    step of the training inputs (impute/replace rules) and of the test
-    inputs (the posterior mean).
+    layer the Titsias or exact factors on the masked training rows at the
+    final hyperparameters, the posterior mean and covariance at the test
+    rows, one sampling factor, all draws as one matmul, then one
+    augmentation step of the training inputs (impute/replace rules) and of
+    the test inputs (the posterior mean).  On the card the factorisations
+    are cuSOLVER's, as in the fit.
 
     Returns ``tail(z_all, x, x_test, w_test_T, normals, xs_rows=None,
     mt=None) -> (batch, mean_chain)``: ``normals`` (p, S, n_test) are the
@@ -711,11 +757,13 @@ def make_scan_predict_tail(plan, x_ind, latent, rows_traced=False):
     p) the per-layer posterior means fed forward."""
     if not plan.replace:
         raise ValueError("make_scan_predict_tail requires replace=True chains.")
-    if not plan.sparse:
-        raise NotImplementedError("gpar_torch: the dense scan tail is not ported yet")
     m, W = plan.m, plan.W
 
     def tail(z_all, x, x_test, w_test_T, normals, xs_rows=None, mt=None):
+        with _cusolver(x.device):
+            return _tail(z_all, x, x_test, w_test_T, normals, xs_rows, mt)
+
+    def _tail(z_all, x, x_test, w_test_T, normals, xs_rows, mt):
         dtype, device = x.dtype, x.device
         xs = plan_tensors(plan, dtype, device, rows=xs_rows if rows_traced else None)
         z_ext = torch.cat([z_all, z_all.new_zeros(1)])
@@ -724,31 +772,46 @@ def make_scan_predict_tail(plan, x_ind, latent, rows_traced=False):
             return torch.cat([a, a.new_zeros((a.shape[0], W - m))], dim=1)
 
         x_aug, xt_aug = widen(x), widen(x_test)
-        zi_aug = widen(torch.as_tensor(x_ind, dtype=dtype, device=device))
+        zi_aug = widen(_inducing(x_ind, m, dtype, device))
+        eps = resolve_epsilon(dtype)
         ys, means = [], []
         for pi in range(plan.p):
             lin = {k: v[pi] for k, v in xs.items()}
             kernel, noise = _layer_kernel(plan, lin, z_ext)
             noise_w = floor_noise(noise / lin["w_col"])
-            r = lin["y_col"]
-            Kmm = gram(kernel, zi_aug, zi_aug)
-            Kmn = gram(kernel, zi_aug, x_aug)
-            knn = kdiag(kernel, x_aug)
-            _, Lm, LB, beta = titsias_factors(Kmm, Kmn, knn, r, torch.zeros_like(r), noise_w,
-                                              mask=lin["obs_mask"])
-            # Sparse posterior at the test points (gp/core.SparsePosteriorGP).
-            Kmt = gram(kernel, zi_aug, xt_aug)
-            mean_t = Kmt.T @ beta
-            T1 = solve_lower(Lm, Kmt)
-            T2 = solve_lower(LB, T1)
-            cov_t = _mask_test_cov(gram(kernel, xt_aug, xt_aug) - T1.T @ T1 + T2.T @ T2, mt)
+            omask, r = lin["obs_mask"], lin["y_col"]
+            if plan.sparse:
+                Kmm = gram(kernel, zi_aug, zi_aug)
+                Kmn = gram(kernel, zi_aug, x_aug)
+                knn = kdiag(kernel, x_aug)
+                _, Lm, LB, beta = titsias_factors(Kmm, Kmn, knn, r, torch.zeros_like(r), noise_w,
+                                                  mask=omask)
+                # Sparse posterior at the test points (gp/core.SparsePosteriorGP).
+                Kmt = gram(kernel, zi_aug, xt_aug)
+                mean_t = Kmt.T @ beta
+                T1 = solve_lower(Lm, Kmt)
+                T2 = solve_lower(LB, T1)
+                cov_t = gram(kernel, xt_aug, xt_aug) - T1.T @ T1 + T2.T @ T2
+                est_rows, est_ind = Kmn.T @ beta, Kmm @ beta
+            else:
+                K = gram(kernel, x_aug, x_aug)
+                _, alpha, L = _masked_dense_factors(K, r, omask, noise_w, eps)
+                # Exact posterior at the test points (gp/core.PosteriorGP):
+                # a masked training row has alpha 0 and an identity row in
+                # L, so zeroing its cross-covariance row conditions on the
+                # observed rows only.
+                Kxt = gram(kernel, x_aug, xt_aug) * omask[:, None]
+                mean_t = Kxt.T @ alpha
+                V = solve_lower(L, Kxt)
+                cov_t = gram(kernel, xt_aug, xt_aug) - V.T @ V
+                est_rows, est_ind = K @ alpha, None
+            cov_t = _mask_test_cov(cov_t, mt)
             if not latent:
                 cov_t = cov_t + torch.diag(floor_noise(noise / w_test_T[pi]))
             F = psd_sample_factor(cov_t)
             ys.append(mean_t[None, :] + normals[pi] @ F.T)  # (S, n_test)
             means.append(mean_t)
-            y_next = _next_column(plan, lin, Kmn.T @ beta)
-            _augment_cols(plan, lin, y_next, Kmm @ beta, x_aug, zi_aug)
+            _augment_cols(plan, lin, _next_column(plan, lin, est_rows), est_ind, x_aug, zi_aug)
             xt_aug.index_copy_(1, (m + lin["col"]).reshape(1), mean_t[:, None])
         return torch.stack(ys, dim=-1), torch.stack(means, dim=-1)
 

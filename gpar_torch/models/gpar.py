@@ -15,7 +15,7 @@ their standard normals from the caller (or draw them from a
 import numpy as np
 import torch
 
-from ..gp.core import PseudoObs, condition
+from ..gp.core import Obs, PseudoObs, condition
 
 __all__ = ["GPAR", "merge", "construct_model", "last", "per_output", "take_rows"]
 
@@ -180,15 +180,15 @@ class GPAR:
         )
 
     def _obs(self, x, x_ind, y, w, f, noise):
-        """Sparse observations with NaN rows dropped
+        """Sparse or exact observations with NaN rows dropped
         (``gpar/model.py:279-289``)."""
-        if not self.sparse:
-            raise NotImplementedError("gpar_torch: the dense GPAR path is not ported yet")
         available = ~_nan_mask_col0(y)
         x = take_rows(x, available)
         y = _like(take_rows(y, available), x)
         w = _like(take_rows(w, available), x)
-        return PseudoObs(f(x_ind), f(x, noise / w), y)
+        if self.sparse:
+            return PseudoObs(f(x_ind), f(x, noise / w), y)
+        return Obs(f(x, noise / w), y)
 
     def _update_inputs(self, x, x_ind, y, f, obs):
         """Impute/replace outputs and append them as input columns

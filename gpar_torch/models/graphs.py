@@ -7,7 +7,7 @@ package's cross-instance program cache (``regressor._shared_jit``,
 ``torch.cuda.graph`` per key and replayed for every layer, every L-BFGS
 iteration and every later fit with the same key, by any estimator.  The
 key covers the plan's fingerprint (model structure and index maps), the
-row bucket, the number of inducing points, the dtype, ``iters``, ``gtol``,
+row bucket, the number of inducing points (0 for a dense plan), the dtype, ``iters``, ``gtol``,
 ``memory_size``, the device and the jitter settings the captured work
 bakes in.
 
@@ -29,7 +29,10 @@ bakes in.
 - The cache is a least-recently-used map of at most :data:`CACHE_CAP`
   keys, the cap of the JAX package's ``_SHARED_JIT_CACHE``; each entry
   pins its step's buffers and its graphs' memory pools on the card until
-  it is evicted or :func:`clear_cache` runs.
+  it is evicted or :func:`clear_cache` runs.  A dense step's pools hold
+  its (rows, rows) temporaries: on an H100, 13.8 GiB for the benchmark's
+  model at 11 840 rows in float32, against 0.39 GiB for the sparse step
+  with 256 inducing points.
 - A cached step is shared mutable state: it serves one fit at a time.
   Two fits of the same key that run at once (two threads) would overwrite
   each other's buffers.

@@ -35,10 +35,12 @@ Design, in PyTorch terms:
   card unless ``device="cpu"``).  Randomness comes from a
   ``torch.Generator`` or from caller-supplied standard normals.
 
-Not ported yet: the dense (no inducing points) path, ``logpdf``,
-``replace=False`` prediction, ``fix=False``, prior ``sample``, restarts
-and ``fused="batched"``/``"unroll"``, greedy ordering, the
-posterior-factor cache, ``warmup`` / ``precompute`` and checkpointing.
+Both the sparse model (``x_ind`` given) and the dense one (``x_ind=None``,
+the exact marginal likelihood over the data rows) run through every entry
+point above.  Not ported yet: ``logpdf``, ``replace=False`` prediction,
+``fix=False``, prior ``sample``, restarts and ``fused="batched"``/
+``"unroll"``, greedy ordering, the posterior-factor cache, ``warmup`` /
+``precompute`` and checkpointing.
 """
 
 import time

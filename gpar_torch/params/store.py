@@ -46,7 +46,7 @@ class _LowerBounded:
         return self.lower + torch.exp(latent)
 
     def unconstrain(self, value):
-        with np.errstate(divide="ignore"):
+        with np.errstate(divide="ignore", invalid="ignore"):
             return np.log(np.asarray(value) - self.lower)
 
 
@@ -63,7 +63,7 @@ class _Bounded:
 
     def unconstrain(self, value):
         frac = (np.asarray(value) - self.lower) / (self.upper - self.lower)
-        with np.errstate(divide="ignore"):
+        with np.errstate(divide="ignore", invalid="ignore"):
             return np.log(frac) - np.log1p(-frac)
 
 

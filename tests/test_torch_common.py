@@ -22,6 +22,7 @@ __all__ = [
     "chain_data",
     "bench_kwargs",
     "jax_chain_normals",
+    "close_tail",
 ]
 
 
@@ -55,3 +56,28 @@ def jax_chain_normals(key, p, n, num_samples=None, dtype=jnp.float64):
         return one(key)
     keys = jax.random.split(key, num_samples)
     return np.stack([one(k) for k in keys], axis=1)
+
+
+def close_tail(got, want, normals, latent, rtol=1e-8, atol=1e-10):
+    """A predict tail's ``(batch, mean_chain)`` against the reference's,
+    drawn from the same standard normals ``normals`` (p, S, n).  The means
+    and, observed (``latent=False``), the draws agree to ``rtol``.  A latent
+    posterior covariance can be near-singular (condition ~1 / jitter), and
+    its Cholesky factor is then fixed only up to rounding in the near-null
+    directions: the two factors differ while their products agree.  So for
+    ``latent=True`` each layer's factor is recovered from the draws
+    (``batch - mean = Z F^T``, by least squares on ``Z``, which needs S >= n)
+    and the covariances ``F F^T`` are compared, to ``rtol`` of their largest
+    entry."""
+    (batch_t, mean_t), (batch_j, mean_j) = [tuple(map(np_, x)) for x in (got, want)]
+    close(mean_t, mean_j, rtol=rtol, atol=atol)
+    if not latent:
+        close(batch_t, batch_j, rtol=rtol, atol=atol)
+        return
+    for pi, Z in enumerate(np_(normals)):
+        assert Z.shape[0] >= Z.shape[1], "recovering the factor needs S >= n"
+        covs = []
+        for batch, mean in ((batch_t, mean_t), (batch_j, mean_j)):
+            Ft = np.linalg.lstsq(Z, batch[:, :, pi] - mean[None, :, pi], rcond=None)[0]
+            covs.append(Ft.T @ Ft)
+        close(covs[0], covs[1], rtol=0, atol=rtol * np.max(np.abs(covs[1])))

@@ -95,30 +95,29 @@ def test_cuda_backward_kernel_at_the_lane_maps_edges_gives_the_same_bits(dtype, 
             assert float((a - c).abs().max()) <= tol * max(float(c.abs().max()), 1e-30), (n, m)
 
 
-def _small_step(dtype):
+def _small_step(dtype, dense=False):
     x, y, _ = chain_data(n=100, p=3, seed=0)
     y[::7, 2] = np.nan
-    reg = GPARRegressor(**bench_kwargs(n_ind=8), device="cuda", dtype=dtype)
+    kw = dict(bench_kwargs(n_ind=8), **({"x_ind": None} if dense else {}))
+    reg = GPARRegressor(**kw, device="cuda", dtype=dtype)
     reg.condition(x, y)
     reg._ensure_vars(reg.p)
     names = reg.vs.select(None)
     plan = build_scan_fit_plan(reg, names)
     x_pad, rows = reg._bucket_fit_inputs(plan)
-    step = ScanStep(plan, x_pad.shape[0], 8, dtype, "cuda")
-    step.load(reg.vs.latent_vector(names), x_pad, rows, reg.x_ind)
+    zi = x_pad.new_zeros((0, plan.m)) if dense else reg.x_ind
+    step = ScanStep(plan, x_pad.shape[0], zi.shape[0], dtype, "cuda")
+    step.load(reg.vs.latent_vector(names), x_pad, rows, zi)
     return reg, x, y, step
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_graphed_layer_step_matches_eager_step(dtype):
-    _need_cuda()
+def _graphed_step_matches_eager_step(dtype, dense):
     # The same bodies from the same buffers: replayed graphs and the eager
     # run give the same bits.
     from gpar_torch.models.fused import _cusolver
     from gpar_torch.models.graphs import GraphedStep
 
-    _, _, _, step = _small_step(dtype)
+    _, _, _, step = _small_step(dtype, dense)
     twin = step.clone()
     with _cusolver("cuda"):
         graphs = GraphedStep(step)
@@ -135,6 +134,22 @@ def test_cuda_graphed_layer_step_matches_eager_step(dtype):
     # Replays count their launches like the eager run does.
     assert counts["gram_kernel_launches"] > 0 and counts["gram_plain_cuda_calls"] == 0
     assert counts["gram_bwd_kernel_launches"] == counts["gram_autograd_calls"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_graphed_layer_step_matches_eager_step(dtype):
+    _need_cuda()
+    _graphed_step_matches_eager_step(dtype, dense=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_graphed_dense_layer_step_matches_eager_step(dtype):
+    _need_cuda()
+    # No inducing points: the (rows, rows) Gram and its factorisation
+    # through the on-device ladder, captured.
+    _graphed_step_matches_eager_step(dtype, dense=True)
 
 
 @pytest.mark.cuda

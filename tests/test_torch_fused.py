@@ -10,7 +10,9 @@ NaNs in the later outputs).  Tolerances:
   the layer NLLs to 1e-6 and every latent to 1e-6 / 1e-8 (both run the
   same L-BFGS decisions on the same objective, in another summation
   order); the same against the port's per-layer driver;
-- the predict tail against JAX's with the same standard normals: 1e-8;
+- the predict tail against JAX's with the same standard normals: 1e-8,
+  latent or not, unit or non-unit test weights (latent draws through
+  their covariance, ``test_torch_common.close_tail``);
 - the bucketed form against the exact-shape form: 1e-12;
 - the device-state L-BFGS against JAX's ``lbfgs_minimize``: 1e-10;
 - the on-device Cholesky ladder against the host ladder: bit for bit.
@@ -19,7 +21,9 @@ NaNs in the later outputs).  Tolerances:
 import numpy as np
 import pytest
 
-from .test_torch_common import bench_kwargs, chain_data, close, jax, jax_chain_normals, jnp, np_, torch
+from .test_torch_common import (
+    bench_kwargs, chain_data, close, close_tail, jax, jax_chain_normals, jnp, np_, torch,
+)
 
 import gpar_tpu.models.fused as JF  # noqa: E402
 import gpar_tpu.ops.linalg as JL  # noqa: E402
@@ -172,20 +176,21 @@ def _tails(fits):
     return rj, rt, names, JF.build_scan_fit_plan(rj, names), TF.build_scan_fit_plan(rt, names)
 
 
-def test_predict_tail_matches_jax(fits):
+@pytest.mark.parametrize("unit_w", [True, False])
+@pytest.mark.parametrize("latent", [False, True])
+def test_predict_tail_matches_jax(fits, latent, unit_w):
     rj, rt, names, pj, pt = _tails(fits)
     key = jax.random.PRNGKey(11)
     xt = fits["x_test"][:, None]
-    batch_j, mean_j = JF.make_scan_predict_tail(pj, rj.x_ind, False)(
-        rj.vs.latent_vector(names), rj.x, jnp.asarray(xt), jnp.ones((P, NT)),
-        jax.random.split(key, S))
-    normals = jax_chain_normals(key, P, NT, num_samples=S)
-    batch_t, mean_t = TF.make_scan_predict_tail(pt, rt.x_ind, False)(
-        rt.vs.latent_vector(names), rt.x, torch.as_tensor(xt), torch.ones(P, NT, dtype=torch.float64),
-        torch.as_tensor(normals))
-    assert tuple(batch_t.shape) == (S, NT, P) and tuple(mean_t.shape) == (NT, P)
-    close(mean_t, mean_j, rtol=1e-8, atol=1e-10)
-    close(batch_t, batch_j, rtol=1e-8, atol=1e-10)
+    s = 2 * NT  # at least n_test draws: close_tail recovers latent factors from them
+    w = np.ones((P, NT)) if unit_w else np.random.default_rng(12).uniform(0.5, 2.0, (P, NT))
+    batch_j, mean_j = JF.make_scan_predict_tail(pj, rj.x_ind, latent)(
+        rj.vs.latent_vector(names), rj.x, jnp.asarray(xt), jnp.asarray(w), jax.random.split(key, s))
+    normals = jax_chain_normals(key, P, NT, num_samples=s)
+    batch_t, mean_t = TF.make_scan_predict_tail(pt, rt.x_ind, latent)(
+        rt.vs.latent_vector(names), rt.x, torch.as_tensor(xt), torch.as_tensor(w), torch.as_tensor(normals))
+    assert tuple(batch_t.shape) == (s, NT, P) and tuple(mean_t.shape) == (NT, P)
+    close_tail((batch_t, mean_t), (batch_j, mean_j), normals, latent)
 
 
 def test_bucketed_forms_equal_exact_forms(fits):
@@ -349,9 +354,15 @@ def test_unported_fit_options_raise(fits):
     for kw in (dict(fused="batched"), dict(fused="unroll"), dict(restarts=2)):
         with pytest.raises(NotImplementedError):
             rt.fit(fits["x"], fits["y"], iters=1, **kw)
-    dense = TReg(**dict(fits["kw"], x_ind=None), device="cpu")
-    with pytest.raises(NotImplementedError):
-        dense.fit(fits["x"], fits["y"], iters=1)
+    # The dense path (x_ind=None) is ported: it fits, as JAX's does.
+    kw = dict(fits["kw"], x_ind=None)
+    dense, jdense = TReg(**kw, device="cpu"), JReg(**kw)
+    for r in (dense, jdense):
+        r.fit(fits["x"], fits["y"], iters=1)
+    close(dense.last_fit_report["layer_nll"], jdense.last_fit_report["layer_nll"], rtol=1e-8)
+    sj, st = jdense.vs.snapshot(), dense.vs.snapshot()
+    for k in sj:
+        close(st[k], sj[k], rtol=1e-8, atol=1e-10)
 
 
 def test_step_bodies_read_nothing_back_to_the_host(fits):

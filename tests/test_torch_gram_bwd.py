@@ -96,8 +96,9 @@ def test_cpu_backward_launches_nothing_and_never_evaluates_the_tree(monkeypatch)
         GK.gram_bwd_kernel_launch(kinds, dims, xf, yf, par, out.detach())
 
 
-# The scan path's Gram shapes (Kmn, Kmm, Kmt, the test covariance) and a
-# ragged one, with the gated tree's three terms, on an H100's 132 SMs, and
+# The scan path's Gram shapes (Kmn, Kmm, Kmt, the test covariance), the
+# dense path's (K and the test cross-covariance, rows bucketed to 11 840) and
+# a ragged one, with the gated tree's three terms, on an H100's 132 SMs, and
 # the plan worked out by hand for each: (column tiles, row splits, rows per
 # split, rows per step).  The big tile (64 rows a step in float32, 32 in
 # float64) where one step per split of it gives at least 66 blocks (half the
@@ -117,6 +118,12 @@ _PLANS = {
         # 10 x 3 x 19 = 570: big; 10 splits give 2.27 per SM, 19 give 4.32
         # (busiest 5 <= 5.18).
         (1216, 1216): (10, 19, 64, 64),
+        # 93 x 3 x 185 = 51 615: big; 1 split gives 2.11 per SM, 2 splits of
+        # 93 steps (5952 rows) give 4.23 (busiest 5 <= 5.07).
+        (11_840, 11_840): (93, 2, 5952, 64),
+        # 10 x 3 x 185 = 5550: big; 14 splits give 3.18 per SM but 4 on the
+        # busiest (> 3.82), 15 splits of 13 steps give 3.41 (busiest 4 <= 4.09).
+        (11_840, 1216): (10, 15, 832, 64),
         # 1 x 3 x 1 = 3 < 66: small, 3 steps of 16, never 3 per SM.
         (37, 23): (1, 3, 16, 16),
     },
@@ -131,6 +138,13 @@ _PLANS = {
         # 19 x 3 x 38 = 2166: big; 7 splits give 3.02 per SM but 4 on the
         # busiest (> 3.63), 8 splits of 5 steps give 3.45 (busiest 4 <= 4.15).
         (1216, 1216): (19, 8, 160, 32),
+        # 185 x 3 = 555 blocks with no split, each walking all 370 steps:
+        # 4.20 per SM (busiest 5 <= 5.05).
+        (11_840, 11_840): (185, 1, 11_840, 32),
+        # 19 x 3 = 57 blocks with no split; 7 splits give 3.02 per SM but 4
+        # on the busiest (> 3.63), 8 splits of 47 steps (1504 rows) give 3.45
+        # (busiest 4 <= 4.15).
+        (11_840, 1216): (19, 8, 1504, 32),
         # 1 x 3 x 2 = 6 < 66: small, 3 steps of 16, never 3 per SM.
         (37, 23): (1, 3, 16, 16),
     },

@@ -135,3 +135,17 @@ def test_minimise_l_bfgs_b_matches_jax():
     assert itt <= 8 and f0t > ft
     for k in jv.names:
         close(tv.snapshot()[k], jv.snapshot()[k], rtol=1e-8, atol=1e-12)
+
+
+@pytest.mark.parametrize("init, bounds", [(-1.0, dict()), (0.5, dict(lower=1.0)),
+                                          (5.0, dict(lower=1.0, upper=3.0))])
+def test_init_outside_its_bounds_is_nan_without_a_warning(init, bounds):
+    # The NumPy unconstrain of a bounded transform: the log of a negative
+    # number is NaN, silently, as on the JAX package's jnp path.
+    import warnings
+
+    tv = TVars(dtype=torch.float64, device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        tv.bnd(init=init, name="v", **bounds)
+    assert np.isnan(tv.snapshot()["v"]).all()
