@@ -31,6 +31,13 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    in float64 (on the upcast inputs in the float32 case): max |err| /
    max |ref| at most 1e-10 in float64 and 1e-5 in float32.  Device times of
    kernels and plain versions (``torch.profiler``) beside the card's bound.
+   Then the Gram with a sample axis (one launch for S Grams, the per-sample
+   tails' route) on the gated kernel at (S=90, 256, 1216) with the left
+   operand shared, (90, 1216, 1216) and the dense (90, 11840, 1216) with the
+   left operand shared (the chunk the tails launch), every sample against
+   its plain version (at the dense shape in 1024-row blocks in float64),
+   1e-5 / 1e-12; its time
+   beside S separate 2-D launches of the same Grams and its bound.
 3. Main path at full width: ``GPARRegressor.fit_predict`` at the
    benchmark's configuration (``bench.py``): n=10 000, p=16, 256 inducing
    points, 10 L-BFGS iterations per layer, 100-sample predictive with
@@ -57,13 +64,24 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    ``torch.profiler``, with the scan step's on-device Cholesky ladder and
    with the per-layer driver's host ladder: the factorisations (cuSOLVER
    ``potrf``) each runs and their device time.
-5. Small-input agreement: a float64 fit_predict (p=3, n=100, sparse with
-   8 inducing points and dense) through the scan path on the card
-   (graphed) against the same run on the CPU (eager; the CPU route is held
-   against the JAX package by the test suite), rtol 1e-6.
-6. Summary: ``[main]`` and ``[dense]`` JSON lines, a ``kernels`` JSON line
-   (launches of the sparse and the dense graphed cold runs), the card
-   line, and last ``{"ok": true, "device": {...}}``.
+5. Per-sample ancestral sampling at full width (``[ancestral]`` lines): the
+   benchmark's request with ``replace=False`` (sparse, cold and warm, held
+   to the ``10k`` gates; then ``latent=True``), posterior ``sample`` of it
+   and of phase 3's ``replace=True`` model and a prior ``sample`` (p=16),
+   100 samples at the 1024 test inputs, and the dense model once (every
+   tail factors each layer in its loop); every run's fit and predict wall-clock, peak device memory and
+   launch counts (batched launches > 0 where samples carry their own
+   inputs, no plain-route Gram, no ``gram_eval`` on the card); one
+   profiled ``predict`` of each model, device time by operator.
+6. Small-input agreement: a float64 fit_predict (p=3, n=100, sparse with
+   8 inducing points and dense, ``replace`` True and False) through the
+   scan path on the card (graphed) against the same run on the CPU (eager;
+   the CPU route is held against the JAX package by the test suite), rtol
+   1e-6.
+7. Summary: ``[main]``, ``[dense]`` and ``[ancestral]`` JSON lines, a
+   ``kernels`` JSON line (launches of the sparse and the dense graphed cold
+   runs; the batched route's from the ``[ancestral]`` sparse cold and dense
+   requests), the card line, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` additionally traces one warm (graphed) fit_predict of each
 path with ``torch.profiler``, writes the per-kernel tables to ``DIR``,
@@ -176,17 +194,20 @@ def device_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def gram_bound_ms(kinds, dims, n, m, itemsize):
+def gram_bound_ms(kinds, dims, n, m, itemsize, batch=1, shared=""):
     """Least time of one Gram on an H100: the larger of the bytes it must
     move (features read once, Gram written once) over the memory rate and
     its operations over the non-tensor-core rate of the dtype.  The function
     needs 2 operations per feature and output for every kind of term (a
     product and a sum; the norm identity reduces a squared distance to one
-    inner product), whatever form the kernel chose."""
+    inner product), whatever form the kernel chose.  ``batch`` Grams of one
+    call with a sample axis read a ``shared`` ("left" or "right") operand
+    once."""
     D = sum(dims)
-    bytes_ = itemsize * (n * m + (n + m) * D + 2 * len(kinds) + 1)
+    rows = (n if shared == "left" else batch * n) + (m if shared == "right" else batch * m)
+    bytes_ = itemsize * (batch * n * m + rows * D + 2 * len(kinds) + 1)
     per_elem = 2 * D + 4 * len(kinds) + 1  # tail per term (w*, exp, +) and the constant
-    flops = n * m * per_elem
+    flops = batch * n * m * per_elem
     peak = H100_FP32_FLOPS if itemsize == 4 else H100_FP64_FLOPS
     t_bytes, t_ops = bytes_ / H100_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -478,6 +499,243 @@ def phase_kernel_check(device):
     return rows, worst
 
 
+#: The per-sample tails' Grams with a sample axis, (S, n, m) and the operand
+#: every sample shares, at the benchmark's shapes, each at S = 90, the first
+#: chunk of 100 samples at 1216 test rows under the "auto" rule: Kmt (the
+#: inducing inputs shared), the test covariances (both operands the samples'
+#: test inputs), and the dense tail's cross-covariance (the training rows
+#: shared; its plain version runs in row blocks in float64).
+BATCHED_SHAPES = [(90, 256, 1216, "left"), (90, 1216, 1216, ""), (90, 11_840, 1216, "left")]
+
+
+def batched_plain(GK, prep, s, dtype=None):
+    """The plain version of sample ``s`` of a Gram with a sample axis,
+    through ``plain_by_rows``."""
+    kinds, dims, xf, yf, par = prep
+    return plain_by_rows(GK, (kinds, dims, xf[s] if xf.ndim == 3 else xf,
+                              yf[s] if yf.ndim == 3 else yf, par), dtype=dtype)
+
+
+def phase_batched_kernel_check(device):
+    """The Gram kernel with a sample axis (one launch for S Grams) against
+    its plain version in both dtypes at ``BATCHED_SHAPES`` (rtol/atol 1e-5
+    in float32, 1e-12 in float64), and in float32 its device time beside S
+    separate 2-D launches of the same Grams, the plain version's and the
+    bound."""
+    import torch
+
+    from gpar_torch.ops import gram_kernel as GK
+
+    tol = {torch.float32: 1e-5, torch.float64: 1e-12}
+    rows, worst = [], {torch.float32: 0.0, torch.float64: 0.0}
+    for dtype in (torch.float32, torch.float64):
+        tree = gated_tree(dtype, device)
+        for S, n, m, shared in BATCHED_SHAPES:
+            xb = torch.stack([inputs(m, 17, dtype, device, seed=1000 + s) for s in range(S)])
+            left = inputs(n, 17, dtype, device, seed=n + 17) if shared == "left" else xb
+            with torch.no_grad():
+                prep = GK.prepare_terms(tree, left, xb)
+            before = GK.gram_batched_kernel_launches
+            got = GK.gram_kernel_launch(*prep)
+            torch.cuda.synchronize()
+            if GK.gram_batched_kernel_launches != before + 1 or tuple(got.shape) != (S, n, m):
+                raise AssertionError(f"batched Gram: shape {tuple(got.shape)}, "
+                                     f"{GK.gram_batched_kernel_launches - before} batched launches")
+            dense = n > 1216
+            err = kmax = 0.0
+            ok = True
+            for s in range(S):  # every sample, each against its own plain Gram
+                want = batched_plain(GK, prep, s, dtype=torch.float64 if dense else None)
+                g = got[s].to(want.dtype)
+                err = max(err, float(torch.max(torch.abs(g - want))))
+                kmax = max(kmax, float(torch.max(torch.abs(want))))
+                ok = ok and bool(torch.allclose(g, want, rtol=tol[dtype], atol=tol[dtype]))
+                del want, g
+            what = f"({S}, {n}, {m}) {'left operand shared' if shared else 'both operands batched'}"
+            print(f"[kernel] batched gated {str(dtype)[6:]} {what}: one launch, all {S} samples against "
+                  f"the plain version, max|err| {err:.3e} (max|K| {kmax:.3e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"batched gram kernel disagrees with its plain version: {dtype} {what}")
+            worst[dtype] = max(worst[dtype], err)
+            del got
+            if dtype != torch.float32:
+                continue
+            kinds, dims, xf, yf, par = prep
+
+            def separate():
+                for s in range(S):
+                    GK.gram_kernel_launch(kinds, dims, xf if xf.ndim == 2 else xf[s], yf[s], par)
+
+            k_ms = device_ms(lambda: GK.gram_kernel_launch(*prep), 10 if dense else 20)
+            sep_ms = device_ms(separate, 2 if dense else 5)
+            p_ms = device_ms(lambda: torch.stack([batched_plain(GK, prep, s) for s in range(S)]), 1)
+            b_ms, b_by = gram_bound_ms(kinds, dims, n, m, 4, batch=S, shared=shared)
+            rows.append(dict(tree="gated", S=S, n=n, m=m, d=17, shared=shared or "none", ms=k_ms,
+                             separate_ms=sep_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                             max_abs_err=err))
+            print(f"[kernel] time batched gram {what} f32: kernel {k_ms:.5f} ms device, {S} separate "
+                  f"2-D launches {sep_ms:.5f} ms, plain {p_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return rows, worst
+
+
+def operator_table(prof, top=10):
+    """Device time by operator (the kernels of nested operators counted in
+    their parents' too), the ``top`` largest, as ``{name: [ms, calls]}``."""
+    ops = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                  if e.cpu_time_total > 0 and e.device_time_total > 0), key=lambda t: -t[1])[:top]
+    return {k: [ms, c] for k, ms, c in ops}
+
+
+def phase_ancestral(device, replace_true_reg):
+    """Per-sample ancestral sampling at full width (``[ancestral]`` lines):
+    the benchmark's request with ``replace=False`` (the constructor's
+    default), sparse, cold and warm against the ``10k`` gates, then
+    ``latent=True``; ``sample(posterior=True)`` of it and of the ``[main]``
+    phase's ``replace=True`` model, and a prior ``sample`` with p = 16, each
+    of 100 samples at the 1024 test inputs; the dense model (``x_ind=None``)
+    once (its tail, as every tail, computes each layer's factors in its
+    loop, so no 16 x 11 840 x 11 858 x 4 B stack is held).  Every run: fit
+    and predict wall-clock, peak device memory and the launch counters, set
+    to 0 just before it and read just after: forward launches, batched ones
+    among them (> 0), no plain-route Gram and no ``gram_eval`` on the card,
+    and for a fit backward launches equal to the Grams under autograd.  Then one profiled ``predict`` of each model:
+    device time by operator, the batched Cholesky's share among them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import gpar_torch
+    from gpar_torch import GPARRegressor
+    from gpar_torch.models import graphs
+    from gpar_torch.ops import gram_kernel as GK
+
+    P = "[ancestral]"
+    gpar_torch.config.epsilon = 1e-6
+    n, p, n_test, num_samples, iters = 10_000, 16, 1024, 100, 10
+    x, y, f = make_data(n, p)
+    test_idx = np.arange(n)[:: n // n_test][:n_test]
+    x_test, f_test = x[test_idx], f[test_idx]
+    res = {}
+
+    def run(tag, fn, fit, batched=True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        GK.reset_counters()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = GK.counters()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"{P} {tag}: {wall:.3f} s; peak device memory {peak:.2f} GiB; gram kernel launches "
+              f"{c['gram_kernel_launches']} ({c['gram_batched_kernel_launches']} with a sample axis), "
+              f"backward launches {c['gram_bwd_kernel_launches']} for {c['gram_autograd_calls']} Grams "
+              f"under autograd, plain-route CUDA Grams {c['gram_plain_cuda_calls']}, gram_eval on CUDA "
+              f"{c['gram_eval_cuda_calls']}")
+        if (c["gram_kernel_launches"] <= 0 or (c["gram_batched_kernel_launches"] <= 0) == batched
+                or c["gram_plain_cuda_calls"] or c["gram_eval_cuda_calls"]):
+            raise AssertionError(f"{tag}: the run bypassed the kernel: {c}")
+        if fit and not 0 < c["gram_bwd_kernel_launches"] == c["gram_autograd_calls"]:
+            raise AssertionError(f"{tag}: backward launches do not match the Grams under autograd: {c}")
+        res[tag] = dict(wall_s=wall, peak_gib=peak, launches=c["gram_kernel_launches"],
+                        batched_launches=c["gram_batched_kernel_launches"],
+                        gram_eval_calls=c["gram_eval_cuda_calls"])
+        return out
+
+    def request(reg, tag, gates=True, **kw):
+        """One request from the model's initial latents."""
+        reg.condition(x, y)
+        reg._ensure_vars(reg.p)
+        reg.vs.restore(z_init[reg.sparse])
+        gen = torch.Generator(device).manual_seed(0)
+        out = run(tag, lambda: reg.fit_predict(x, y, x_test, iters=iters, num_samples=num_samples,
+                                               credible_bounds=True, generator=gen, **kw), fit=True)
+        rep = reg.last_fit_report
+        res[tag].update(fit_s=rep["wall_clock_s"], predict_s=res[tag]["wall_s"] - rep["wall_clock_s"],
+                        **check_quality(P, tag, out, rep, f_test, gates=gates))
+        print(f"{P} {tag}: fit {rep['wall_clock_s']:.3f} s, predict {res[tag]['predict_s']:.3f} s")
+        return out
+
+    def samples(reg, tag, batched=True, **kw):
+        gen = torch.Generator(device).manual_seed(1)
+        out = run(tag, lambda: reg.sample(x_test, num_samples=num_samples, generator=gen, **kw), fit=False,
+                  batched=batched)
+        if len(out) != num_samples or not all(a.shape == (n_test, p) and np.isfinite(a).all() for a in out):
+            raise AssertionError(f"{tag}: misshapen or non-finite samples")
+
+    def profiled(reg, tag):
+        gen = torch.Generator(device).manual_seed(0)
+        reg.predict(x_test, num_samples=num_samples, credible_bounds=True, generator=gen)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            reg.predict(x_test, num_samples=num_samples, credible_bounds=True, generator=gen)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        cuda = torch.autograd.DeviceType.CUDA
+        busy = sum(e.device_time for e in prof.events() if e.device_type == cuda) / 1e3
+        ops = operator_table(prof)
+        chol = ops.get("aten::linalg_cholesky_ex", [0.0, 0])
+        res[f"profile {tag}"] = dict(wall_ms=wall, device_ms=busy, ops=ops)
+        print(f"{P} profiled predict, {tag}: wall {wall:.1f} ms, device {busy:.1f} ms (busy "
+              f"{100 * busy / wall:.1f}%); batched Cholesky (aten::linalg_cholesky_ex) {chol[0]:.1f} ms "
+              f"over {chol[1]} calls ({100 * chol[0] / max(busy, 1e-9):.1f}% of the device time); by operator: "
+              + ", ".join(f"{k} {ms:.1f} ms ({c})" for k, (ms, c) in ops.items()))
+
+    kw = dict(model_kwargs(x), replace=False)
+    reg = GPARRegressor(**kw, device=device)
+    dense = GPARRegressor(**dict(kw, x_ind=None), device=device)
+    z_init = {}
+    for r in (reg, dense):
+        r.condition(x, y)
+        r._ensure_vars(r.p)
+        z_init[r.sparse] = r.vs.snapshot()
+    cold = request(reg, "sparse cold")
+    warm = request(reg, "sparse warm")
+    same = all(np.array_equal(a, b) for a, b in zip(cold, warm))
+    print(f"{P} sparse cold and warm predictions identical: {same}")
+    request(reg, "sparse latent", gates=False, latent=True)
+    samples(reg, "sample posterior replace=False", posterior=True)
+    # replace=True: every sample shares each layer's covariance, no sample axis.
+    samples(replace_true_reg, "sample posterior replace=True", batched=False, posterior=True)
+    samples(reg, f"sample prior p={p}", p=p)
+    profiled(reg, "sparse")
+
+    graphs.clear_cache()  # the sparse steps' pools; the dense step pins its own
+    request(dense, "dense", gates=False)
+    profiled(dense, "dense")
+    graphs.clear_cache()
+    res["sparse_cold_warm_identical"] = same
+    return res
+
+
+def check_quality(P, tag, out, rep, f_test, gates=True):
+    """Finite predictions of the expected shape with the mean inside its
+    bounds, the sum of layer NLLs before and after the fit and the SMSE of
+    the mean against the noiseless truth; with ``gates`` held to the
+    benchmark's ``10k`` quality gates."""
+    from gpar_torch.utils.metrics import smse
+
+    mean, lo, hi = out
+    for a in out:
+        assert a.shape == f_test.shape and np.isfinite(a).all(), f"{tag}: non-finite or misshapen predictions"
+    assert np.all(lo <= mean + 1e-6) and np.all(mean <= hi + 1e-6), f"{tag}: mean outside its bounds"
+    nll0, nll = float(np.sum(rep["layer_nll0"])), float(np.sum(rep["layer_nll"]))
+    sm = smse(mean, f_test)
+    q = dict(nll0=nll0, nll=nll, nll_decrease=nll0 - nll, mean_smse=float(np.nanmean(sm)),
+             worst_smse=float(np.nanmax(sm)))
+    print(f"{P} {tag}: sum NLL {nll0:.1f} -> {nll:.1f} (decrease {nll0 - nll:.1f}); SMSE vs "
+          f"noiseless truth mean {q['mean_smse']:.3e}, worst {q['worst_smse']:.3e}; L-BFGS "
+          f"iterations per layer {rep['layer_iters'].tolist()}")
+    if not gates:
+        return q
+    if q["nll_decrease"] < GATES["nll_decrease"]:
+        raise AssertionError(f"{tag}: NLL decrease {q['nll_decrease']:.1f} below {GATES['nll_decrease']}")
+    if q["mean_smse"] > GATES["mean_smse"] or q["worst_smse"] > GATES["worst_smse"]:
+        raise AssertionError(f"{tag}: SMSE mean {q['mean_smse']:.3e} / worst {q['worst_smse']:.3e} "
+                             "above the gates")
+    return q
+
+
 def phase_main_path(device, dense=False):
     """The benchmark's request at full width through every route: graphed
     cold and warm, the eager step and the per-layer driver; ``dense`` drops
@@ -491,7 +749,6 @@ def phase_main_path(device, dense=False):
     import gpar_torch
     from gpar_torch import GPARRegressor
     from gpar_torch.ops import gram_kernel as GK
-    from gpar_torch.utils.metrics import smse
 
     P = "[dense]" if dense else "[main]"
     gpar_torch.config.epsilon = 1e-6  # float32 jitter floor, as bench.py
@@ -534,23 +791,7 @@ def phase_main_path(device, dense=False):
         return out, wall, rep, GK.counters()
 
     def quality(tag, out, rep):
-        mean, lo, hi = out
-        for a in out:
-            assert a.shape == (n_test, p) and np.isfinite(a).all(), f"{tag}: non-finite or misshapen predictions"
-        assert np.all(lo <= mean + 1e-6) and np.all(mean <= hi + 1e-6), f"{tag}: mean outside its bounds"
-        nll0, nll = float(np.sum(rep["layer_nll0"])), float(np.sum(rep["layer_nll"]))
-        sm = smse(mean, f_test)
-        q = dict(nll0=nll0, nll=nll, nll_decrease=nll0 - nll, mean_smse=float(np.nanmean(sm)),
-                 worst_smse=float(np.nanmax(sm)))
-        print(f"{P} {tag}: sum NLL {nll0:.1f} -> {nll:.1f} (decrease {nll0 - nll:.1f}); SMSE vs "
-              f"noiseless truth mean {q['mean_smse']:.3e}, worst {q['worst_smse']:.3e}; L-BFGS "
-              f"iterations per layer {rep['layer_iters'].tolist()}")
-        if q["nll_decrease"] < GATES["nll_decrease"]:
-            raise AssertionError(f"{tag}: NLL decrease {q['nll_decrease']:.1f} below {GATES['nll_decrease']}")
-        if q["mean_smse"] > GATES["mean_smse"] or q["worst_smse"] > GATES["worst_smse"]:
-            raise AssertionError(f"{tag}: SMSE mean {q['mean_smse']:.3e} / worst {q['worst_smse']:.3e} "
-                                 "above the gates")
-        return q
+        return check_quality(P, tag, out, rep, f_test)
 
     def same(a, b):
         return (np.array_equal(a[2]["layer_nll"], b[2]["layer_nll"])
@@ -719,8 +960,9 @@ def phase_small_agreement():
     x, y = x.astype(np.float64), y.astype(np.float64)
     xt = np.linspace(0.3, 9.7, 15)
     normals = rng.standard_normal((3, 8, 15))
-    for model, n_ind in (("sparse", 8), ("dense", None)):
-        kw = model_kwargs(x, n_ind=n_ind or 8)
+    for model, n_ind, replace in (("sparse", 8, True), ("dense", None, True), ("sparse", 8, False),
+                                  ("dense", None, False)):
+        kw = dict(model_kwargs(x, n_ind=n_ind or 8), replace=replace)
         if n_ind is None:
             kw["x_ind"] = None
         outs = {}
@@ -736,8 +978,8 @@ def phase_small_agreement():
             np.testing.assert_allclose(lc[k], lh[k], rtol=1e-6, atol=1e-8)
         for a, b in zip(rc, rh):
             np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-8)
-        print(f"[small] float64 {model} scan-path fit_predict, graphed on cuda == eager on cpu (rtol 1e-6): "
-              f"layer NLL {nc.tolist()}")
+        print(f"[small] float64 {model} replace={replace} scan-path fit_predict, graphed on cuda == eager "
+              f"on cpu (rtol 1e-6): layer NLL {nc.tolist()}")
 
 
 def phase_profile(state, out_dir, tag="main"):
@@ -825,12 +1067,14 @@ def main(argv):
             print(f"[build] {line.strip()}")
 
     rows, worst = phase_kernel_check("cuda")
+    rows["gram_batched"], worst["gram_batched"] = phase_batched_kernel_check("cuda")
     if "--kernels-only" in argv:
         print("[kernel] " + json.dumps(rows))
         return 0
     main_res, state = phase_main_path("cuda")
     dense_res, dense_state = phase_main_path("cuda", dense=True)
     dense_res["evaluation"] = phase_dense_evaluation(dense_state[0], "cuda")
+    anc_res = phase_ancestral("cuda", state[0])
     phase_small_agreement()
     if "--profile" in argv:
         out_dir = argv[argv.index("--profile") + 1]
@@ -869,8 +1113,34 @@ def main(argv):
             "dtype": "float32",
             "per_shape": rows[name],
         })
+    # The Gram with a sample axis: the same kernel, launched once for S Grams
+    # by the per-sample tails; its launches from the [ancestral] phase's
+    # sparse cold request and its dense request, each counted from 0.
+    big = rows["gram_batched"][0]
+    anc = {"sparse": anc_res["sparse cold"]["batched_launches"], "dense": anc_res["dense"]["batched_launches"]}
+    kernels["kernels"].append({
+        "name": "gram_batched",
+        "route": "cuda",
+        "source": "gpar_torch/csrc/gram.cu",
+        "replaces": "gpar_tpu/ops/pallas_gram.py:215",
+        "launches": anc["sparse"] + anc["dense"],
+        "launches_by_path": anc,
+        "check": "kernel == plain at f32 rtol/atol 1e-5 and f64 1e-12 at every batched shape",
+        "max_abs_err": worst["gram_batched"][torch.float32],
+        "ms": big["ms"],
+        "kernel_ms": big["ms"],
+        "separate_ms": big["separate_ms"],
+        "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"],
+        "bound_by": big["bound_by"],
+        "library_ms": None,
+        "shape": [big["S"], big["n"], big["m"], big["d"]],
+        "dtype": "float32",
+        "per_shape": rows["gram_batched"],
+    })
     print("[main] " + json.dumps(main_res))
     print("[dense] " + json.dumps(dense_res))
+    print("[ancestral] " + json.dumps(anc_res))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,7 +3,8 @@
 The counterpart of ``gpar_tpu/config.py``: one mutable ``config`` object
 holding the Cholesky jitter policy (the ``lab.B.epsilon`` analogue and its
 float32 floor), the escalating retry ladder, the default dtype and the
-default device; and the row buckets of the scan-fused path
+default device, and the per-sample tails' memory knobs
+(``gpar_tpu/config.py:205-234``); and the row buckets of the scan-fused path
 (:func:`bucket_rows`, the JAX package's default ``bucket_ratio`` and
 ``bucket_floor``, ``gpar_tpu/config.py:162-173,324-334``).  On the card
 a bucket is the unit a captured CUDA graph serves: every dataset whose
@@ -60,6 +61,16 @@ class _Config:
         #: Default device of the entry points.  ``"cuda"`` raises when no
         #: card is present; pass ``device="cpu"`` to run on the host.
         self.device = "cuda"
+        #: Sample-axis chunk of the per-sample tails (``replace=False``
+        #: prediction, ``sample``): ``"auto"`` sizes it so that about four
+        #: (chunk, n_test, n_test) buffers fit ``predict_memory_budget``;
+        #: an integer fixes it; ``None`` or 0 takes every sample at once.
+        #: Chunked draws equal unchunked ones.  This and the budget mirror
+        #: the reference package's public settings of the same names and
+        #: defaults (``gpar_tpu/config.py:218-234``).
+        self.predict_sample_chunk = "auto"
+        #: Bytes the ``"auto"`` sample chunk sizes its buffers for.
+        self.predict_memory_budget = 2 << 30
 
 
 config = _Config()

@@ -49,6 +49,13 @@
 //   distances in registers.
 // exp / log1p are the accurate versions (no fast-math).  Ragged edges load
 // zeros and are masked on the write.
+//
+// A leading batch axis (the JAX package vmaps the Gram over Monte-Carlo
+// samples, which gives its pallas_call a batch grid axis): one launch
+// computes `batch` Grams, blockIdx.z running over them, each element's
+// operands sx / sy elements apart and a stride of 0 for an operand all
+// elements share (the inducing inputs, the training rows).  The tiles and
+// their arithmetic are the 2-D kernel's; the grid only grows by the batch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -143,10 +150,15 @@ template <typename T>
 __global__ void __launch_bounds__(GPAR_THREADS, 3)
 gram_tile_kernel(const T* __restrict__ xf, const T* __restrict__ yf,
                  const T* __restrict__ par, T* __restrict__ out, int n, int m,
-                 int D, int Dt, TermSpec spec) {
+                 int D, int Dt, long long sx, long long sy, TermSpec spec) {
   using C = FwdCfg<T>;
   constexpr int VEC = C::VEC, BC = C::BC, BR = C::BR, RT = C::RT, KC = C::KC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  // blockIdx.z is the batch element: its operands sit sx / sy elements
+  // apart (0 for an operand every element shares), its Gram n * m apart.
+  xf += blockIdx.z * sx;
+  yf += blockIdx.z * sy;
+  out += (size_t)blockIdx.z * n * m;
   T* xT = reinterpret_cast<T*>(smem_raw);  // [kw][BR], feature-major
   T* yT = xT + min(D, KC) * BR;            // [kw][BC]
 
@@ -279,21 +291,25 @@ gram_tile_kernel(const T* __restrict__ xf, const T* __restrict__ yf,
 
 template <typename T>
 static int launch(const void* xf, const void* yf, const void* par, void* out,
-                  int n, int m, int D, int n_terms, const int* kinds,
-                  const int* offs, const int* dims, void* stream) {
+                  int batch, int n, int m, int D, long long sx, long long sy, int n_terms,
+                  const int* kinds, const int* offs, const int* dims, void* stream) {
   using C = FwdCfg<T>;
   TermSpec spec;
-  if (n < 1 || m < 1 || D % 4 != 0 || !fill_spec(spec, n_terms, kinds, offs, dims, D))
+  if (batch < 1 || n < 1 || m < 1 || D % 4 != 0 || sx < 0 || sy < 0 ||
+      !fill_spec(spec, n_terms, kinds, offs, dims, D))
     return (int)cudaErrorInvalidValue;
+  // Rows load as 16-byte vectors, so every element's operands must stay
+  // 16-byte aligned: the strides are whole rows of D (a multiple of 4).
+  if (sx % D != 0 || sy % D != 0) return (int)cudaErrorInvalidValue;
   // The chunk walk needs the terms in order and back to back from column 0.
   for (int t = 0; t < n_terms; ++t)
     if (offs[t] != (t == 0 ? 0 : offs[t - 1] + dims[t - 1])) return (int)cudaErrorInvalidValue;
   const int Dt = offs[n_terms - 1] + dims[n_terms - 1];
-  dim3 grid((m + C::BC - 1) / C::BC, (n + C::BR - 1) / C::BR);
-  if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((m + C::BC - 1) / C::BC, (n + C::BR - 1) / C::BR, batch);
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidConfiguration;
   const size_t smem = C::smem(D < C::KC ? D : C::KC);  // at most 48 KB
   gram_tile_kernel<T><<<grid, GPAR_THREADS, smem, (cudaStream_t)stream>>>(
-      (const T*)xf, (const T*)yf, (const T*)par, (T*)out, n, m, D, Dt, spec);
+      (const T*)xf, (const T*)yf, (const T*)par, (T*)out, n, m, D, Dt, sx, sy, spec);
   return (int)cudaGetLastError();
 }
 
@@ -862,17 +878,19 @@ int gpar_gram_init() {
 }
 
 int gpar_gram_f32(const void* xf, const void* yf, const void* par, void* out,
-                  int n, int m, int D, int n_terms, const int* kinds,
-                  const int* offs, const int* dims, void* stream) {
-  return launch<float>(xf, yf, par, out, n, m, D, n_terms, kinds, offs, dims,
-                       stream);
+                  int batch, int n, int m, int D, long long sx, long long sy,
+                  int n_terms, const int* kinds, const int* offs, const int* dims,
+                  void* stream) {
+  return launch<float>(xf, yf, par, out, batch, n, m, D, sx, sy, n_terms, kinds, offs,
+                       dims, stream);
 }
 
 int gpar_gram_f64(const void* xf, const void* yf, const void* par, void* out,
-                  int n, int m, int D, int n_terms, const int* kinds,
-                  const int* offs, const int* dims, void* stream) {
-  return launch<double>(xf, yf, par, out, n, m, D, n_terms, kinds, offs, dims,
-                        stream);
+                  int batch, int n, int m, int D, long long sx, long long sy,
+                  int n_terms, const int* kinds, const int* offs, const int* dims,
+                  void* stream) {
+  return launch<double>(xf, yf, par, out, batch, n, m, D, sx, sy, n_terms, kinds, offs,
+                        dims, stream);
 }
 
 // du_part is (ct, n, D), dv_part (r, m, D), sc_part (3, T, ct, r); step is

@@ -37,10 +37,25 @@ masked Titsias ELBO; a dense one (``x_ind=None``) the exact marginal
 likelihood of the (rows, rows) covariance with masked rows made identity
 rows (:func:`_masked_dense_factors`), and no inducing inputs.
 
-The serving tail (:func:`make_scan_predict_tail`, ``replace=True``) runs
-eagerly: per layer the Titsias or exact factors, the posterior at the
-bucketed and masked test rows, one sampling factor and all Monte-Carlo
-draws as one matmul against caller-supplied standard normals.
+The serving tails run eagerly, under ``no_grad``, from caller-supplied
+standard normals:
+
+- :func:`make_scan_predict_tail` (``replace=True``): per layer the
+  Titsias or exact factors, the posterior at the bucketed and masked test
+  rows, one sampling factor and all Monte-Carlo draws as one matmul;
+- :func:`make_scan_ancestral_tail` (``replace=False``, posterior
+  ``sample``) and :func:`make_scan_prior_tail` (prior ``sample``):
+  per-sample chains, each sample with its own augmented test inputs, so a
+  layer takes a Gram with a sample axis (one launch of the Gram kernel),
+  a batched posterior covariance and a batched sampling factor
+  (``ops.linalg.psd_sample_factor_batched``), in chunks of samples
+  (:func:`resolve_sample_chunk`).  The tail computes each layer's
+  posterior factors inside its loop (:func:`posterior_factor_layers`);
+  :func:`make_scan_posterior_factors` stacks them, for the factor cache
+  that is not ported yet.
+
+Not ported: the posterior-factor cache (``make_scan_cached_tail``), the
+log-density bodies, ``fix=False`` and ``fused="batched"``, and the mesh.
 """
 
 import contextlib
@@ -57,6 +72,7 @@ from ..ops.linalg import (
     _cholesky,
     floor_noise,
     psd_sample_factor,
+    psd_sample_factor_batched,
     resolve_epsilon,
     solve_chol,
     solve_lower,
@@ -78,6 +94,12 @@ __all__ = [
     "plan_tensors",
     "make_scan_fit_body",
     "make_scan_predict_tail",
+    "make_scan_posterior_factors",
+    "posterior_factor_layers",
+    "make_scan_ancestral_tail",
+    "build_scan_prior_plan",
+    "make_scan_prior_tail",
+    "resolve_sample_chunk",
     "run_scan_fit",
 ]
 
@@ -739,6 +761,118 @@ def make_scan_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1, rows_t
     return program
 
 
+def _widen(a, W):
+    """``a`` (n, m) with zero columns appended to the augmented width W."""
+    return torch.cat([a, a.new_zeros((a.shape[0], W - a.shape[1]))], dim=1)
+
+
+def _serving_inputs(plan, z_all, x, xs_rows, rows_traced):
+    """The plan's arrays on ``x``'s device (the bucketed row arrays
+    ``xs_rows`` in place of the plan's own when ``rows_traced``) and the
+    latent vector extended by the dummy slot."""
+    xs = plan_tensors(plan, x.dtype, x.device, rows=xs_rows if rows_traced else None)
+    return xs, torch.cat([z_all, z_all.new_zeros(1)])
+
+
+def _condition_layers(plan, x_ind, z_ext, x, xs):
+    """The training chain of the serving tails, one layer at a time: the
+    layer's posterior factors on its masked training rows at the final
+    hyperparameters, then one augmentation step (impute/replace rules).
+    Yields ``(lin, kernel, noise, factors)``, the factors those of
+    ``gpar_tpu/models/fused.py:1858-1950``: sparse ``{zi_aug, Lm, LB,
+    beta}`` (the augmented inducing inputs at the layer's entry), dense
+    ``{x_aug, alpha, L}`` (the augmented training rows at its entry)."""
+    dtype, device = x.dtype, x.device
+    x_aug, zi_aug = _widen(x, plan.W), _widen(_inducing(x_ind, plan.m, dtype, device), plan.W)
+    eps = resolve_epsilon(dtype)
+    for pi in range(plan.p):
+        lin = {k: v[pi] for k, v in xs.items()}
+        kernel, noise = _layer_kernel(plan, lin, z_ext)
+        noise_w = floor_noise(noise / lin["w_col"])
+        omask, r = lin["obs_mask"], lin["y_col"]
+        if plan.sparse:
+            Kmm = gram(kernel, zi_aug, zi_aug)
+            Kmn = gram(kernel, zi_aug, x_aug)
+            knn = kdiag(kernel, x_aug)
+            _, Lm, LB, beta = titsias_factors(Kmm, Kmn, knn, r, torch.zeros_like(r), noise_w,
+                                              mask=omask)
+            fac = {"zi_aug": zi_aug.clone(), "Lm": Lm, "LB": LB, "beta": beta}
+            est_rows, est_ind = Kmn.T @ beta, Kmm @ beta
+        else:
+            K = gram(kernel, x_aug, x_aug)
+            _, alpha, L = _masked_dense_factors(K, r, omask, noise_w, eps)
+            fac = {"x_aug": x_aug.clone(), "alpha": alpha, "L": L}
+            est_rows, est_ind = K @ alpha, None
+            del K
+        yield lin, kernel, noise, fac
+        _augment_cols(plan, lin, _next_column(plan, lin, est_rows), est_ind, x_aug, zi_aug)
+
+
+def posterior_factor_layers(plan, x_ind, rows_traced=False):
+    """``factors(z_all, x, xs_rows=None)``: an iterator over the layers'
+    posterior factors (dicts as in :func:`make_scan_posterior_factors`),
+    each computed when it is asked for: the factors of the per-sample
+    tail, which never holds more than one layer's.  Consume it under
+    ``torch.no_grad()``."""
+
+    def factors(z_all, x, xs_rows=None):
+        xs, z_ext = _serving_inputs(plan, z_all, x, xs_rows, rows_traced)
+        return (fac for _, _, _, fac in _condition_layers(plan, x_ind, z_ext, x, xs))
+
+    return factors
+
+
+def make_scan_posterior_factors(plan, x_ind, rows_traced=False):
+    """Per-layer posterior factors, stacked over the layers
+    (``gpar_tpu/models/fused.py:1858-1950``): ``factors(z_all, x,
+    xs_rows=None) -> dict`` of sparse ``zi_aug`` (p, M, W), ``Lm``/``LB``
+    (p, M, M) and ``beta`` (p, M), or dense ``x_aug`` (p, n, W), ``alpha``
+    (p, n) and ``L`` (p, n, n).  They depend on the hyperparameters and the
+    conditioning data only, not on the test points."""
+    layers = posterior_factor_layers(plan, x_ind, rows_traced)
+
+    def factors(z_all, x, xs_rows=None):
+        with torch.no_grad(), _cusolver(x.device):
+            out = list(layers(z_all, x, xs_rows))
+            return {k: torch.stack([f[k] for f in out]) for k in out[0]}
+
+    return factors
+
+
+def _solve_shared(L, B):
+    """``L^{-1} B`` for one lower-triangular ``L`` (n, n) and ``B`` (n, k) or
+    (S, n, k).  With a sample axis it is one solve against the (n, S k)
+    right-hand side: ``solve_triangular`` would broadcast ``L`` over the
+    samples (a copy of a dense (n, n) factor per sample)."""
+    if B.ndim == 2:
+        return solve_lower(L, B)
+    S, n, k = B.shape
+    return solve_lower(L, B.transpose(0, 1).reshape(n, S * k)).reshape(n, S, k).transpose(0, 1)
+
+
+def _test_posterior(plan, kernel, lin, fac, xt, mt):
+    """A layer's posterior mean (..., n_test) and covariance (..., n_test,
+    n_test) at the test inputs ``xt`` (n_test, W), or (S, n_test, W) with a
+    sample axis (each Gram one launch for all S): sparse through
+    ``gp/core.SparsePosteriorGP``'s algebra, dense through
+    ``PosteriorGP``'s, where a masked training row has ``alpha`` 0 and an
+    identity row in ``L``, so zeroing its cross-covariance row conditions on
+    the observed rows only.  Padded test rows (``mt``) are neutralised."""
+    if plan.sparse:
+        Kmt = gram(kernel, fac["zi_aug"], xt)  # (..., M, n_test)
+        mean = Kmt.mT @ fac["beta"]
+        T1 = _solve_shared(fac["Lm"], Kmt)
+        T2 = _solve_shared(fac["LB"], T1)
+        cov = gram(kernel, xt, xt) - T1.mT @ T1 + T2.mT @ T2
+    else:
+        Kxt = gram(kernel, fac["x_aug"], xt).mul_(lin["obs_mask"][:, None])  # (..., n, n_test)
+        mean = Kxt.mT @ fac["alpha"]
+        V = _solve_shared(fac["L"], Kxt)
+        del Kxt
+        cov = gram(kernel, xt, xt) - V.mT @ V
+    return mean, _mask_test_cov(cov, mt)
+
+
 def make_scan_predict_tail(plan, x_ind, latent, rows_traced=False):
     """Posterior conditioning and Monte-Carlo predictive sampling over the
     layers, ``replace=True`` (``gpar_tpu/models/fused.py:2275-2429``): per
@@ -757,62 +891,148 @@ def make_scan_predict_tail(plan, x_ind, latent, rows_traced=False):
     p) the per-layer posterior means fed forward."""
     if not plan.replace:
         raise ValueError("make_scan_predict_tail requires replace=True chains.")
-    m, W = plan.m, plan.W
 
     def tail(z_all, x, x_test, w_test_T, normals, xs_rows=None, mt=None):
-        with _cusolver(x.device):
-            return _tail(z_all, x, x_test, w_test_T, normals, xs_rows, mt)
+        with torch.no_grad(), _cusolver(x.device):
+            xs, z_ext = _serving_inputs(plan, z_all, x, xs_rows, rows_traced)
+            xt_aug = _widen(x_test, plan.W)
+            ys, means = [], []
+            layers = _condition_layers(plan, x_ind, z_ext, x, xs)
+            for pi, (lin, kernel, noise, fac) in enumerate(layers):
+                mean_t, cov_t = _test_posterior(plan, kernel, lin, fac, xt_aug, mt)
+                if not latent:
+                    cov_t = cov_t + torch.diag(floor_noise(noise / w_test_T[pi]))
+                F = psd_sample_factor(cov_t)
+                ys.append(mean_t[None, :] + normals[pi] @ F.T)  # (S, n_test)
+                means.append(mean_t)
+                xt_aug.index_copy_(1, (plan.m + lin["col"]).reshape(1), mean_t[:, None])
+            return torch.stack(ys, dim=-1), torch.stack(means, dim=-1)
 
-    def _tail(z_all, x, x_test, w_test_T, normals, xs_rows, mt):
-        dtype, device = x.dtype, x.device
-        xs = plan_tensors(plan, dtype, device, rows=xs_rows if rows_traced else None)
-        z_ext = torch.cat([z_all, z_all.new_zeros(1)])
+    return tail
 
-        def widen(a):
-            return torch.cat([a, a.new_zeros((a.shape[0], W - m))], dim=1)
 
-        x_aug, xt_aug = widen(x), widen(x_test)
-        zi_aug = widen(_inducing(x_ind, m, dtype, device))
-        eps = resolve_epsilon(dtype)
-        ys, means = [], []
-        for pi in range(plan.p):
-            lin = {k: v[pi] for k, v in xs.items()}
-            kernel, noise = _layer_kernel(plan, lin, z_ext)
-            noise_w = floor_noise(noise / lin["w_col"])
-            omask, r = lin["obs_mask"], lin["y_col"]
-            if plan.sparse:
-                Kmm = gram(kernel, zi_aug, zi_aug)
-                Kmn = gram(kernel, zi_aug, x_aug)
-                knn = kdiag(kernel, x_aug)
-                _, Lm, LB, beta = titsias_factors(Kmm, Kmn, knn, r, torch.zeros_like(r), noise_w,
-                                                  mask=omask)
-                # Sparse posterior at the test points (gp/core.SparsePosteriorGP).
-                Kmt = gram(kernel, zi_aug, xt_aug)
-                mean_t = Kmt.T @ beta
-                T1 = solve_lower(Lm, Kmt)
-                T2 = solve_lower(LB, T1)
-                cov_t = gram(kernel, xt_aug, xt_aug) - T1.T @ T1 + T2.T @ T2
-                est_rows, est_ind = Kmn.T @ beta, Kmm @ beta
+def resolve_sample_chunk(sample_chunk, num_samples, n_test, dtype, budget):
+    """The sample-axis chunk of the per-sample tails
+    (``gpar_tpu/models/fused.py:855-871``): ``"auto"`` sizes it so that four
+    (chunk, n_test, n_test) buffers of ``dtype`` (the batched covariance,
+    its sampling factor and the ladder's temporaries) fit ``budget`` bytes;
+    an integer passes through; ``None`` or 0 takes no chunks.  None where
+    the whole batch fits."""
+    if sample_chunk == "auto":
+        per_sample = 4 * n_test * n_test * dtype.itemsize
+        chunk = max(1, int(budget // max(per_sample, 1)))
+        return None if chunk >= num_samples else chunk
+    if not sample_chunk:
+        return None
+    return int(sample_chunk)
+
+
+def _chunked_batch(batch_fn, num_samples, sample_chunk):
+    """``batch_fn(samples)`` over slices of the sample axis of at most
+    ``sample_chunk`` samples (all at once for None), concatenated: the peak
+    memory of a layer is that of one chunk.  Every sample's arithmetic is
+    its own, so chunked draws equal unchunked ones."""
+    if sample_chunk is None or sample_chunk >= num_samples:
+        return batch_fn(slice(0, num_samples))
+    return torch.cat([batch_fn(slice(s, s + sample_chunk))
+                      for s in range(0, num_samples, sample_chunk)])
+
+
+def _ancestral(plan, latent, sample_chunk, z_ext, xs, layers, x_test, w_test_T, normals,
+               noise_normals, mt):
+    """Per-sample ancestral chains (``_sample_chain``,
+    ``gpar/model.py:245-277``): every sample carries its own augmented test
+    inputs, so every layer takes, per chunk of samples, the batched Gram,
+    the posterior at each sample's inputs (zero mean and the prior
+    covariance where ``layers`` yields None), the floored noise on the
+    diagonal of an observed draw, one batched sampling factor and the
+    draws.  A latent draw returns the noiseless sample and feeds forward
+    the noisy one with UNfloored noise, ``sqrt(noise / w)``; the column fed
+    forward is the mean under ``replace``, the draw otherwise."""
+    S, nt = normals.shape[1], x_test.shape[0]
+    xt_b = _widen(x_test, plan.W).expand(S, nt, plan.W).contiguous()
+    if latent and not plan.replace and noise_normals is None:
+        raise ValueError("latent draws that feed forward need noise_normals")
+    cols = []
+    for pi, fac in zip(range(plan.p), layers):
+        lin = {k: v[pi] for k, v in xs.items()}
+        kernel, noise = _layer_kernel(plan, lin, z_ext)
+        col = (plan.m + lin["col"]).reshape(1)
+        w_t = w_test_T[pi]
+
+        def batch(sl, lin=lin, kernel=kernel, noise=noise, fac=fac, col=col, w_t=w_t):
+            xt = xt_b[sl]
+            if fac is None:
+                cov = _mask_test_cov(gram(kernel, xt, xt), mt)
+                mean = cov.new_zeros(cov.shape[:-1])
             else:
-                K = gram(kernel, x_aug, x_aug)
-                _, alpha, L = _masked_dense_factors(K, r, omask, noise_w, eps)
-                # Exact posterior at the test points (gp/core.PosteriorGP):
-                # a masked training row has alpha 0 and an identity row in
-                # L, so zeroing its cross-covariance row conditions on the
-                # observed rows only.
-                Kxt = gram(kernel, x_aug, xt_aug) * omask[:, None]
-                mean_t = Kxt.T @ alpha
-                V = solve_lower(L, Kxt)
-                cov_t = gram(kernel, xt_aug, xt_aug) - V.T @ V
-                est_rows, est_ind = K @ alpha, None
-            cov_t = _mask_test_cov(cov_t, mt)
+                mean, cov = _test_posterior(plan, kernel, lin, fac, xt, mt)
             if not latent:
-                cov_t = cov_t + torch.diag(floor_noise(noise / w_test_T[pi]))
-            F = psd_sample_factor(cov_t)
-            ys.append(mean_t[None, :] + normals[pi] @ F.T)  # (S, n_test)
-            means.append(mean_t)
-            _augment_cols(plan, lin, _next_column(plan, lin, est_rows), est_ind, x_aug, zi_aug)
-            xt_aug.index_copy_(1, (m + lin["col"]).reshape(1), mean_t[:, None])
-        return torch.stack(ys, dim=-1), torch.stack(means, dim=-1)
+                cov.diagonal(dim1=-2, dim2=-1).add_(floor_noise(noise / w_t))
+            F = psd_sample_factor_batched(cov)
+            del cov
+            draw = mean + (F @ normals[pi, sl, :, None])[..., 0]
+            if plan.replace:
+                nxt = mean
+            elif latent:
+                nxt = draw + torch.sqrt(noise / w_t) * noise_normals[pi, sl]
+            else:
+                nxt = draw
+            xt.index_copy_(2, col, nxt[..., None])
+            return draw
+
+        cols.append(_chunked_batch(batch, S, sample_chunk))
+    return torch.stack(cols, dim=-1)
+
+
+def make_scan_ancestral_tail(plan, latent, sample_chunk=None, rows_traced=False):
+    """Per-sample ancestral chains from posterior factors, the tail of
+    ``replace=False`` prediction and posterior sampling
+    (``gpar_tpu/models/fused.py:2042-2176``): with ``replace=False`` the
+    sampled output feeds the next layer's inputs, so every sample has its
+    own per-layer posterior covariance (:func:`_ancestral`).  The sample
+    axis runs in chunks of ``sample_chunk`` (:func:`resolve_sample_chunk`).
+
+    Returns ``tail(z_all, factors, x_test, w_test_T, normals,
+    noise_normals=None, xs_rows=None, mt=None) -> batch`` (S, n_test, p)
+    model-space samples.  ``factors`` yields each layer's posterior
+    factors in turn (:func:`posterior_factor_layers`); ``normals`` (p, S, n_test) are the
+    draws' standard normals and ``noise_normals`` (p, S, n_test) those of
+    the noise a latent draw feeds forward (JAX's ``k1`` and ``k2`` keys per
+    sample and layer)."""
+
+    def tail(z_all, factors, x_test, w_test_T, normals, noise_normals=None, xs_rows=None,
+             mt=None):
+        with torch.no_grad(), _cusolver(x_test.device):
+            xs, z_ext = _serving_inputs(plan, z_all, x_test, xs_rows, rows_traced)
+            return _ancestral(plan, latent, sample_chunk, z_ext, xs, factors, x_test, w_test_T,
+                              normals, noise_normals, mt)
+
+    return tail
+
+
+def build_scan_prior_plan(reg, m, p, all_names, dtype):
+    """The plan of prior sampling (``gpar_tpu/models/fused.py:520-540``):
+    the model-structure arrays only (no conditioning data, ``n = 0``)."""
+    xs, s_max, n_z = _kernel_field_xs(reg.vs, all_names, m, p, m + p, reg.model_config,
+                                      np.dtype(dtype))
+    return ScanFitPlan(
+        m=m, p=p, W=m + p, n=0, s_max=s_max, n_z=n_z, xs=xs, config=dict(reg.model_config),
+        sparse=reg.sparse, impute=bool(reg.impute), replace=bool(reg.replace),
+    )
+
+
+def make_scan_prior_tail(plan, latent, sample_chunk=None):
+    """Per-sample prior ancestral chains (``gpar_tpu/models/fused.py:
+    2179-2272``): :func:`_ancestral` with zero-mean layers, whose inducing
+    points play no part.  Returns ``tail(z_all, x_test, w_test_T, normals,
+    noise_normals=None, mt=None) -> batch`` (S, n_test, p), arguments as in
+    :func:`make_scan_ancestral_tail`."""
+
+    def tail(z_all, x_test, w_test_T, normals, noise_normals=None, mt=None):
+        with torch.no_grad(), _cusolver(x_test.device):
+            xs, z_ext = _serving_inputs(plan, z_all, x_test, None, False)
+            return _ancestral(plan, latent, sample_chunk, z_ext, xs, [None] * plan.p, x_test,
+                              w_test_T, normals, noise_normals, mt)
 
     return tail

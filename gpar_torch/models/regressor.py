@@ -3,8 +3,9 @@
 Port of the main-path slice of ``gpar_tpu/models/regressor.py`` (itself a
 rebuild of the reference ``gpar/regression.py:200-597``): the constructor,
 the per-layer kernel generator with its variable-naming contract verbatim,
-``condition``, ``fit(fix=True)``, ``predict`` / ``fit_predict`` with
-``replace=True``, and ``get_variables`` / ``load_latents``.
+``condition``, ``fit(fix=True)``, ``predict`` / ``fit_predict`` (both
+``replace`` modes), posterior and prior ``sample``, and ``get_variables`` /
+``load_latents``.
 
 Design, in PyTorch terms:
 
@@ -31,16 +32,25 @@ Design, in PyTorch terms:
   draws); the mean and the 2.5 / 97.5 percentiles are reduced on the
   device.  ``torch.quantile`` with ``interpolation="linear"`` is
   ``jnp.percentile``'s default.
+- ``predict`` with ``replace=False`` (the constructor's default) and
+  ``sample`` run per-sample ancestral chains
+  (``fused.make_scan_ancestral_tail``; the prior's
+  ``fused.make_scan_prior_tail``): every sample carries its own augmented
+  test inputs, so per chunk of samples each layer takes Grams with a
+  sample axis (one kernel launch each), a batched posterior covariance
+  and one batched sampling factor.  Each layer's posterior factors are
+  computed inside the tail's loop (``fused.posterior_factor_layers``), so
+  no (p, n, n) stack is held; the factor cache that would reuse a stack
+  across calls is not ported.
 - Entry points run on ``device`` (default ``"cuda"``; raises without a
   card unless ``device="cpu"``).  Randomness comes from a
   ``torch.Generator`` or from caller-supplied standard normals.
 
 Both the sparse model (``x_ind`` given) and the dense one (``x_ind=None``,
 the exact marginal likelihood over the data rows) run through every entry
-point above.  Not ported yet: ``logpdf``, ``replace=False`` prediction,
-``fix=False``, prior ``sample``, restarts and ``fused="batched"``/
-``"unroll"``, greedy ordering, the posterior-factor cache, ``warmup`` /
-``precompute`` and checkpointing.
+point above.  Not ported yet: ``logpdf``, ``fix=False``, restarts and
+``fused="batched"``/``"unroll"``, greedy ordering, the posterior-factor
+cache, ``warmup`` / ``precompute`` and checkpointing.
 """
 
 import time
@@ -48,7 +58,7 @@ import time
 import numpy as np
 import torch
 
-from ..config import bucket_rows, default_dtype, resolve_device
+from ..config import bucket_rows, config, default_dtype, resolve_device
 from ..gp.core import GP
 from ..ops.kernels import EQ, RQ, Const, Linear, ZeroKernel
 from ..params.lbfgs import new_stats
@@ -481,6 +491,73 @@ class GPARRegressor:
                     )
         return nll0, nll, its
 
+    def _normals(self, normals, shape, generator, what):
+        """Caller-supplied standard normals of ``shape``, uploaded, or fresh
+        draws from ``generator`` (default: the device's generator of
+        ``utils.rng``)."""
+        if normals is None:
+            gen = default_generator(self.device) if generator is None else generator
+            return torch.randn(shape, generator=gen, dtype=self.dtype, device=self.device)
+        normals = self._upload(normals)
+        if tuple(normals.shape) != shape:
+            raise ValueError(f"{what} has shape {tuple(normals.shape)}; expected {shape}")
+        return normals
+
+    def _sample_batch(self, x, w, num_samples, latent, normals, noise_normals, generator,
+                      p_prior=None):
+        """Model-space draws (num_samples, n, p) at the inputs ``x``: from the
+        posterior, or with ``p_prior`` outputs from the prior.  The test rows
+        are padded to their bucket and masked out of every covariance; the
+        padded draws are sliced off.  ``normals`` (p, num_samples, n) are the
+        draws' standard normals and ``noise_normals`` (same shape) those of
+        the noise that a latent draw feeds forward (``replace=False``); each
+        defaults to draws from ``generator``."""
+        from .fused import (
+            build_scan_prior_plan, make_scan_ancestral_tail, make_scan_predict_tail,
+            make_scan_prior_tail, posterior_factor_layers, resolve_sample_chunk,
+        )
+
+        posterior = p_prior is None
+        x_np = _uprank_np(x, self._np_dtype)
+        nt, m_in = x_np.shape
+        p = self.p if posterior else p_prior
+        w_np = np.ones((nt, p), self._np_dtype) if w is None else _uprank_np(w, self._np_dtype)
+        shape = (p, num_samples, nt)
+        normals = self._normals(normals, shape, generator, "normals")
+        if latent and not self.replace:
+            noise_normals = self._normals(noise_normals, shape, generator, "noise_normals")
+        else:
+            noise_normals = None  # the noise of a draw that feeds forward: none here
+        pad = bucket_rows(nt) - nt
+        x_t = self._upload(np.pad(x_np, ((0, pad), (0, 0))))
+        w_t = self._upload(np.pad(w_np, ((0, pad), (0, 0)), constant_values=1.0).T)
+        mt = self._upload(np.arange(nt + pad) < nt)
+        normals = torch.nn.functional.pad(normals, (0, pad))
+        if noise_normals is not None:
+            noise_normals = torch.nn.functional.pad(noise_normals, (0, pad))
+        chunk = resolve_sample_chunk(config.predict_sample_chunk, num_samples, nt + pad,
+                                     self.dtype, config.predict_memory_budget)
+        if not posterior:
+            gpar = _construct_gpar(self, self.vs, m_in, p)
+            for layer in gpar.layers:
+                layer()
+            names = self.vs.select(None)
+            plan = build_scan_prior_plan(self, m_in, p, names, self._np_dtype)
+            tail = make_scan_prior_tail(plan, latent, chunk)
+            batch = tail(self.vs.latent_vector(names), x_t, w_t, normals, noise_normals, mt)
+            return batch[:, :nt]
+        self._ensure_vars(p)
+        names = self.vs.select(None)
+        plan = self._scan_fit_plan(names)
+        x_pad, rows = self._bucket_fit_inputs(plan)
+        z = self.vs.latent_vector(names)
+        if self.replace:
+            tail = make_scan_predict_tail(plan, self.x_ind, latent, rows_traced=True)
+            return tail(z, x_pad, x_t, w_t, normals, rows, mt)[0][:, :nt]
+        factors = posterior_factor_layers(plan, self.x_ind, rows_traced=True)(z, x_pad, rows)
+        tail = make_scan_ancestral_tail(plan, latent, chunk, rows_traced=True)
+        return tail(z, factors, x_t, w_t, normals, noise_normals, rows, mt)[:, :nt]
+
     def predict(
         self,
         x,
@@ -489,6 +566,7 @@ class GPARRegressor:
         latent=False,
         credible_bounds=False,
         normals=None,
+        noise_normals=None,
         generator=None,
     ):
         """Monte-Carlo predictive means, and with ``credible_bounds`` the
@@ -496,47 +574,19 @@ class GPARRegressor:
         (``gpar/regression.py:566-597``); NumPy arrays of shape (n, p).
 
         ``normals`` (p, num_samples, n) supplies the standard normals of
-        the draws; otherwise they come from ``generator`` (default: the
-        device's generator of ``utils.rng``)."""
+        the draws, and ``noise_normals`` (same shape) those of the noise a
+        latent draw feeds forward under ``replace=False``; otherwise they
+        come from ``generator`` (default: the device's generator of
+        ``utils.rng``)."""
         if not self.is_conditioned:
             raise RuntimeError(
                 "Cannot sample from the posterior: no data has been "
                 "conditioned on yet (call fit() or condition() first)."
             )
-        if not self.replace:
-            raise NotImplementedError("gpar_torch: predict with replace=False is not ported yet")
-        from .fused import make_scan_predict_tail
-
-        x_np = _uprank_np(x, self._np_dtype)
-        nt = x_np.shape[0]
-        w_np = np.ones((nt, self.p), self._np_dtype) if w is None else _uprank_np(w, self._np_dtype)
-        if normals is None:
-            gen = default_generator(self.device) if generator is None else generator
-            normals = torch.randn(
-                (self.p, num_samples, nt), generator=gen, dtype=self.dtype, device=self.device
-            )
-        else:
-            normals = self._upload(normals)
-            if normals.shape != (self.p, num_samples, nt):
-                raise ValueError(
-                    f"normals has shape {tuple(normals.shape)}; expected "
-                    f"{(self.p, num_samples, nt)}"
-                )
-        # Test rows padded to their bucket and masked out of the
-        # covariance; padded draws are sliced off.
-        pad = bucket_rows(nt) - nt
-        x_t = self._upload(np.pad(x_np, ((0, pad), (0, 0))))
-        w_t = self._upload(np.pad(w_np, ((0, pad), (0, 0)), constant_values=1.0).T)
-        mt = self._upload(np.arange(nt + pad) < nt)
-        normals = torch.nn.functional.pad(normals, (0, pad))
-        self._ensure_vars(self.p)
-        names = self.vs.select(None)
-        plan = self._scan_fit_plan(names)
-        x_pad, rows = self._bucket_fit_inputs(plan)
-        tail = make_scan_predict_tail(plan, self.x_ind, latent, rows_traced=True)
         with torch.no_grad():
-            batch, _ = tail(self.vs.latent_vector(names), x_pad, x_t, w_t, normals, rows, mt)
-            batch = self._undo_transforms(batch[:, :nt])
+            batch = self._sample_batch(x, w, num_samples, latent, normals, noise_normals,
+                                       generator)
+            batch = self._undo_transforms(batch)
             out = [torch.mean(batch, dim=0)]
             if credible_bounds:
                 q = torch.tensor([0.025, 0.975], dtype=self.dtype, device=self.device)
@@ -544,6 +594,37 @@ class GPARRegressor:
                 out += [lo, hi]
         out = tuple(a.cpu().numpy() for a in out)
         return out if credible_bounds else out[0]
+
+    def sample(
+        self,
+        x,
+        w=None,
+        p=None,
+        posterior=False,
+        num_samples=1,
+        latent=False,
+        normals=None,
+        noise_normals=None,
+        generator=None,
+    ):
+        """Samples from the prior, or from the posterior with ``posterior``
+        (``gpar/regression.py:508-564``): one (n, p) array, or a list of
+        them when ``num_samples > 1``.  The prior needs ``p``, the number of
+        outputs.  ``normals``, ``noise_normals`` and ``generator`` as in
+        :meth:`predict`."""
+        if posterior and not self.is_conditioned:
+            raise RuntimeError(
+                "Cannot sample from the posterior: no data has been "
+                "conditioned on yet (call fit() or condition() first)."
+            )
+        if not posterior and p is None:
+            raise ValueError("Prior sampling needs `p`, the number of outputs to draw.")
+        with torch.no_grad():
+            batch = self._sample_batch(x, w, num_samples, latent, normals, noise_normals,
+                                       generator, p_prior=None if posterior else p)
+            batch = self._undo_transforms(batch).cpu().numpy()
+        samples = list(batch)
+        return samples[0] if num_samples == 1 else samples
 
     def fit_predict(
         self,
@@ -556,6 +637,7 @@ class GPARRegressor:
         latent=False,
         credible_bounds=False,
         normals=None,
+        noise_normals=None,
         generator=None,
         **fit_kw,
     ):
@@ -569,5 +651,6 @@ class GPARRegressor:
             latent=latent,
             credible_bounds=credible_bounds,
             normals=normals,
+            noise_normals=noise_normals,
             generator=generator,
         )

@@ -86,11 +86,11 @@ def build(name="gram"):
 
 
 def _declare(lib):
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     ip = ctypes.POINTER(ctypes.c_int)
     for fn in ("gpar_gram_f32", "gpar_gram_f64"):
         f = getattr(lib, fn)
-        f.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ip, ip, ip, vp]
+        f.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cl, cl, ci, ip, ip, ip, vp]
         f.restype = ci
     for fn in ("gpar_gram_bwd_f32", "gpar_gram_bwd_f64"):
         f = getattr(lib, fn)

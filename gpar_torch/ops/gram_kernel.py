@@ -30,6 +30,13 @@ C++, forward and backward in ``gpar_torch/csrc/gram.cu``, built by
    backward's ``(dxf, dyf, dpar)`` through the feature maps and ``par``
    into ``x``, ``y`` and the tree's hyperparameters; no tree is
    re-evaluated in the backward.
+5. A leading sample axis (the JAX package vmaps ``gram`` over Monte-Carlo
+   samples in its ancestral tails): either operand may be ``(S, n, W)``,
+   the other ``(n, W)`` (shared by every sample) or ``(S, n, W)``, and the
+   Gram is ``(S, n, m)``.  One launch of the forward kernel computes all S
+   (``blockIdx.z``), the shared operand's stride 0.  The batched Gram is
+   forward only, for the serving tails that run under ``no_grad``: one
+   that would need a gradient raises.
 """
 
 import ctypes
@@ -54,6 +61,7 @@ __all__ = [
     "prepare_terms",
     "reset_counters",
     "gram_kernel_launches",
+    "gram_batched_kernel_launches",
     "gram_plain_cuda_calls",
     "gram_bwd_kernel_launches",
     "gram_eval_cuda_calls",
@@ -79,6 +87,8 @@ KIND_CODES = {"rbf": 0, "rq": 1, "lin": 2}
 
 #: Launches of the CUDA Gram kernel (incremented by the wrapper only).
 gram_kernel_launches = 0
+#: Of those, the launches with a sample axis (one per batched Gram).
+gram_batched_kernel_launches = 0
 #: Launches of the CUDA Gram backward kernel (incremented by its wrapper only).
 gram_bwd_kernel_launches = 0
 #: Grams of CUDA tensors evaluated by ``gram_eval`` because the analyser
@@ -92,6 +102,7 @@ gram_autograd_calls = 0
 
 _COUNTERS = (
     "gram_kernel_launches",
+    "gram_batched_kernel_launches",
     "gram_bwd_kernel_launches",
     "gram_plain_cuda_calls",
     "gram_eval_cuda_calls",
@@ -118,7 +129,7 @@ def reset_counters():
 
 class _Term(NamedTuple):
     kind: str  # 'rbf' | 'rq' | 'lin'
-    feats: object  # callable x -> (n, dim) features
+    feats: object  # callable x (..., n, W) -> (..., n, dim) features
     weight: object  # float or 0-d tensor
     alpha: object  # RQ alpha or None
     dim: object  # feature width, or None when the input width is unknown
@@ -175,7 +186,7 @@ def _collect(k, weight, fmap, dim, terms, const_acc):
                 terms.append(
                     _Term(
                         "rbf",
-                        lambda x, a=t1.feats, b=t2.feats: torch.cat([a(x), b(x)], dim=1),
+                        lambda x, a=t1.feats, b=t2.feats: torch.cat([a(x), b(x)], dim=-1),
                         weight * t1.weight * t2.weight,
                         None,
                         None if t1.dim is None or t2.dim is None else t1.dim + t2.dim,
@@ -231,25 +242,26 @@ def _scalar(v, like):
 
 def _prepare(terms, const, x, y):
     """Feature maps -> ``(kinds, dims, xf, yf, par)``: features at their
-    true widths, concatenated and padded with zero columns to a width that
-    is a multiple of 4 (rows load as 16-byte vectors in the kernels);
-    ``par = [w_0..w_{T-1}, alpha_0..alpha_{T-1}, const]``; everything in
-    ``x``'s dtype, computed under ordinary autograd."""
+    true widths, concatenated along the last axis and padded with zero
+    columns to a width that is a multiple of 4 (rows load as 16-byte vectors
+    in the kernels); ``par = [w_0..w_{T-1}, alpha_0..alpha_{T-1}, const]``;
+    everything in ``x``'s dtype, computed under ordinary autograd.  ``x`` and
+    ``y`` may carry a leading sample axis."""
     us, vs, dims, ws, alphas = [], [], [], [], []
     for t in terms:
         u = t.feats(x).to(x.dtype)
         v = t.feats(y).to(x.dtype)
         us.append(u)
         vs.append(v)
-        dims.append(u.shape[1])
+        dims.append(u.shape[-1])
         ws.append(_scalar(t.weight, x))
         alphas.append(_scalar(1.0 if t.alpha is None else t.alpha, x))
     pad = -sum(dims) % 4
     if pad:
-        us.append(x.new_zeros((x.shape[0], pad)))
-        vs.append(x.new_zeros((y.shape[0], pad)))
-    xf = torch.cat(us, dim=1).contiguous()
-    yf = torch.cat(vs, dim=1).contiguous()
+        us.append(x.new_zeros((*x.shape[:-1], pad)))
+        vs.append(x.new_zeros((*y.shape[:-1], pad)))
+    xf = torch.cat(us, dim=-1).contiguous()
+    yf = torch.cat(vs, dim=-1).contiguous()
     par = torch.stack(ws + alphas + [_scalar(const, x)])
     kinds = tuple(t.kind for t in terms)
     return kinds, tuple(dims), xf, yf, par
@@ -259,7 +271,7 @@ def prepare_terms(kernel, x, y):
     """``(kinds, dims, xf, yf, par)`` for a supported tree (raises if the
     analyser refuses it) — the inputs of :func:`gram_kernel_launch` and
     :func:`gram_terms_plain`."""
-    parsed = analyze_kernel(kernel, x.shape[1])
+    parsed = analyze_kernel(kernel, x.shape[-1])
     if parsed is None:
         raise ValueError("gram_kernel: kernel tree not supported by the analyser")
     return _prepare(*parsed, x, y)
@@ -268,19 +280,20 @@ def prepare_terms(kernel, x, y):
 def gram_terms_plain(kinds, dims, xf, yf, par):
     """The kernel's function in plain PyTorch ops, on prepared terms: the
     same per-term arithmetic (direct squared differences), in the same
-    order (terms, then the constant)."""
+    order (terms, then the constant).  Either operand may carry a leading
+    sample axis (the other broadcasts)."""
     T = len(kinds)
     acc = None
     off = 0
     for t, (kind, d) in enumerate(zip(kinds, dims)):
-        u = xf[:, off : off + d]
-        v = yf[:, off : off + d]
+        u = xf[..., off : off + d]
+        v = yf[..., off : off + d]
         off += d
         w = par[t]
         if kind == "lin":
-            term = w * (u @ v.T)
+            term = w * (u @ v.mT)
         else:
-            diff = u[:, None, :] - v[None, :, :]
+            diff = u[..., :, None, :] - v[..., None, :, :]
             s = torch.sum(diff * diff, dim=-1)
             if kind == "rbf":
                 term = w * torch.exp(-0.5 * s)
@@ -332,8 +345,9 @@ def gram_terms_plain_vjp(kinds, dims, xf, yf, par, g):
     return dxf, dyf, torch.stack(dws + das + [torch.sum(g)])
 
 
-def _check_terms(what, kinds, dims, xf, yf, par):
-    """The checks both kernels' wrappers make on prepared terms."""
+def _check_terms(what, kinds, dims, xf, yf, par, batched=False):
+    """The checks both kernels' wrappers make on prepared terms; with
+    ``batched`` either operand may carry a leading sample axis."""
     if not (xf.is_cuda and yf.is_cuda and par.is_cuda):
         raise ValueError(f"{what}: tensors must be on a CUDA device")
     if not (xf.device == yf.device == par.device):
@@ -342,12 +356,16 @@ def _check_terms(what, kinds, dims, xf, yf, par):
         raise TypeError(f"{what}: unsupported dtype {xf.dtype}")
     if yf.dtype != xf.dtype or par.dtype != xf.dtype:
         raise TypeError(f"{what}: mixed dtypes")
-    if xf.ndim != 2 or yf.ndim != 2 or xf.shape[1] != yf.shape[1]:
-        raise ValueError(f"{what}: xf/yf must be (n, D) and (m, D)")
+    ranks = (2, 3) if batched else (2,)
+    if xf.ndim not in ranks or yf.ndim not in ranks or xf.shape[-1] != yf.shape[-1]:
+        raise ValueError(f"{what}: xf/yf must be (n, D) and (m, D)"
+                         + (", either with a leading sample axis" if batched else ""))
+    if xf.ndim == yf.ndim == 3 and xf.shape[0] != yf.shape[0]:
+        raise ValueError(f"{what}: xf and yf have different sample counts")
     T = len(kinds)
     if not 1 <= T <= MAX_TERMS or len(dims) != T or par.shape != (2 * T + 1,):
         raise ValueError(f"{what}: bad term specification")
-    D = xf.shape[1]
+    D = xf.shape[-1]
     if not sum(dims) <= D < sum(dims) + 4 or D % 4 or any(not 0 < d <= LANES for d in dims):
         raise ValueError(f"{what}: term widths do not match the padded features")
     if not (xf.is_contiguous() and yf.is_contiguous() and par.is_contiguous()):
@@ -373,13 +391,17 @@ def _raise_on(lib, rc, what):
 
 def gram_kernel_launch(kinds, dims, xf, yf, par):
     """Launch the CUDA Gram kernel on prepared terms (CUDA tensors only);
-    returns the (n, m) Gram.  Raises on anything the kernel does not take
-    and on a refused launch."""
-    global gram_kernel_launches
-    _check_terms("gram_kernel_launch", kinds, dims, xf, yf, par)
-    n, m, D = xf.shape[0], yf.shape[0], xf.shape[1]
-    out = torch.empty((n, m), dtype=xf.dtype, device=xf.device)
-    if n == 0 or m == 0:
+    returns the (n, m) Gram, or the (S, n, m) Grams of one launch when
+    ``xf`` (S, n, D) or ``yf`` (S, m, D) carries a sample axis (a 2-D
+    operand is shared by every sample).  Raises on anything the kernel does
+    not take and on a refused launch."""
+    global gram_kernel_launches, gram_batched_kernel_launches
+    _check_terms("gram_kernel_launch", kinds, dims, xf, yf, par, batched=True)
+    n, m, D = xf.shape[-2], yf.shape[-2], xf.shape[-1]
+    batched = xf.ndim == 3 or yf.ndim == 3
+    S = (xf if xf.ndim == 3 else yf).shape[0] if batched else 1
+    out = torch.empty(((S,) if batched else ()) + (n, m), dtype=xf.dtype, device=xf.device)
+    if n == 0 or m == 0 or S == 0:
         return out
     from ._build import load_library
 
@@ -389,10 +411,12 @@ def gram_kernel_launch(kinds, dims, xf, yf, par):
         stream = torch.cuda.current_stream(xf.device).cuda_stream
         rc = fn(
             xf.data_ptr(), yf.data_ptr(), par.data_ptr(), out.data_ptr(),
-            n, m, D, len(kinds), *_c_terms(kinds, dims), stream,
+            S, n, m, D, n * D if xf.ndim == 3 else 0, m * D if yf.ndim == 3 else 0,
+            len(kinds), *_c_terms(kinds, dims), stream,
         )
     _raise_on(lib, rc, "gram kernel launch")
     gram_kernel_launches += 1
+    gram_batched_kernel_launches += int(batched)
     return out
 
 
@@ -522,14 +546,25 @@ class _GramFn(torch.autograd.Function):
 
 def gram_fused_or_none(kernel, x, y):
     """Fused Gram, or None when the analyser refuses the tree (the dispatch
-    in :func:`gpar_torch.ops.kernels.gram` then evaluates ``gram_eval``)."""
+    in :func:`gpar_torch.ops.kernels.gram` then evaluates ``gram_eval``).
+    ``x`` or ``y`` may carry a leading sample axis: the (S, n, m) Grams are
+    one forward launch, with no autograd (a batched Gram that would need a
+    gradient raises)."""
     global gram_autograd_calls
-    if x.ndim != 2 or y.ndim != 2 or x.dtype not in (torch.float32, torch.float64):
+    if x.ndim not in (2, 3) or y.ndim not in (2, 3) or x.dtype not in (torch.float32, torch.float64):
         return None
-    parsed = analyze_kernel(kernel, x.shape[1])
+    parsed = analyze_kernel(kernel, x.shape[-1])
     if parsed is None:
         return None
-    out = _GramFn.apply(*_prepare(*parsed, x, y))
+    prep = _prepare(*parsed, x, y)
+    if x.ndim == 3 or y.ndim == 3:
+        if torch.is_grad_enabled() and any(a.requires_grad for a in prep[2:]):
+            raise RuntimeError("gram: a Gram with a sample axis is forward only; "
+                               "call it under torch.no_grad()")
+        if prep[2].is_cuda:
+            return gram_kernel_launch(*prep)
+        return gram_terms_plain(*prep)
+    out = _GramFn.apply(*prep)
     if out.is_cuda and out.requires_grad:
         gram_autograd_calls += 1
     return out

@@ -203,26 +203,27 @@ class Gate(Kernel):
 
 def sq_dists(x, y):
     """Pairwise squared Euclidean distances via the matmul identity
-    ``|x_i|^2 + |y_j|^2 - 2 x_i . y_j``, clamped at zero."""
-    x2 = torch.sum(x * x, dim=-1)[:, None]
-    y2 = torch.sum(y * y, dim=-1)[None, :]
-    return torch.clamp_min(x2 + y2 - 2.0 * (x @ y.T), 0.0)
+    ``|x_i|^2 + |y_j|^2 - 2 x_i . y_j``, clamped at zero (over the last two
+    axes; leading axes broadcast)."""
+    x2 = torch.sum(x * x, dim=-1)[..., :, None]
+    y2 = torch.sum(y * y, dim=-1)[..., None, :]
+    return torch.clamp_min(x2 + y2 - 2.0 * (x @ y.mT), 0.0)
 
 
 def _embed_periodic(x, period):
-    """Per-dimension (cos, sin) embedding, interleaved as
+    """Per-dimension (cos, sin) embedding of the last axis, interleaved as
     ``[cos x_0, sin x_0, cos x_1, sin x_1, ...]``."""
     theta = 2.0 * math.pi * x / period
-    n, d = x.shape
-    return torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1).reshape(n, 2 * d)
+    return torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1).flatten(-2)
 
 
 def _select(x, inds):
-    return x[:, list(inds)]
+    return x[..., list(inds)]
 
 
 def gram(k, x, y):
-    """The full pairwise kernel matrix ``k(x, y)`` of shape (n, m).
+    """The full pairwise kernel matrix ``k(x, y)`` of shape (n, m); (S, n, m)
+    when ``x`` or ``y`` carries a leading sample axis (forward only).
 
     A tree the Gram kernel's analyser accepts goes through the
     hand-written kernel (``ops/gram_kernel.py``; its plain PyTorch version
@@ -270,12 +271,16 @@ def _gram_eval(k, x, y):
     if isinstance(k, RQ):
         return (1.0 + sq_dists(x, y) / (2.0 * k.alpha)) ** (-k.alpha)
     if isinstance(k, Linear):
-        return x @ y.T
+        return x @ y.mT
     if isinstance(k, Const):
-        return k.value.to(x.dtype).expand(x.shape[0], y.shape[0])
+        return k.value.to(x.dtype).expand(_gram_shape(x, y))
     if isinstance(k, ZeroKernel):
-        return x.new_zeros((x.shape[0], y.shape[0]))
+        return x.new_zeros(_gram_shape(x, y))
     raise TypeError(f"Unknown kernel type: {type(k)!r}")
+
+
+def _gram_shape(x, y):
+    return (*torch.broadcast_shapes(x.shape[:-2], y.shape[:-2]), x.shape[-2], y.shape[-2])
 
 
 def kdiag(k, x):

@@ -41,6 +41,7 @@ __all__ = [
     "safe_cholesky",
     "cholesky_ladder_on_device",
     "psd_sample_factor",
+    "psd_sample_factor_batched",
     "solve_lower",
     "solve_chol",
     "mvn_logpdf_chol",
@@ -117,7 +118,7 @@ def safe_cholesky(K, epsilon=None):
     ``config.cholesky_retry_factors``; as a last resort uses a jitter
     relative to the matrix's own scale, ``max(1e-6 max|diag K|, eps)``.
     Returns a NaN matrix if every rung fails (the JAX package's NaN
-    primal), so callers such as :func:`psd_sample_factor` can tell."""
+    primal)."""
     eps = resolve_epsilon(K.dtype, epsilon)
     n = K.shape[-1]
     if n == 0:
@@ -136,16 +137,39 @@ def safe_cholesky(K, epsilon=None):
 
 def psd_sample_factor(K, epsilon=None):
     """A finite factor ``F`` with ``F F^T ~= K`` for MVN sampling: the
-    jittered Cholesky, or — when no rung repairs an indefinite matrix — an
-    eigendecomposition with eigenvalues clamped at the jitter level."""
+    jittered Cholesky through :func:`safe_cholesky`'s rungs, or — when no
+    rung repairs an indefinite matrix — an eigendecomposition with
+    eigenvalues clamped at the jitter level."""
+    return psd_sample_factor_batched(K[None], epsilon)[0]
+
+
+def psd_sample_factor_batched(K, epsilon=None):
+    """:func:`psd_sample_factor` over a leading batch axis, ``K`` (S, n, n)
+    (``gpar_tpu/ops/linalg.py:409-467``): one batched Cholesky at the first
+    rung; each further rung (the retry factors, then the relative jitter
+    ``max(1e-6 max|diag K_s|, eps)`` of each element) runs only on the
+    elements that are still failing, and the clamped eigendecomposition
+    only on those that every rung failed.  Factors that hold are kept.  One
+    host read of ``info`` per rung tried."""
     eps = resolve_epsilon(K.dtype, epsilon)
     if K.shape[-1] == 0:
         return torch.zeros_like(K)
-    L = safe_cholesky(K, epsilon)
-    if bool(torch.isfinite(L).all()):
-        return L
-    w, V = torch.linalg.eigh(K)
-    return V * torch.sqrt(torch.clamp_min(w, eps))[None, :]
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+    L, info = torch.linalg.cholesky_ex(K + eps * eye)
+    rel = torch.clamp_min(1e-6 * torch.amax(torch.abs(torch.diagonal(K, dim1=-2, dim2=-1)), -1), eps)
+    rungs = [eps * f for f in config.cholesky_retry_factors] + [rel]
+    bad = torch.nonzero(info).flatten()
+    for e in rungs:
+        if bad.numel() == 0:
+            return L
+        e = e[bad, None, None] if isinstance(e, torch.Tensor) else e
+        Lb, info_b = torch.linalg.cholesky_ex(K[bad] + e * eye)
+        L[bad] = Lb
+        bad = bad[info_b != 0]
+    if bad.numel():
+        w, V = torch.linalg.eigh(K[bad])
+        L[bad] = V * torch.sqrt(torch.clamp_min(w, eps))[..., None, :]
+    return L
 
 
 def solve_lower(L, b):

@@ -37,25 +37,30 @@ def close(a, b, rtol, atol=0.0):
     assert_allclose(np_(a), np_(b), rtol=rtol, atol=atol)
 
 
-def jax_chain_normals(key, p, n, num_samples=None, dtype=jnp.float64):
+def jax_chain_normals(key, p, n, num_samples=None, dtype=jnp.float64, noise=False):
     """The standard normals the JAX package's ``_sample_chain`` draws from
     ``key`` (``gpar_tpu/models/gpar.py:408`` splits the key in three per
     layer; ``FDD.sample``, ``gpar_tpu/gp/core.py:264``, draws (n,) normals
     from the first subkey).  With ``num_samples`` the key is first split
     into one key per sample, as the estimator's sampling program does;
-    returns (p, n) or (p, num_samples, n)."""
+    returns (p, n) or (p, num_samples, n).  With ``noise`` also the normals
+    of the second subkey, the noise a latent draw feeds forward
+    (``gpar.py:414``), as a second array of the same shape."""
 
     def one(k):
-        out = []
+        out, out2 = [], []
         for _ in range(p):
-            k, k1, _ = jax.random.split(k, 3)
+            k, k1, k2 = jax.random.split(k, 3)
             out.append(np.asarray(jax.random.normal(k1, (n,), dtype=dtype)))
-        return np.stack(out)
+            out2.append(np.asarray(jax.random.normal(k2, (n,), dtype=dtype)))
+        return np.stack(out), np.stack(out2)
 
     if num_samples is None:
-        return one(key)
-    keys = jax.random.split(key, num_samples)
-    return np.stack([one(k) for k in keys], axis=1)
+        z1, z2 = one(key)
+    else:
+        pairs = [one(k) for k in jax.random.split(key, num_samples)]
+        z1, z2 = (np.stack([q[i] for q in pairs], axis=1) for i in (0, 1))
+    return (z1, z2) if noise else z1
 
 
 def close_tail(got, want, normals, latent, rtol=1e-8, atol=1e-10):

@@ -51,6 +51,27 @@ def test_cuda_kernel_matches_plain(dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_cuda_batched_kernel_matches_plain(dtype, tol):
+    # A sample axis on either operand or both: one launch, S Grams.
+    _need_cuda()
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    dev = torch.device("cuda")
+    r = np.random.default_rng(6)
+    for case in FUSED:
+        tree, d = _tree(case, npdt, dev)
+        xb, yb = (torch.as_tensor(r.normal(size=(5, k, d)).astype(npdt), device=dev) for k in (70, 133))
+        for x, y in ((xb[0], yb), (xb, yb[0]), (xb, yb)):
+            with torch.no_grad():
+                prep = GK.prepare_terms(tree, x, y)
+            launches = GK.gram_batched_kernel_launches
+            got = GK.gram_kernel_launch(*prep)
+            torch.cuda.synchronize()
+            assert tuple(got.shape) == (5, 70, 133) and GK.gram_batched_kernel_launches == launches + 1
+            torch.testing.assert_close(got, GK.gram_terms_plain(*prep), rtol=tol, atol=tol, msg=case)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
 def test_cuda_backward_kernel_matches_plain(dtype, tol):
     _need_cuda()

@@ -129,11 +129,8 @@ def test_unported_options_raise(runs):
         rt.fit(runs["x"], runs["y"], fix=False)
     with pytest.raises(NotImplementedError):
         rt.fit(runs["x"], runs["y"], greedy=True)
-    kw = dict(runs["kw"], replace=False)
-    rr = TReg(**kw, device="cpu")
-    rr.condition(runs["x"], runs["y"])
     with pytest.raises(NotImplementedError):
-        rr.predict(runs["x_test"])
+        rt.fit(runs["x"], runs["y"], restarts=2)
     with pytest.raises(RuntimeError, match="condition"):
         TReg(**runs["kw"], device="cpu").load_latents({})
 
