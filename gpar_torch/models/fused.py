@@ -54,8 +54,18 @@ standard normals:
   :func:`make_scan_posterior_factors` stacks them, for the factor cache
   that is not ported yet.
 
-Not ported: the posterior-factor cache (``make_scan_cached_tail``), the
-log-density bodies, ``fix=False`` and ``fused="batched"``, and the mesh.
+The whole chain's log-density is written once, :func:`_chain_nll`: per
+layer the masked layer NLL, then one augmentation step out of place
+(:func:`_augmented`), so that autograd can differentiate through the
+columns that earlier layers write.  :func:`make_scan_logpdf_body` (the
+prior score) evaluates it under ``no_grad``; :func:`make_scan_free_fit_body`
+(``fit(fix=False)``) minimises it at each position over the latents of
+layers ``0..pi``, eagerly.  :func:`make_scan_posterior_logpdf_tail` scores
+new data under the posterior, each layer's training factors taken from
+:func:`posterior_factor_layers`.
+
+Not ported: the posterior-factor cache (``make_scan_cached_tail``),
+``fused="batched"``, and the mesh.
 """
 
 import contextlib
@@ -93,6 +103,9 @@ __all__ = [
     "plan_static_fingerprint",
     "plan_tensors",
     "make_scan_fit_body",
+    "make_scan_free_fit_body",
+    "make_scan_logpdf_body",
+    "make_scan_posterior_logpdf_tail",
     "make_scan_predict_tail",
     "make_scan_posterior_factors",
     "posterior_factor_layers",
@@ -519,6 +532,40 @@ def _augment_cols(plan, lin, y_next, est_ind, x_aug, zi_aug):
         zi_aug.index_copy_(1, col, est_ind[:, None])
 
 
+def _augmented(plan, lin, y_next, est_ind, x_aug, zi_aug):
+    """:func:`_augment_cols` out of place, for a chain that autograd
+    differentiates through: layer ``l``'s Grams read the columns that the
+    layers before it wrote, which depend on their latents.  Each layer gets
+    a new buffer, so no write can reach a tensor that an earlier layer's
+    operations saved for the backward."""
+    col = (plan.m + lin["col"]).reshape(1)
+    x_aug = x_aug.index_copy(1, col, y_next[:, None])
+    if plan.sparse:
+        zi_aug = zi_aug.index_copy(1, col, est_ind[:, None])
+    return x_aug, zi_aug
+
+
+def _chain_nll(plan, z_ext, xs, x, zi, n_layers, escalations=None):
+    """The NLL of the chain's first ``n_layers`` layers from the raw inputs
+    ``x`` (and inducing inputs ``zi``): per layer the masked layer NLL
+    (:func:`_layer_nll_factors`), then one augmentation step out of place
+    (:func:`_augmented`), so the value is differentiable end to end in
+    ``z_ext``.  The chain of ``make_scan_logpdf_body`` (``n_layers = p``,
+    under ``no_grad``) and of every objective of the free fit."""
+    x_aug, zi_aug = _widen(x, plan.W), _widen(zi, plan.W)
+    nlls = []
+    for pi in range(n_layers):
+        lin = {k: v[pi] for k, v in xs.items()}
+        nll, factors = _layer_nll_factors(plan, lin, z_ext, x_aug, zi_aug, escalations)
+        nlls.append(nll)
+        if pi < n_layers - 1:
+            est_rows, est_ind = _est_from_factors(plan, factors)
+            x_aug, zi_aug = _augmented(plan, lin, _next_column(plan, lin, est_rows), est_ind,
+                                       x_aug, zi_aug)
+        del factors
+    return torch.stack(nlls).sum()
+
+
 class ScanStep:
     """The layer step of the scan-fused fit at uniform shapes: fixed-shape
     buffers and the bodies that work on them.
@@ -689,14 +736,16 @@ def run_scan_fit(step, run, iters, stats=None):
     stats = new_stats() if stats is None else stats
     for _ in range(step.plan.p):
         run("layer_init")
-        it = 0
-        while it < iters:
-            done = iterate(run, step.opt, MAX_LINESEARCH, stats)
-            it += 1
-            if done:
-                break
+        _iterations(run, step.opt, iters, stats)
         run("layer_finish")
     return step.results(stats)
+
+
+def _iterations(run, opt, iters, stats):
+    """Up to ``iters`` L-BFGS iterations of ``opt``, fewer if it converges."""
+    for _ in range(iters):
+        if iterate(run, opt, MAX_LINESEARCH, stats):
+            break
 
 
 def _inducing(x_ind, m, dtype, device):
@@ -757,6 +806,92 @@ def make_scan_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1, rows_t
         stats["replay_counts"] = {k: v - replayed0[k] for k, v in run.replayed.items()}
         stats["capture_s"] = capture_s
         return out
+
+    return program
+
+
+def _prefix_gather(plan):
+    """Per-position latent gathers of the free fit, ``(p, n_z)``: at
+    position ``pi`` the spans of layers ``0..pi`` (the ``names=[f"{i}/*"
+    for i in 0..pi]`` filter), padded with the dummy slot.  Spans are
+    disjoint (``scale_tie``'s shared variable lives in layer 0's span), so
+    a prefix is the concatenation of the layers' spans."""
+    lg = np.asarray(plan.xs["layer_gather"])
+    dummy = plan.n_z
+    out = np.full((plan.p, plan.n_z), dummy, dtype=np.int64)
+    for pi in range(plan.p):
+        idx = np.concatenate([row[row != dummy] for row in lg[: pi + 1]])
+        out[pi, : len(idx)] = idx
+    return out
+
+
+def make_scan_free_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1,
+                            rows_traced=False):
+    """The whole-fit program of ``fit(fix=False)`` (the contract of
+    ``gpar_tpu/models/fused.py:1236-1390`` without the mesh branch):
+    ``program(z_all, x, xs_rows=None, stats=None) -> (z_final, layer_nll,
+    layer_iters, layer_nll0)``.
+
+    At position ``pi`` one L-BFGS (``params.lbfgs.DeviceLBFGS``, sized to
+    ``plan.n_z``) minimises the NLL of the chain of layers ``0..pi`` from
+    the raw inputs (:func:`_chain_nll`, the reference's full re-evaluation
+    per objective call, ``gpar/regression.py:452-456``) jointly over their
+    latents, gathered through :func:`_prefix_gather`; ``layer_nll[pi]`` is
+    that prefix chain's NLL at the position's optimum.  Where the JAX
+    package runs all p layers under a 0/1 contribution gate (one compiled
+    body for every position), this loop runs ``pi + 1``: the same value,
+    and the later layers never run.  Every factorisation takes the jitter
+    ladder on the device, counted into ``stats["ladder_escalations"]``.
+
+    The program runs eagerly, CUDA tensors included: the chain's length
+    changes with the position, so no graph is captured.  ``rows_traced``
+    as in :func:`make_scan_fit_body`; ``stats`` receives the L-BFGS
+    counters, one host read for the results and ``graph_replays = 0``."""
+    check_restarts(restarts)
+    prefix = _prefix_gather(plan)
+
+    def program(z_all, x, xs_rows=None, stats=None):
+        stats = new_stats() if stats is None else stats
+        dtype, device = x.dtype, x.device
+        with _cusolver(device):
+            xs, z_ext = _serving_inputs(plan, z_all, x, xs_rows, rows_traced)
+            zi = _inducing(x_ind, plan.m, dtype, device)
+            gathers = torch.as_tensor(prefix, device=device)
+            escalations = torch.zeros((), dtype=torch.int64, device=device)
+            position = [0]
+
+            def nll(z_sub):
+                pi = position[0]
+                z_full = z_ext.index_put((gathers[pi],), z_sub)
+                return _chain_nll(plan, z_full, xs, x, zi, pi + 1, escalations)
+
+            def value_and_grad(z):
+                z = z.detach().requires_grad_(True)
+                with torch.enable_grad():
+                    f = nll(z)
+                    (g,) = torch.autograd.grad(f, z)
+                return f.detach(), g
+
+            def value(z):
+                with torch.no_grad():
+                    return nll(z)
+
+            opt = DeviceLBFGS(value_and_grad, value, plan.n_z, dtype, device,
+                              memory=memory_size, gtol=gtol)
+            out = torch.zeros((3, plan.p), dtype=dtype, device=device)
+            for pi in range(plan.p):
+                position[0] = pi
+                opt.start(z_ext.index_select(0, gathers[pi]))
+                _iterations(Eager(opt), opt, iters, stats)
+                z, f = opt.final()
+                z_ext.index_put_((gathers[pi],), z)
+                z_ext[-1:].zero_()
+                out[:, pi] = torch.stack([f, opt.f0, opt.state.it.to(dtype)])
+            stats["host_syncs"] += 1
+            res = torch.cat([out.reshape(-1), escalations.to(dtype).reshape(1)]).cpu()
+        per_pos, stats["ladder_escalations"] = res[:-1].numpy().reshape(3, -1), int(res[-1])
+        stats.update(graph_replays=0, replay_counts=dict.fromkeys(GK.counters(), 0), capture_s=0.0)
+        return z_ext[:-1].clone(), per_pos[0], per_pos[2].astype(np.int64), per_pos[1]
 
     return program
 
@@ -837,6 +972,98 @@ def make_scan_posterior_factors(plan, x_ind, rows_traced=False):
             return {k: torch.stack([f[k] for f in out]) for k in out[0]}
 
     return factors
+
+
+def make_scan_logpdf_body(plan, x_ind, rows_traced=False):
+    """The prior log-density of a dataset (``gpar_tpu/models/fused.py:
+    1489-1555``, single device): ``program(z_all, x, xs_rows=None) ->
+    scalar``, the chain accumulation of ``GPAR.logpdf``
+    (``gpar/model.py:178-243``) at uniform shapes.  It is the fixed fit's
+    chain without the L-BFGS: per layer the masked layer NLL at the given
+    latents, then one augmentation step; the score is minus the sum of the
+    layer NLLs (:func:`_chain_nll` over all p layers, under ``no_grad``).
+    ``plan`` is the scored data's (:func:`build_scan_data_plan`);
+    ``rows_traced`` as in :func:`make_scan_fit_body`."""
+
+    def program(z_all, x, xs_rows=None):
+        with torch.no_grad(), _cusolver(x.device):
+            xs, z_ext = _serving_inputs(plan, z_all, x, xs_rows, rows_traced)
+            zi = _inducing(x_ind, plan.m, x.dtype, x.device)
+            return -_chain_nll(plan, z_ext, xs, x, zi, plan.p)
+
+    return program
+
+
+def make_scan_posterior_logpdf_tail(plan, x_ind, rows_traced=False):
+    """The posterior log-density of new data (``gpar_tpu/models/fused.py:
+    1630-1790``, single device): ``tail(z_all, factors, x, xs_rows=None,
+    tr_mask=None) -> scalar``.  ``plan`` is the scored data's plan and
+    ``factors`` yields the training chain's per-layer posterior factors in
+    turn (:func:`posterior_factor_layers`).  Per layer the GP core's nested
+    conditioning (``gp/core.py``), at uniform shapes:
+
+    - sparse: the Titsias factors of the posterior prior, whose mean and
+      covariances come from the training factors (``SparsePosteriorGP``),
+      at the scoring chain's own augmented inducing inputs, which restart
+      from ``x_ind`` (``gpar/model.py:199,251``), not at the training
+      chain's (``fac["zi_aug"]``);
+    - dense: the masked exact likelihood of the residual under the
+      posterior at the scored rows.  The training factors were computed
+      with the training chain's masked rows made identity rows, so the
+      cross-covariance is masked by ``tr_mask`` (p, n_train), the
+      training chain's per-layer ``obs_mask``, not by the scored plan's.
+
+    The augmentation feeds the posterior of the layer given the scored
+    observations forward (``condition(f_post, obs_new).mean``)."""
+
+    def tail(z_all, factors, x, xs_rows=None, tr_mask=None):
+        if not plan.sparse and tr_mask is None:
+            raise ValueError("make_scan_posterior_logpdf_tail: dense factors need the training "
+                             "chain's per-layer observation masks (tr_mask)")
+        dtype, device = x.dtype, x.device
+        with torch.no_grad(), _cusolver(device):
+            xs, z_ext = _serving_inputs(plan, z_all, x, xs_rows, rows_traced)
+            x_aug = _widen(x, plan.W)
+            zi_aug = _widen(_inducing(x_ind, plan.m, dtype, device), plan.W)
+            eps = resolve_epsilon(dtype)
+            nlls = []
+            for pi, fac in zip(range(plan.p), factors):
+                lin = {k: v[pi] for k, v in xs.items()}
+                kernel, noise = _layer_kernel(plan, lin, z_ext)
+                noise_w = floor_noise(noise / lin["w_col"])
+                omask, r = lin["obs_mask"], lin["y_col"]
+                if plan.sparse:
+                    Km_x = gram(kernel, fac["zi_aug"], x_aug)
+                    Km_z = gram(kernel, fac["zi_aug"], zi_aug)
+                    T1x = solve_lower(fac["Lm"], Km_x)
+                    T2x = solve_lower(fac["LB"], T1x)
+                    T1z = solve_lower(fac["Lm"], Km_z)
+                    T2z = solve_lower(fac["LB"], T1z)
+                    mean_x, mean_z = Km_x.T @ fac["beta"], Km_z.T @ fac["beta"]
+                    Kmm_p = gram(kernel, zi_aug, zi_aug) - T1z.T @ T1z + T2z.T @ T2z
+                    Kmn_p = gram(kernel, zi_aug, x_aug) - T1z.T @ T1x + T2z.T @ T2x
+                    knn_p = (kdiag(kernel, x_aug) - torch.sum(T1x * T1x, dim=0)
+                             + torch.sum(T2x * T2x, dim=0))
+                    elbo, _, _, beta_n = titsias_factors(Kmm_p, Kmn_p, knn_p, r, mean_x, noise_w,
+                                                         mask=omask)
+                    nlls.append(-elbo)
+                    est_rows, est_ind = mean_x + Kmn_p.T @ beta_n, mean_z + Kmm_p @ beta_n
+                else:
+                    Kxt = gram(kernel, fac["x_aug"], x_aug).mul_(tr_mask[pi][:, None])
+                    mean_x = Kxt.T @ fac["alpha"]
+                    V = solve_lower(fac["L"], Kxt)
+                    del Kxt
+                    Kp = gram(kernel, x_aug, x_aug) - V.T @ V
+                    del V
+                    lp, alpha_n, _ = _masked_dense_factors(Kp, (r - mean_x) * omask, omask,
+                                                           noise_w, eps)
+                    nlls.append(-lp)
+                    est_rows, est_ind = mean_x + Kp @ alpha_n, None
+                    del Kp
+                _augment_cols(plan, lin, _next_column(plan, lin, est_rows), est_ind, x_aug, zi_aug)
+            return -torch.stack(nlls).sum()
+
+    return tail
 
 
 def _solve_shared(L, B):

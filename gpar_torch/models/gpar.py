@@ -139,26 +139,50 @@ class GPAR:
         y,
         w,
         only_last_layer=False,
+        sample_missing=False,
         return_inputs=False,
         x_ind=None,
         outputs=None,
+        normals=None,
+        generator=None,
     ):
         """The log-density (``gpar/model.py:178-243``), including the
         resumable-inputs path behind ``fit(fix=True)``
-        (``return_inputs``/``x_ind``/``outputs``).  ``sample_missing`` is
-        not ported yet."""
+        (``return_inputs``/``x_ind``/``outputs``).
+
+        With ``sample_missing`` every layer but the last keeps the rows
+        where a later output is observed, and before the next layer its
+        missing outputs are filled with one draw of the layer's posterior
+        given its observations, ``condition(f, obs)(x_missing, noise /
+        w_missing)``.  The draws' standard normals come from ``normals``,
+        one vector per layer that draws, in order (the JAX package splits
+        its key only at such a layer), else from ``generator``."""
         logpdf = x.new_zeros(())
         x_ind = self.x_ind if x_ind is None else x_ind
-        for is_last, ((yi, wi, mask), model) in last(
-            zip(per_output(y, w, keep=self.impute), self.layers), select=outputs
-        ):
+        normals = None if normals is None else iter(normals)
+        y_per_output = per_output(y, w, keep=self.impute or sample_missing)
+        for is_last, ((yi, wi, mask), model) in last(zip(y_per_output, self.layers), select=outputs):
             x = take_rows(x, mask)
             f, noise = model()
             obs = self._obs(x, x_ind, yi, wi, f, noise)
             if not only_last_layer or is_last:
                 logpdf = logpdf + obs.logpdf
             if not is_last:
-                x, x_ind = self._update_inputs(x, x_ind, yi, f, obs)
+                missing = _nan_mask_col0(yi)
+                available = ~missing
+                if sample_missing and missing.any():
+                    x_miss = take_rows(x, missing)
+                    z = None
+                    if normals is not None:
+                        z = next(normals, None)
+                        if z is None:
+                            raise ValueError("sample_missing: `normals` needs one vector per layer "
+                                             "that draws")
+                        z = _like(z, x)
+                    draw = condition(f, obs)(x_miss, noise / _like(take_rows(wi, missing), x))
+                    yi = merge(_like(yi, x), draw.sample(z, generator=generator), missing)
+                    available = np.ones_like(missing)
+                x, x_ind = self._update_inputs(x, x_ind, yi, f, obs, available=available)
         return (x, x_ind) if return_inputs else logpdf
 
     def sample(self, x, w, normals, latent=False, noise_normals=None):
@@ -190,10 +214,12 @@ class GPAR:
             return PseudoObs(f(x_ind), f(x, noise / w), y)
         return Obs(f(x, noise / w), y)
 
-    def _update_inputs(self, x, x_ind, y, f, obs):
+    def _update_inputs(self, x, x_ind, y, f, obs, available=None):
         """Impute/replace outputs and append them as input columns
-        (``gpar/model.py:291-322``)."""
-        available = ~_nan_mask_col0(y)
+        (``gpar/model.py:291-322``); ``available`` (a host mask) stands in
+        for ``y``'s NaN pattern where missing outputs were filled."""
+        if available is None:
+            available = ~_nan_mask_col0(y)
 
         def estimate(x_):
             return condition(f, obs).mean(x_)

@@ -3,9 +3,9 @@
 Port of the main-path slice of ``gpar_tpu/models/regressor.py`` (itself a
 rebuild of the reference ``gpar/regression.py:200-597``): the constructor,
 the per-layer kernel generator with its variable-naming contract verbatim,
-``condition``, ``fit(fix=True)``, ``predict`` / ``fit_predict`` (both
-``replace`` modes), posterior and prior ``sample``, and ``get_variables`` /
-``load_latents``.
+``condition``, ``fit`` (``fix`` True and False), ``predict`` /
+``fit_predict`` (both ``replace`` modes), posterior and prior ``sample``,
+``logpdf``, and ``get_variables`` / ``load_latents``.
 
 Design, in PyTorch terms:
 
@@ -45,12 +45,21 @@ Design, in PyTorch terms:
 - Entry points run on ``device`` (default ``"cuda"``; raises without a
   card unless ``device="cpu"``).  Randomness comes from a
   ``torch.Generator`` or from caller-supplied standard normals.
+- ``logpdf`` scores the prior through the scan-fused chain
+  (``fused.make_scan_logpdf_body``) and the posterior through
+  ``fused.make_scan_posterior_logpdf_tail``, each layer's training factors
+  taken when the tail needs them; another scored width and
+  ``sample_missing`` take the GP core (``GPAR | data``, ``GPAR.logpdf``).
+- ``fit(fix=False)`` minimises, at each position, the NLL of the whole
+  chain up to it jointly over the latents of its layers: eagerly through
+  ``fused.make_scan_free_fit_body`` (``fused=True``) or through
+  ``GPAR.logpdf`` (``fused=False``).
 
 Both the sparse model (``x_ind`` given) and the dense one (``x_ind=None``,
 the exact marginal likelihood over the data rows) run through every entry
-point above.  Not ported yet: ``logpdf``, ``fix=False``, restarts and
-``fused="batched"``/``"unroll"``, greedy ordering, the posterior-factor
-cache, ``warmup`` / ``precompute`` and checkpointing.
+point above.  Not ported yet: restarts and ``fused="batched"``/
+``"unroll"``, greedy ordering, the posterior-factor cache, ``warmup`` /
+``precompute`` and checkpointing.
 """
 
 import time
@@ -244,8 +253,7 @@ class GPARRegressor:
 
     The arguments are those of the reference, plus ``device`` (default
     ``config.device``, i.e. ``"cuda"``) and ``dtype`` (default
-    ``config.dtype``).  ``compat`` is accepted for signature parity; it
-    only affects ``logpdf``, which is not ported yet.
+    ``config.dtype``).  ``compat`` only affects :meth:`logpdf`.
     """
 
     def __init__(
@@ -319,13 +327,15 @@ class GPARRegressor:
     def _upload(self, a):
         return torch.as_tensor(np.asarray(a, dtype=self._np_dtype), device=self.device)
 
-    def _ensure_vars(self, p):
-        """Instantiate every layer's variables once per (m, p)."""
-        if self._vars_ready == (self.m, p):
+    def _ensure_vars(self, p, m=None):
+        """Instantiate every layer's variables once per (m, p); ``m``
+        defaults to the conditioned data's input width."""
+        m = self.m if m is None else m
+        if self._vars_ready == (m, p):
             return
         for pi in range(p):
-            _construct_gpar(self, self.vs, self.m, pi + 1).layers[pi]()
-        self._vars_ready = (self.m, p)
+            _construct_gpar(self, self.vs, m, pi + 1).layers[pi]()
+        self._vars_ready = (m, p)
 
     def get_variables(self):
         """All hyperparameters, name -> NumPy value
@@ -384,18 +394,25 @@ class GPARRegressor:
 
     def fit(self, x, y, w=None, greedy=False, fix=True, iters=1000, gtol=1e-9, memory_size=10,
             fused=True, restarts=1, cuda_graphs=True):
-        """Fit the model to data (``gpar/regression.py:391-459``): one
-        L-BFGS per layer over that layer's variables, layers fixed once
-        fitted (``fix=True``).
+        """Fit the model to data (``gpar/regression.py:391-459``), one
+        L-BFGS per layer position.  With ``fix=True`` (default) position
+        ``pi`` optimises layer ``pi``'s variables and the layer is fixed
+        from then on; with ``fix=False`` it optimises the variables of
+        layers ``0..pi`` jointly on the NLL of their whole chain, and
+        ``last_fit_report["layer_nll"][pi]`` is that chain's NLL.
 
-        ``fused=True`` (default): the scan-fused fit (``models/fused.py``),
-        its layer step captured as CUDA graphs on a CUDA device unless
-        ``cuda_graphs=False``; ``fused=False``: the per-layer driver.
-        ``"batched"``/``"unroll"`` and ``restarts > 1`` are not ported."""
+        ``fused=True`` (default): the scan-fused fit (``models/fused.py``);
+        with ``fix=True`` its layer step is captured as CUDA graphs on a
+        CUDA device unless ``cuda_graphs=False``, with ``fix=False`` it runs
+        eagerly.  ``fused=False``: the per-layer driver.  ``"batched"``
+        with ``fix=False`` raises ``ValueError`` (it fits layers
+        independently); ``"batched"``/``"unroll"`` otherwise and
+        ``restarts > 1`` are not ported."""
         if greedy:
             raise NotImplementedError("Greedy search is not implemented yet.")
-        if not fix:
-            raise NotImplementedError("gpar_torch: fit(fix=False) is not ported yet")
+        if fused == "batched" and not fix:
+            raise ValueError("fused='batched' requires independent layer fits; fit(fix=False) "
+                             "optimises layers jointly: use fused=True or fused=False.")
         if fused not in (True, False):
             raise NotImplementedError(f"gpar_torch: fit(fused={fused!r}) is not ported yet")
         check_restarts(restarts)
@@ -403,9 +420,9 @@ class GPARRegressor:
         self._ensure_vars(self.p)
         t0 = time.perf_counter()
         if fused:
-            report = self._fit_scan(iters, gtol, memory_size, cuda_graphs)
+            report = self._fit_scan(iters, gtol, memory_size, cuda_graphs, fix)
         else:
-            nll0, nll, its = self._fit_per_layer_loop(iters, gtol, memory_size)
+            nll0, nll, its = self._fit_per_layer_loop(iters, gtol, memory_size, fix)
             report = {"layer_nll0": np.asarray(nll0), "layer_nll": np.asarray(nll),
                       "layer_iters": np.asarray(its), "fused": False, "graph_replays": 0}
         report["wall_clock_s"] = time.perf_counter() - t0
@@ -434,20 +451,24 @@ class GPARRegressor:
             ))
         return self._bucket_cache[1:]
 
-    def _fit_scan(self, iters, gtol, memory_size, cuda_graphs):
-        from .fused import make_scan_fit_body
+    def _fit_scan(self, iters, gtol, memory_size, cuda_graphs, fix=True):
+        from .fused import make_scan_fit_body, make_scan_free_fit_body
 
         names = self.vs.select(None)
         plan = self._scan_fit_plan(names)
         x_pad, rows = self._bucket_fit_inputs(plan)
-        program = make_scan_fit_body(plan, self.x_ind, iters, gtol, memory_size,
-                                     rows_traced=True, cuda_graphs=cuda_graphs)
+        if fix:
+            program = make_scan_fit_body(plan, self.x_ind, iters, gtol, memory_size,
+                                         rows_traced=True, cuda_graphs=cuda_graphs)
+        else:
+            program = make_scan_free_fit_body(plan, self.x_ind, iters, gtol, memory_size,
+                                              rows_traced=True)
         stats = new_stats()
         z, nll, its, nll0 = program(self.vs.latent_vector(names), x_pad, rows, stats=stats)
         self.vs.set_latent_vector(names, z)
         return {"layer_nll0": nll0, "layer_nll": nll, "layer_iters": its, "fused": True, **stats}
 
-    def _fit_per_layer_loop(self, iters, gtol, memory_size):
+    def _fit_per_layer_loop(self, iters, gtol, memory_size, fix=True):
         y_cached = self._y_cache
         x_pi, x_ind_pi = self.x, self.x_ind
         nll0, nll, its = [], [], []
@@ -455,6 +476,9 @@ class GPARRegressor:
 
             def objective(vs, pi=pi, x_pi=x_pi, x_ind_pi=x_ind_pi):
                 gpar = _construct_gpar(self, vs, self.m, pi + 1)
+                if not fix:
+                    # The whole chain of layers 0..pi from the raw inputs.
+                    return -gpar.logpdf(self.x, y_cached, None)
                 return -gpar.logpdf(
                     x_pi,
                     y_cached,
@@ -467,7 +491,7 @@ class GPARRegressor:
             f0, f, it = minimise_l_bfgs_b(
                 objective,
                 self.vs,
-                names=[f"{pi}/*"],
+                names=[f"{pi}/*"] if fix else [f"{i}/*" for i in range(pi + 1)],
                 iters=iters,
                 gtol=gtol,
                 memory_size=memory_size,
@@ -475,7 +499,7 @@ class GPARRegressor:
             nll0.append(f0)
             nll.append(f)
             its.append(it)
-            if pi < self.p - 1:
+            if fix and pi < self.p - 1:
                 # Layer pi is fixed from here on: append its posterior means
                 # (data rows and inducing inputs) for layer pi + 1.
                 with torch.no_grad():
@@ -625,6 +649,107 @@ class GPARRegressor:
             batch = self._undo_transforms(batch).cpu().numpy()
         samples = list(batch)
         return samples[0] if num_samples == 1 else samples
+
+    def logpdf(self, x, y, w=None, sample_missing=False, posterior=False, normals=None,
+               generator=None):
+        """Log-density of observations (``gpar/regression.py:461-506``), a
+        Python float: under the prior, or with ``posterior`` under the
+        posterior given the conditioned data.  ``y`` may hold NaNs
+        (missing outputs) and ``w`` weights the noise (default ones).
+
+        ``y`` is transformed by ``transform_y`` and then, when the model
+        normalises and was conditioned, by the conditioned statistics: with
+        ``compat=True`` (the default) un-normalised, as the reference does
+        (``gpar/regression.py:483``), with ``compat=False`` normalised as in
+        :meth:`condition`.  Neither adds a Jacobian term for the transforms;
+        the value is the density of the transformed data.
+
+        The prior scores through the scan-fused chain
+        (``fused.make_scan_logpdf_body``) on rows padded to their bucket,
+        and the posterior through ``fused.make_scan_posterior_logpdf_tail``
+        when the scored width equals the conditioned one.  Otherwise, and
+        with ``sample_missing``, the GP core scores: the conditioned GPAR
+        ``GPAR | (x, y, w)`` and ``GPAR.logpdf``.  ``sample_missing`` fills
+        the missing outputs that feed later layers with one posterior draw
+        per layer; ``normals`` gives those draws' standard normals, one
+        vector per drawing layer in order, else they come from
+        ``generator`` (default: the device's generator of ``utils.rng``)."""
+        if posterior and not self.is_conditioned:
+            raise RuntimeError(
+                "Cannot evaluate the posterior logpdf: no data has been "
+                "conditioned on yet (call fit() or condition() first)."
+            )
+        x_np, y_np, w_np = self._score_data(x, y, w, posterior)
+        if not sample_missing and x_np.shape[0] > 0:
+            value = self._logpdf_scan(x_np, y_np, w_np, posterior)
+            if value is not None:
+                return float(value)
+        return self._logpdf_core(x_np, y_np, w_np, posterior, sample_missing, normals, generator)
+
+    def _score_data(self, x, y, w, posterior):
+        """Scored data on the host, ``y`` transformed and (un)normalised as
+        :meth:`logpdf` says, weights defaulting to ones; and every layer's
+        variables for the scored width (the conditioned one for
+        ``posterior``)."""
+        x_np = _uprank_np(x, self._np_dtype)
+        y_np = _uprank_np(y, self._np_dtype)
+        y_np = np.asarray(self._transform_y(torch.as_tensor(y_np)), dtype=self._np_dtype)
+        if self.normalise_y and self._means is not None:
+            if self.compat:
+                y_np = y_np * self._stds + self._means
+            else:
+                y_np = (y_np - self._means) / self._stds
+        w_np = np.ones(y_np.shape, self._np_dtype) if w is None else _uprank_np(w, self._np_dtype)
+        if posterior:
+            self._ensure_vars(self.p)
+        else:
+            self._ensure_vars(y_np.shape[1], x_np.shape[1])
+        return x_np, y_np, w_np
+
+    def _logpdf_core(self, x_np, y_np, w_np, posterior, sample_missing=False, normals=None,
+                     generator=None):
+        """The GP core's score of prepared data (:meth:`_score_data`): the
+        conditioned GPAR and ``GPAR.logpdf``, a Python float."""
+        if sample_missing and normals is None and generator is None:
+            generator = default_generator(self.device)
+        with torch.no_grad():
+            gpar = _construct_gpar(self, self.vs, x_np.shape[1], y_np.shape[1])
+            if posterior:
+                gpar = gpar | (self.x, self._y_cache, None)
+            return float(gpar.logpdf(self._upload(x_np), y_np, w_np, sample_missing=sample_missing,
+                                     normals=normals, generator=generator))
+
+    def _bucket_score_inputs(self, plan, x_np, y_np, w_np):
+        """``(x_pad, rows)`` of scored data: padded to its row bucket, and
+        its per-layer row arrays derived on the device (uncached, unlike
+        :meth:`_bucket_fit_inputs`)."""
+        from .fused import device_bucket_inputs
+
+        return device_bucket_inputs(x_np, y_np, w_np, n_b=bucket_rows(plan.n),
+                                    impute=bool(self.impute), device=self.device)
+
+    def _logpdf_scan(self, x_np, y_np, w_np, posterior):
+        """The scan-fused score of prepared data (:meth:`_score_data`),
+        bucketed, or None where the posterior's scored width differs from
+        the conditioned one (its factors are the conditioned chain's)."""
+        from .fused import (
+            build_scan_data_plan, make_scan_logpdf_body, make_scan_posterior_logpdf_tail,
+            posterior_factor_layers,
+        )
+
+        names = self.vs.select(None)
+        z = self.vs.latent_vector(names)
+        plan = build_scan_data_plan(self, x_np, y_np, w_np, names)
+        if posterior and (plan.p != self.p or plan.m != self.m):
+            return None
+        x_pad, rows = self._bucket_score_inputs(plan, x_np, y_np, w_np)
+        if not posterior:
+            return make_scan_logpdf_body(plan, self.x_ind, rows_traced=True)(z, x_pad, rows)
+        plan_tr = self._scan_fit_plan(names)
+        x_tr, rows_tr = self._bucket_fit_inputs(plan_tr)
+        factors = posterior_factor_layers(plan_tr, self.x_ind, rows_traced=True)(z, x_tr, rows_tr)
+        tail = make_scan_posterior_logpdf_tail(plan, self.x_ind, rows_traced=True)
+        return tail(z, factors, x_pad, rows, None if plan.sparse else rows_tr["obs_mask"])
 
     def fit_predict(
         self,

@@ -22,6 +22,7 @@ __all__ = [
     "chain_data",
     "bench_kwargs",
     "jax_chain_normals",
+    "jax_missing_normals",
     "close_tail",
 ]
 
@@ -61,6 +62,25 @@ def jax_chain_normals(key, p, n, num_samples=None, dtype=jnp.float64, noise=Fals
         pairs = [one(k) for k in jax.random.split(key, num_samples)]
         z1, z2 = (np.stack([q[i] for q in pairs], axis=1) for i in (0, 1))
     return (z1, z2) if noise else z1
+
+
+def jax_missing_normals(key, y, dtype=jnp.float64):
+    """The standard normals the JAX package's ``GPAR.logpdf(sample_missing=
+    True)`` draws from ``key`` for data ``y`` (n, p): one (n_missing,)
+    vector per layer before the last whose rows under the routing that
+    keeps them (``per_output(keep=True)``) miss its output, each from a
+    subkey split off only at such a layer (``gpar_tpu/models/gpar.py:
+    269-283``; ``FDD.sample``, ``gpar_tpu/gp/core.py:264``)."""
+    from gpar_torch.models.gpar import per_output
+
+    out = []
+    items = list(per_output(y, np.ones_like(y), keep=True))[:-1]
+    for yi, _, _ in items:
+        n_missing = int(np.isnan(yi).sum())
+        if n_missing:
+            key, k = jax.random.split(key)
+            out.append(np.array(jax.random.normal(k, (n_missing,), dtype=dtype)))
+    return out
 
 
 def close_tail(got, want, normals, latent, rtol=1e-8, atol=1e-10):

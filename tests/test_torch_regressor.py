@@ -126,7 +126,7 @@ def test_condition_normalisation_matches_jax():
 def test_unported_options_raise(runs):
     rt = TReg(**runs["kw"], device="cpu")
     with pytest.raises(NotImplementedError):
-        rt.fit(runs["x"], runs["y"], fix=False)
+        rt.fit(runs["x"], runs["y"], fix=False, restarts=2)
     with pytest.raises(NotImplementedError):
         rt.fit(runs["x"], runs["y"], greedy=True)
     with pytest.raises(NotImplementedError):
