@@ -44,6 +44,14 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    tensor on both sides whose columns were written out of place from a
    tensor that requires a gradient (the joint fit's Grams), at (256, 256)
    and (2432, 2432), against the float64 recursion (1e-10 / 1e-4).
+   Then both kernels over a batch of per-element trees (the restarts' and
+   ``fused="batched"``'s Grams: features and parameters carry the batch) at
+   (4, 256, 11840), (4, 256, 256) and (64, 2432, 2432), and at the first
+   with the left operand shared, every element against its plain version in
+   float64 (forward 1e-5 / 1e-12, backward 1e-4 / 1e-10 of the largest
+   entry), two launches of each giving the same bits; in float32 each
+   timed beside B separate 2-D launches, the plain version and B times the
+   single Gram's bound.
 3. Main path at full width: ``GPARRegressor.fit_predict`` at the
    benchmark's configuration (``bench.py``): n=10 000, p=16, 256 inducing
    points, 10 L-BFGS iterations per layer, 100-sample predictive with
@@ -89,18 +97,37 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    of the sparse bench model at full width against the ``10k`` SMSE gates,
    its last position's NLL equal to ``-logpdf``; the dense one at n = 2000,
    p = 4.
-8. Small-input agreement: a float64 fit_predict (p=3, n=100, sparse with
+8. Multi-start fits (``[restarts]`` lines, :func:`phase_restarts`): the
+   bench's request with ``restarts=4``, graphed, cold and warm (the ``10k``
+   gates, identical runs, the sum of layer NLLs at most phase 3's
+   ``restarts=1`` sum plus 1e-3 of it), the sparse joint fit with
+   ``restarts=2`` at full width (depth cut to p = 8), and the dense model
+   with ``restarts=2`` at the largest bucket whose memory, reckoned from
+   what phase 4's graphed step pins, stays under 24 GiB; batched launches
+   of both kernels, host reads, escalations, peak and pinned memory.
+9. ``fused="batched"`` (``[batched]`` lines, :func:`phase_batched_fit`):
+   the dense ``replace=False`` model on fully observed data, p = 16, all
+   layers as one batch, against the graphed scan fit at the largest bucket
+   whose reckoned peak stays under 24 GiB (layer NLLs within 1e-5 at the
+   initial latents; after 10 iterations the gap is printed), and JAX's
+   error for each broken precondition.
+10. Small-input agreement: a float64 fit_predict (p=3, n=100, sparse with
    8 inducing points and dense, ``replace`` True and False) through the
    scan path on the card (graphed) against the same run on the CPU (eager;
    the CPU route is held against the JAX package by the test suite), rtol
    1e-6; then ``fit(fix=False)`` and the prior and posterior scores of
-   other data after it, sparse and dense, the same way.
-9. Summary: ``[main]``, ``[dense]``, ``[ancestral]``, ``[logpdf]`` and
-   ``[free]`` JSON lines, a ``kernels`` JSON line (launches of the sparse
-   and the dense graphed cold runs, the scan-route scores' cold runs and
-   the sparse joint fit; the batched route's from the ``[ancestral]``
-   sparse cold and dense requests), the card line, and last ``{"ok": true,
-   "device": {...}}``.
+   other data after it, sparse and dense, the same way; then three restarts
+   of the graphed scan against the per-layer driver's sequential restarts,
+   and ``fused="batched"`` (one start and two) against the graphed scan,
+   all on the card, from the same normals (rtol 1e-6).
+11. Summary: ``[main]``, ``[dense]``, ``[ancestral]``, ``[logpdf]``,
+   ``[free]``, ``[restarts]`` and ``[batched]`` JSON lines, a ``kernels``
+   JSON line (launches of the sparse and the dense graphed cold runs, the
+   scan-route scores' cold runs and the sparse joint fit; the sample-axis
+   route's from the ``[ancestral]`` sparse cold and dense requests; the
+   per-element-parameter forward and the batched backward from the
+   ``[restarts]`` and ``[batched]`` runs), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` additionally traces one warm (graphed) fit_predict of each
 path with ``torch.profiler``, writes the per-kernel tables to ``DIR``,
@@ -382,15 +409,16 @@ def plain_by_rows(GK, prep, g=None, dtype=None):
     return torch.cat(dx), dy, dp
 
 
-def bwd_plan_text(GK, n, m, n_terms, dtype, device):
+def bwd_plan_text(GK, n, m, n_terms, dtype, device, batch=1):
     """The backward's grid at one shape, as the wrapper plans it."""
     import torch
 
-    ct, r, rps, step = GK._bwd_plan(n, m, n_terms, dtype, device)
-    blocks = ct * r * n_terms
+    ct, r, rps, step = GK._bwd_plan(n, m, n_terms, dtype, device, batch)
+    blocks = ct * r * n_terms * batch
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    elems = f" x {batch} elements" if batch > 1 else ""
     return (f"plan {ct} column tiles x {r} row splits of {rps} rows (steps of {step}) x {n_terms} "
-            f"terms = {blocks} blocks, {blocks / sms:.2f} per SM (busiest {-(-blocks // sms)})")
+            f"terms{elems} = {blocks} blocks, {blocks / sms:.2f} per SM (busiest {-(-blocks // sms)})")
 
 
 def phase_kernel_check(device):
@@ -660,6 +688,161 @@ def phase_batched_kernel_check(device):
     return rows, worst
 
 
+#: Batches of per-element trees: restarts (R = 4) of the sparse fit at Kmn
+#: and Kmm, and all 16 layers times 4 starts of a dense fused="batched" fit
+#: of a 2000-row dataset (bucket 2432).  Features and parameters carry the
+#: batch (each element's length scales give it its own features).
+PARAM_BATCH_SHAPES = [(4, 256, 11_840), (4, 256, 256), (64, 2432, 2432)]
+
+
+def gated_tree_batched(B, dtype, device, m=1, P1=16, pi=9, seed=5):
+    """:func:`gated_tree` with every hyperparameter carrying a leading batch
+    axis of ``B`` elements (the trees of a batch of restarts), each element's
+    drawn around the tree's own values."""
+    import torch
+
+    from gpar_torch.ops.kernels import EQ, Linear
+
+    r = np.random.default_rng(seed)
+
+    def P(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def jitter(v, k=None):
+        shape = (B,) if k is None else (B, k)
+        return P(np.asarray(v) * np.exp(0.3 * r.standard_normal(shape)))
+
+    out_gate = (np.arange(P1) < pi).astype(float)
+    gate_in = P(np.r_[np.ones(m), np.zeros(P1)])
+    gate_out = P(np.r_[np.zeros(m), out_gate])
+    k = (jitter(1.3) * EQ().stretch(jitter(np.r_[[0.2] * m, np.ones(P1)], m + P1))).gate(gate_in)
+    k = k + Linear().stretch(jitter(np.r_[np.ones(m), r.uniform(5, 15, P1)], m + P1)).gate(gate_out)
+    k = k + jitter(0.8) * EQ().stretch(jitter(np.r_[np.ones(m), r.uniform(0.5, 2, P1)], m + P1)).gate(gate_out)
+    return k
+
+
+def element(prep, b):
+    """Element ``b`` of prepared terms with a batch axis (a shared operand as
+    it is)."""
+    kinds, dims, xf, yf, par = prep
+    return (kinds, dims, xf[b] if xf.ndim == 3 else xf, yf[b] if yf.ndim == 3 else yf,
+            par[b] if par.ndim == 2 else par)
+
+
+def phase_param_batched_kernel_check(device):
+    """Both kernels over a batch of per-element trees, the route of the
+    restarts and of ``fused="batched"``: one launch of the forward kernel
+    for B Grams with per-element parameters (the JAX package's vmapped
+    ``pallas_call``), one of the backward kernel for their VJP, at
+    ``PARAM_BATCH_SHAPES``, in both dtypes, every element against its plain
+    version in float64 (forward 1e-5 / 1e-12, backward max|err|/max|plain|
+    1e-4 / 1e-10), two launches of each giving the same bits; at Kmn also
+    with the left operand shared by the batch, whose gradient is the sum
+    over it.  In float32 the device time of each beside B separate 2-D
+    launches, the plain version's (element by element) and B times the
+    single Gram's bound."""
+    import torch
+
+    from gpar_torch.ops import gram_kernel as GK
+
+    tol = {torch.float32: 1e-5, torch.float64: 1e-12}
+    bwd_tol = {torch.float32: 1e-4, torch.float64: 1e-10}
+    rows = {"gram": [], "gram_bwd": []}
+    worst = {k: {torch.float32: 0.0, torch.float64: 0.0} for k in rows}
+    cases = [(B, n, m, "") for B, n, m in PARAM_BATCH_SHAPES] + [(*PARAM_BATCH_SHAPES[0], "left")]
+    for dtype in (torch.float32, torch.float64):
+        for B, n, m, shared in cases:
+            tree = gated_tree_batched(B, dtype, device)
+            x = inputs(n, 17, dtype, device, seed=n + 3)
+            y = inputs(m, 17, dtype, device, seed=m + 4)
+            with torch.no_grad():
+                prep = GK.prepare_terms(tree, x, y)
+            if shared:  # the left features shared by every element
+                prep = (*prep[:2], prep[2][0].contiguous(), *prep[3:])
+            kinds, dims = prep[:2]
+            what = (f"({B}, {n}, {m}) per-element parameters"
+                    + (", left operand shared" if shared else ""))
+            dt = str(dtype)[6:]
+            before = (GK.gram_batched_kernel_launches, GK.gram_bwd_batched_kernel_launches)
+            got = GK.gram_kernel_launch(*prep)
+            g = torch.randn(B, n, m, dtype=dtype, device=device,
+                            generator=torch.Generator(device).manual_seed(B + n))
+            bgot = GK.gram_bwd_kernel_launch(*prep, g)
+            again = (GK.gram_kernel_launch(*prep), GK.gram_bwd_kernel_launch(*prep, g))
+            torch.cuda.synchronize()
+            counted = (GK.gram_batched_kernel_launches - before[0],
+                       GK.gram_bwd_batched_kernel_launches - before[1])
+            if counted != (2, 2) or tuple(got.shape) != (B, n, m):
+                raise AssertionError(f"batched kernels {what}: shape {tuple(got.shape)}, batched "
+                                     f"launches counted {counted}")
+            bits = torch.equal(got, again[0]) and all(torch.equal(a, b) for a, b in zip(bgot, again[1]))
+            del again
+            err = kmax = 0.0
+            ok = True
+            bgrads = [torch.zeros_like(a, dtype=torch.float64) for a in bgot]
+            for b in range(B):
+                el = element(prep, b)
+                want = plain_by_rows(GK, el, dtype=torch.float64)
+                gb = got[b].to(torch.float64)
+                err = max(err, float(torch.max(torch.abs(gb - want))))
+                kmax = max(kmax, float(torch.max(torch.abs(want))))
+                ok = ok and bool(torch.allclose(gb, want, rtol=tol[dtype], atol=tol[dtype]))
+                del want, gb
+                for i, (a, w) in enumerate(zip(bgot, plain_by_rows(GK, el, g[b], dtype=torch.float64))):
+                    if a.ndim == w.ndim:  # a shared operand: the sum over the batch
+                        bgrads[i] += w
+                    else:
+                        bgrads[i][b] = w
+            brel, babs = rel_err([a.to(torch.float64) for a in bgot], bgrads)
+            bok = brel <= bwd_tol[dtype]
+            torch.cuda.synchronize()
+            print(f"[kernel] param-batched gated {dt} {what}: forward max|err| {err:.3e} (max|K| "
+                  f"{kmax:.3e}) {'ok' if ok else 'FAIL'}; backward max|err|/max|plain| {brel:.3e} (max|err| "
+                  f"{babs:.3e}) {'ok' if bok else 'FAIL'}; two launches of each give the same bits: {bits}; "
+                  f"backward {bwd_plan_text(GK, n, m, len(kinds), dtype, x.device, B)}")
+            if not (ok and bok and bits):
+                raise AssertionError(f"param-batched kernels disagree with their plain versions or are not "
+                                     f"deterministic: {dtype} {what}")
+            worst["gram"][dtype] = max(worst["gram"][dtype], err)
+            worst["gram_bwd"][dtype] = max(worst["gram_bwd"][dtype], babs)
+            del bgrads
+            if dtype != torch.float32:
+                continue
+
+            def separate(bwd):
+                for b in range(B):
+                    el = element(prep, b)
+                    if bwd:
+                        GK.gram_bwd_kernel_launch(*el, g[b])
+                    else:
+                        GK.gram_kernel_launch(*el)
+
+            def plain(bwd):
+                for b in range(B):
+                    el = element(prep, b)
+                    if bwd:
+                        plain_by_rows(GK, el, g[b])
+                    else:
+                        plain_by_rows(GK, el)
+
+            for kname, bwd, bound, e in (("gram", False, gram_bound_ms, err),
+                                         ("gram_bwd", True, gram_bwd_bound_ms, babs)):
+                launch = (lambda: GK.gram_bwd_kernel_launch(*prep, g)) if bwd else (lambda: GK.gram_kernel_launch(*prep))
+                reps = 5 if n * m > 10**6 else 20
+                k_ms = device_ms(launch, reps)
+                sep_ms = device_ms(lambda: separate(bwd), max(1, reps // 4))
+                p_ms = device_ms(lambda: plain(bwd), 1)
+                one_ms, b_by = bound(kinds, dims, n, m, 4)
+                rows[kname].append(dict(tree="gated-batched", B=B, n=n, m=m, d=17, shared=shared or "none",
+                                        ms=k_ms, separate_ms=sep_ms, plain_ms=p_ms, bound_ms=B * one_ms,
+                                        bound_by=b_by, max_abs_err=e))
+                print(f"[kernel] time param-batched {kname} {what} f32: kernel {k_ms:.5f} ms device, {B} "
+                      f"separate 2-D launches {sep_ms:.5f} ms, plain {p_ms:.5f} ms, {B} x the single bound "
+                      f"{B * one_ms:.6f} ms ({b_by})")
+            del got, bgot, g
+    return rows, worst
+
+
 def operator_table(prof, top=10):
     """Device time by operator (the kernels of nested operators counted in
     their parents' too), the ``top`` largest, as ``{name: [ms, calls]}``."""
@@ -824,8 +1007,6 @@ def phase_main_path(device, dense=False):
     the inducing points (``x_ind=None``: the exact marginal likelihood over
     the (11 840, 11 840) bucketed rows).  Lines are tagged ``[main]`` or
     ``[dense]``."""
-    import gc
-
     import torch
 
     import gpar_torch
@@ -847,14 +1028,6 @@ def phase_main_path(device, dense=False):
     reg.condition(x, y)
     reg._ensure_vars(reg.p)
     z_init = reg.vs.snapshot()
-
-    def reserved():
-        """Memory the allocator holds once its unused cache is released: the
-        live tensors and the captured graphs' pools."""
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        return torch.cuda.memory_reserved()
 
     def run(**kw):
         """One request from the same initial latents; the Gram counters are
@@ -892,9 +1065,9 @@ def phase_main_path(device, dense=False):
                 f"{wall - rep['wall_clock_s']:.3f} s); peak device memory "
                 f"{rep['peak_bytes'] / 2**30:.2f} GiB")
 
-    before = reserved()
+    before = reserved_bytes()
     cold = run()
-    pinned = reserved() - before
+    pinned = reserved_bytes() - before
     warm = run()
     res = {}
     for tag, (out, wall, rep, counts) in (("graphed cold", cold), ("graphed warm", warm)):
@@ -1254,6 +1427,292 @@ def phase_free(device):
     return res
 
 
+#: The least device memory a phase's reckoned peak may take; the largest
+#: bucket under it is run.
+RECKON_LIMIT_GIB = 24.0
+#: Outputs of the multi-start joint fit (the bench's 16 cut to 8).
+JOINT_RESTART_DEPTH = 8
+
+
+def reserved_bytes():
+    """Memory the allocator holds once its unused cache is released: the
+    live tensors and the captured graphs' pools."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def largest_bucket(per_bucket_gib):
+    """``(n_b, reckoned GiB)``: the largest row bucket up to 11 840 whose
+    reckoned peak ``per_bucket_gib(n_b)`` stays under ``RECKON_LIMIT_GIB``."""
+    from gpar_torch.config import bucket_rows
+
+    buckets, n = [], 64
+    while not buckets or buckets[-1] < 11_840:
+        buckets.append(bucket_rows(n))
+        n = buckets[-1] + 1
+    fits = [b for b in buckets if per_bucket_gib(b) < RECKON_LIMIT_GIB]
+    return fits[-1], per_bucket_gib(fits[-1])
+
+
+def rows_for_bucket(n_b):
+    """A row count whose bucket is ``n_b`` (its bucket's 0.85)."""
+    from gpar_torch.config import bucket_rows
+
+    n = int(0.85 * n_b)
+    assert bucket_rows(n) == n_b, (n, n_b)
+    return n
+
+
+def check_batched_counts(tag, c):
+    """A multi-start or batched fit: batched launches of both kernels, every
+    Gram through the forward kernel, none through a plain route or
+    ``gram_eval``, backward launches equal to the Grams under autograd."""
+    if (c["gram_batched_kernel_launches"] <= 0 or c["gram_bwd_batched_kernel_launches"] <= 0
+            or c["gram_plain_cuda_calls"] or c["gram_eval_cuda_calls"]
+            or c["gram_bwd_kernel_launches"] != c["gram_autograd_calls"]):
+        raise AssertionError(f"{tag}: batched kernels not launched, or a Gram bypassed them: {c}")
+
+
+def phase_restarts(device, main_res, dense_res, free_res):
+    """Multi-start fits (``[restarts]`` lines): the bench's sparse request at
+    full width with ``restarts=4``, graphed, cold and warm (the ``10k``
+    gates, identical results, the sum of layer NLLs at most the
+    ``restarts=1`` fit's of phase 3 plus 1e-3 of its magnitude); the sparse
+    joint fit with ``restarts=2`` at full width, its depth cut to
+    ``JOINT_RESTART_DEPTH`` outputs, against the SMSE gates; the dense model with
+    ``restarts=2`` at the largest bucket whose memory, reckoned from the
+    memory phase 4's graphed single-start step pins at 11 840 rows times
+    2 (n_b / 11 840)^2, stays under 24 GiB.  Each run's wall-clock, batched launches of both
+    kernels, host reads, escalations and peak memory; the graphed one's
+    pinned memory."""
+    import torch
+
+    import gpar_torch
+    from gpar_torch import GPARRegressor
+    from gpar_torch.ops import gram_kernel as GK
+    from gpar_torch.utils.metrics import smse
+
+    P = "[restarts]"
+    gpar_torch.config.epsilon = 1e-6
+    n, p, n_test, iters, R = 10_000, 16, 1024, 10, 4
+    x, y, f = make_data(n, p)
+    test_idx = np.arange(len(x))[:: max(1, len(x) // n_test)][:n_test]
+    x_test, f_test = x[test_idx], f[test_idx]
+    reg = GPARRegressor(**model_kwargs(x), device=device)
+    reg.condition(x, y)
+    reg._ensure_vars(reg.p)
+    z_init = reg.vs.snapshot()
+
+    def run():
+        reg.vs.restore(z_init)
+        gen = torch.Generator(device).manual_seed(0)
+        out, wall, peak, c = launches_checked(
+            f"restarts={R}", lambda: reg.fit_predict(x, y, x_test, iters=iters, num_samples=100,
+                                                     credible_bounds=True, generator=gen, restarts=R),
+            backward=True)
+        return out, wall, dict(reg.last_fit_report, peak_gib=peak), c
+
+    res = {}
+    before = reserved_bytes()
+    cold = run()
+    pinned = reserved_bytes() - before
+    warm = run()
+    for tag, (out, wall, rep, c) in (("graphed cold", cold), ("graphed warm", warm)):
+        q = check_quality(P, f"restarts={R} {tag}", out, rep, f_test)
+        check_batched_counts(tag, c)
+        if rep["restarts"] != R or rep["graph_replays"] <= 0:
+            raise AssertionError(f"{tag}: not a graphed fit with {R} restarts: {rep}")
+        bound = reg.p * iters + rep["linesearch_trials"] + rep["linesearch_episodes"] + 1
+        if rep["host_syncs"] > bound:
+            raise AssertionError(f"{tag}: {rep['host_syncs']} host reads, more than {bound}")
+        res[tag] = dict(q, wall_s=wall, fit_s=rep["wall_clock_s"], capture_s=rep["capture_s"],
+                        host_syncs=rep["host_syncs"], linesearch_trials=rep["linesearch_trials"],
+                        linesearch_episodes=rep["linesearch_episodes"],
+                        ladder_escalations=rep["ladder_escalations"], peak_gib=rep["peak_gib"],
+                        launches=c["gram_kernel_launches"], batched_launches=c["gram_batched_kernel_launches"],
+                        bwd_launches=c["gram_bwd_kernel_launches"],
+                        bwd_batched_launches=c["gram_bwd_batched_kernel_launches"],
+                        graph_replays=rep["graph_replays"], layer_iters=rep["layer_iters"].tolist())
+        print(f"{P} restarts={R} {tag}: fit_predict {wall:.3f} s (fit {rep['wall_clock_s']:.3f} s, capture "
+              f"{rep['capture_s']:.3f} s); peak device memory {rep['peak_gib']:.2f} GiB; host reads "
+              f"{rep['host_syncs']} (bound {bound}: {reg.p} layers x {iters} iterations + backtracking rounds "
+              f"{rep['linesearch_trials']} + episodes {rep['linesearch_episodes']} + 1); factorisations past "
+              f"the first jitter rung {rep['ladder_escalations']} (each element counted); gram launches "
+              f"{c['gram_kernel_launches']} ({c['gram_batched_kernel_launches']} batched), backward launches "
+              f"{c['gram_bwd_kernel_launches']} ({c['gram_bwd_batched_kernel_launches']} batched) for "
+              f"{c['gram_autograd_calls']} Grams under autograd, plain-route CUDA Grams "
+              f"{c['gram_plain_cuda_calls']}, gram_eval on CUDA {c['gram_eval_cuda_calls']}")
+    res["pinned_gib"] = pinned / 2**30
+    identical = (np.array_equal(cold[2]["layer_nll"], warm[2]["layer_nll"])
+                 and all(np.array_equal(a, b) for a, b in zip(cold[0], warm[0])))
+    one, many = main_res["scan_nll"], res["graphed warm"]["nll"]
+    limit = one + 1e-3 * abs(one)
+    print(f"{P} the cached graphed step with {R} restarts pins {res['pinned_gib']:.2f} GiB (restarts=1: "
+          f"{main_res['pinned_gib']:.2f} GiB); cold and warm identical: {identical}; sum of layer NLLs "
+          f"{many!r} against restarts=1's {one!r} (limit {limit!r})")
+    if not identical or many > limit:
+        raise AssertionError(f"restarts={R}: cold and warm differ, or the sum of layer NLLs {many} is above "
+                             f"{limit}")
+
+    # The sparse joint fit, two starts per position, at full width with its
+    # depth cut to the first 8 outputs: its layer evaluations grow as the
+    # square of the depth (91 s at p = 16 on an H100).
+    pj = JOINT_RESTART_DEPTH
+    reg2 = GPARRegressor(**model_kwargs(x), compat=False, device=device)
+    gen = torch.Generator(device).manual_seed(1)
+    _, fit_s, peak, c = launches_checked(
+        "joint fit restarts=2",
+        lambda: reg2.fit(x, y[:, :pj], fix=False, iters=iters, restarts=2, generator=gen), backward=True)
+    check_batched_counts("joint fit restarts=2", c)
+    rep = reg2.last_fit_report
+    mean = reg2.predict(x_test, num_samples=100, generator=torch.Generator(device).manual_seed(0))
+    sm = smse(mean, f_test[:, :pj])
+    res["joint"] = dict(p=pj, fit_s=fit_s, peak_gib=peak, host_syncs=rep["host_syncs"],
+                        linesearch_trials=rep["linesearch_trials"], ladder_escalations=rep["ladder_escalations"],
+                        layer_iters=rep["layer_iters"].tolist(), layer_nll_last=float(rep["layer_nll"][-1]),
+                        launches=c["gram_kernel_launches"], batched_launches=c["gram_batched_kernel_launches"],
+                        bwd_launches=c["gram_bwd_kernel_launches"],
+                        bwd_batched_launches=c["gram_bwd_batched_kernel_launches"],
+                        mean_smse=float(np.nanmean(sm)), worst_smse=float(np.nanmax(sm)))
+    print(f"{P} sparse joint fit (fix=False, restarts=2, full width, depth cut to p = {pj}): {fit_s:.3f} s; "
+          f"peak device memory {peak:.2f} GiB; host reads {rep['host_syncs']}; escalations "
+          f"{rep['ladder_escalations']}; iterations per position {res['joint']['layer_iters']}; last "
+          f"position's NLL {res['joint']['layer_nll_last']!r} (restarts=1 at p = 16, phase 7: "
+          f"{free_res['sparse']['layer_nll_last']!r}); gram launches {c['gram_kernel_launches']} "
+          f"({c['gram_batched_kernel_launches']} batched), backward {c['gram_bwd_kernel_launches']} "
+          f"({c['gram_bwd_batched_kernel_launches']} batched); SMSE mean {res['joint']['mean_smse']:.3e}, "
+          f"worst {res['joint']['worst_smse']:.3e}")
+    if (not np.isfinite(mean).all() or res["joint"]["mean_smse"] > GATES["mean_smse"]
+            or res["joint"]["worst_smse"] > GATES["worst_smse"]):
+        raise AssertionError("joint fit restarts=2: non-finite predictions or SMSE above the gates")
+    del reg2
+
+    # The dense model, two starts per layer, at the largest bucket whose
+    # reckoned memory stays under the limit: the graphed step's pinned
+    # memory (its graphs' pools hold the (rows, rows) temporaries, which the
+    # allocator's peak does not count) scales with the batch and rows^2.
+    per_n2 = dense_res["pinned_gib"] / 11_840**2
+    n_b, reckoned = largest_bucket(lambda b: 2 * per_n2 * b * b)
+    nd = rows_for_bucket(n_b)
+    xd, yd, fd = make_data(nd, p, seed=3)
+    kw = dict(model_kwargs(xd), x_ind=None)
+    regd = GPARRegressor(**kw, device=device)
+    gen = torch.Generator(device).manual_seed(2)
+    before = reserved_bytes()
+    _, fit_s, peak, c = launches_checked(
+        "dense restarts=2", lambda: regd.fit(xd, yd, iters=iters, restarts=2, generator=gen), backward=True)
+    pinned_d = reserved_bytes() - before
+    check_batched_counts("dense restarts=2", c)
+    rep = regd.last_fit_report
+    if not np.isfinite(rep["layer_nll"]).all() or rep["graph_replays"] <= 0:
+        raise AssertionError(f"dense restarts=2: non-finite NLLs or no graph replays: {rep}")
+    res["dense"] = dict(n=nd, bucket=n_b, reckoned_gib=reckoned, fit_s=fit_s, capture_s=rep["capture_s"],
+                        peak_gib=peak, pinned_gib=pinned_d / 2**30, host_syncs=rep["host_syncs"],
+                        ladder_escalations=rep["ladder_escalations"], layer_iters=rep["layer_iters"].tolist(),
+                        nll0=float(np.sum(rep["layer_nll0"])), nll=float(np.sum(rep["layer_nll"])),
+                        launches=c["gram_kernel_launches"], batched_launches=c["gram_batched_kernel_launches"],
+                        bwd_launches=c["gram_bwd_kernel_launches"],
+                        bwd_batched_launches=c["gram_bwd_batched_kernel_launches"])
+    print(f"{P} dense restarts=2 at n = {nd} (bucket {n_b}: reckoned {reckoned:.2f} GiB from the "
+          f"{dense_res['pinned_gib']:.2f} GiB phase 4's graphed step pins at 11 840 rows): graphed fit "
+          f"{fit_s:.3f} s (capture "
+          f"{rep['capture_s']:.3f} s); peak device memory {peak:.2f} GiB, pinned {pinned_d / 2**30:.2f} GiB; "
+          f"sum NLL {res['dense']['nll0']:.1f} -> {res['dense']['nll']:.1f}; host reads {rep['host_syncs']}; "
+          f"escalations {rep['ladder_escalations']}; gram launches {c['gram_kernel_launches']} "
+          f"({c['gram_batched_kernel_launches']} batched), backward {c['gram_bwd_kernel_launches']} "
+          f"({c['gram_bwd_batched_kernel_launches']} batched)")
+    del regd
+    from gpar_torch.models.graphs import clear_cache
+
+    clear_cache()
+    return res
+
+
+def phase_batched_fit(device, dense_res):
+    """``fused="batched"`` (``[batched]`` lines): the dense model with
+    ``replace=False`` on fully observed data, p = 16, every layer's L-BFGS as
+    one batch of 16, against the scan fit (``fused=True``, graphed) on the
+    same data, at the largest bucket whose peak, reckoned from phase 4's
+    measured eager-step peak at 11 840 rows times 16 (n_b / 11 840)^2,
+    stays under 24 GiB: at ``iters=0`` the layer NLLs at the initial
+    latents agree to 1e-5 of their largest (the same objective in
+    float32); after 10 iterations the gap is printed, not held: float32
+    L-BFGS trajectories part once a factorisation's rounding moves the
+    jitter ladder to another rung (both routes' escalations are printed),
+    and the ``[small]`` phase holds the two routes to each other in
+    float64 on the card after their iterations instead.  Both
+    wall-clocks, the launch counts, and JAX's ``ValueError`` for every
+    broken precondition."""
+    import torch
+
+    import gpar_torch
+    from gpar_torch import GPARRegressor
+
+    P = "[batched]"
+    gpar_torch.config.epsilon = 1e-6
+    p, iters = 16, 10
+    per_n2 = dense_res["peak_gib_eager"] / 11_840**2
+    n_b, reckoned = largest_bucket(lambda b: p * per_n2 * b * b)
+    n = rows_for_bucket(n_b)
+    x, y, _ = make_data(n, p, seed=4)
+    kw = dict(model_kwargs(x), x_ind=None, replace=False)
+    res = dict(n=n, bucket=n_b, reckoned_gib=reckoned)
+    for it, limit in ((0, 1e-5), (iters, None)):
+        runs = {}
+        for fused in ("batched", True):
+            reg = GPARRegressor(**kw, device=device)
+            _, fit_s, peak, c = launches_checked(
+                f"fused={fused!r} iters={it}", lambda: reg.fit(x, y, iters=it, fused=fused), backward=True)
+            rep = reg.last_fit_report
+            if fused == "batched":
+                check_batched_counts("fused='batched'", c)
+            runs[fused] = dict(fit_s=fit_s, peak_gib=peak, layer_nll=rep["layer_nll"].tolist(),
+                               layer_iters=rep["layer_iters"].tolist(), host_syncs=rep["host_syncs"],
+                               ladder_escalations=rep["ladder_escalations"],
+                               launches=c["gram_kernel_launches"],
+                               batched_launches=c["gram_batched_kernel_launches"],
+                               bwd_launches=c["gram_bwd_kernel_launches"],
+                               bwd_batched_launches=c["gram_bwd_batched_kernel_launches"])
+        a, b = np.asarray(runs["batched"]["layer_nll"]), np.asarray(runs[True]["layer_nll"])
+        gap = float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+        res[f"iters{it}"] = dict(batched=runs["batched"], scan=runs[True], gap=gap, limit=limit)
+        rb, rs = runs["batched"], runs[True]
+        print(f"{P} dense replace=False p={p} n={n} (bucket {n_b}, reckoned peak {reckoned:.2f} GiB) "
+              f"iters={it}: fused='batched' {rb['fit_s']:.3f} s (peak {rb['peak_gib']:.2f} GiB, host reads "
+              f"{rb['host_syncs']}, gram launches {rb['launches']} ({rb['batched_launches']} batched), backward "
+              f"{rb['bwd_launches']} ({rb['bwd_batched_launches']} batched)) against fused=True "
+              f"{rs['fit_s']:.3f} s (peak {rs['peak_gib']:.2f} GiB, gram launches {rs['launches']}); "
+              f"escalations {rb['ladder_escalations']} and {rs['ladder_escalations']}; largest layer-NLL gap "
+              f"{gap:.3e} of the largest |NLL| ({'limit %g' % limit if limit else 'printed, not held'}); "
+              f"layer NLLs batched {rb['layer_nll']}, scan {rs['layer_nll']}")
+        if not np.isfinite(a).all() or (limit is not None and not gap <= limit):
+            raise AssertionError(f"fused='batched' disagrees with fused=True at iters={it}: {gap:.3e}")
+    # Every broken precondition raises JAX's error.
+    xs, ys, _ = make_data(40, 3, seed=5)
+    yn = ys.copy()
+    yn[3, 1] = np.nan
+    broken = {"a dense model": (dict(x_ind=np.linspace(0, 10, 5)), ys),
+              "replace=False": (dict(replace=True), ys), "scale_tie=False": (dict(scale_tie=True), ys),
+              "fully-observed data": ({}, yn)}
+    for what, (extra, yy) in broken.items():
+        reg = GPARRegressor(**dict(dict(noise=0.1, x_ind=None, replace=False), **extra), device=device)
+        try:
+            reg.fit(xs, yy, iters=1, fused="batched")
+        except ValueError as e:
+            if str(e) != f"batched layer fits require {what}":
+                raise
+        else:
+            raise AssertionError(f"fused='batched' without {what} did not raise")
+    print(f"{P} fused='batched' raises JAX's ValueError for each of: {', '.join(broken)}")
+    return res
+
+
 def phase_small_agreement():
     import torch
 
@@ -1305,6 +1764,55 @@ def phase_small_agreement():
         np.testing.assert_allclose(sc, sh, rtol=1e-6)
         print(f"[small] float64 {model} fit(fix=False) and its prior and posterior scores, on cuda == on cpu "
               f"(rtol 1e-6): layer NLL {nc.tolist()}, scores {sc}")
+    # Restarts: the scan step's R starts as one batch (graphed) against the
+    # per-layer driver's R starts one after the other, both on the card,
+    # from the same normals in each route's shape (a layer's padded span
+    # lists its latents in the driver's order, so the driver takes the
+    # scan's normals cut to the layer's width).
+    R = 3
+    for model, n_ind in (("sparse", 8), ("dense", None)):
+        kw = model_kwargs(x, n_ind=n_ind or 8)
+        if n_ind is None:
+            kw["x_ind"] = None
+        reg = GPARRegressor(**kw, device="cuda", dtype=torch.float64)
+        reg.condition(x, y)
+        reg._ensure_vars(reg.p)
+        s_max = reg._scan_fit_plan(reg.vs.select(None)).s_max
+        widths = [int(reg.vs.latent_vector(reg.vs.select([f"{pi}/*"])).shape[0]) for pi in range(reg.p)]
+        normals = rng.standard_normal((reg.p, R - 1, s_max))
+        outs = {}
+        for fused, nrm in ((True, list(normals)), (False, [a[:, :w] for a, w in zip(normals, widths)])):
+            r2 = GPARRegressor(**kw, device="cuda", dtype=torch.float64)
+            r2.fit(x, y, iters=5, restarts=R, fused=fused, restart_normals=nrm)
+            rep = r2.last_fit_report
+            assert rep["restarts"] == R and (rep["graph_replays"] > 0) == fused, rep
+            outs[fused] = (rep["layer_nll"], r2.vs.snapshot())
+        (nc, lc), (nh, lh) = outs[True], outs[False]
+        np.testing.assert_allclose(nc, nh, rtol=1e-6)
+        for k in lh:
+            np.testing.assert_allclose(lc[k], lh[k], rtol=1e-6, atol=1e-8)
+        print(f"[small] float64 {model} restarts={R}: the graphed scan's batched starts == the per-layer "
+              f"driver's sequential starts, both on cuda (rtol 1e-6): layer NLL {nc.tolist()}")
+    # fused="batched" against the graphed scan fit, float64, on the card:
+    # the dense replace=False model on fully observed data, one start and
+    # two (the same normals: both routes take (R - 1, s_max) per layer).
+    kw = dict(model_kwargs(x), x_ind=None, replace=False)
+    for R in (1, 2):
+        outs = {}
+        for fused in (True, "batched"):
+            reg = GPARRegressor(**kw, device="cuda", dtype=torch.float64)
+            reg.condition(x, y)
+            reg._ensure_vars(reg.p)
+            s_max = reg._scan_fit_plan(reg.vs.select(None)).s_max
+            normals = list(np.random.default_rng(8).standard_normal((reg.p, R - 1, s_max)))
+            reg.fit(x, y, iters=5, fused=fused, restarts=R, restart_normals=normals if R > 1 else None)
+            outs[fused] = (reg.last_fit_report["layer_nll"], reg.vs.snapshot())
+        (nc, lc), (nh, lh) = outs["batched"], outs[True]
+        np.testing.assert_allclose(nc, nh, rtol=1e-6)
+        for k in lh:
+            np.testing.assert_allclose(lc[k], lh[k], rtol=1e-6, atol=1e-8)
+        print(f"[small] float64 dense replace=False restarts={R}: fused='batched' == the graphed scan fit, "
+              f"both on cuda (rtol 1e-6): layer NLL {nc.tolist()}")
 
 
 def phase_profile(state, out_dir, tag="main"):
@@ -1393,6 +1901,9 @@ def main(argv):
 
     rows, worst = phase_kernel_check("cuda")
     rows["gram_batched"], worst["gram_batched"] = phase_batched_kernel_check("cuda")
+    pb_rows, pb_worst = phase_param_batched_kernel_check("cuda")
+    rows["gram_param_batched"], worst["gram_param_batched"] = pb_rows["gram"], pb_worst["gram"]
+    rows["gram_bwd_batched"], worst["gram_bwd_batched"] = pb_rows["gram_bwd"], pb_worst["gram_bwd"]
     if "--kernels-only" in argv:
         print("[kernel] " + json.dumps(rows))
         return 0
@@ -1402,6 +1913,8 @@ def main(argv):
     anc_res = phase_ancestral("cuda", state[0])
     logpdf_res = phase_logpdf("cuda", state[0], dense_state[0])
     free_res = phase_free("cuda")
+    restarts_res = phase_restarts("cuda", main_res, dense_res, free_res)
+    batched_res = phase_batched_fit("cuda", dense_res)
     phase_small_agreement()
     if "--profile" in argv:
         out_dir = argv[argv.index("--profile") + 1]
@@ -1472,7 +1985,45 @@ def main(argv):
     print("[dense] " + json.dumps(dense_res))
     print("[ancestral] " + json.dumps(anc_res))
     print("[logpdf] " + json.dumps(logpdf_res))
+    # Both kernels over a batch of per-element trees: the restarts' and
+    # fused="batched"'s route; launches from the [restarts] phase's sparse
+    # graphed cold run, its joint fit and its dense run, and the [batched]
+    # phase's 10-iteration batched fit, each counted from 0.
+    batched_paths = {
+        "restarts sparse": restarts_res["graphed cold"], "restarts joint": restarts_res["joint"],
+        "restarts dense": restarts_res["dense"], "fused=batched": batched_res["iters10"]["batched"],
+    }
+    for name, count, replaces, check in (
+        ("gram_param_batched", "batched_launches", "gpar_tpu/ops/pallas_gram.py:215",
+         "kernel == plain at f32 rtol/atol 1e-5 and f64 1e-12, every element; two launches equal"),
+        ("gram_bwd_batched", "bwd_batched_launches", "gpar_tpu/ops/pallas_gram.py:289",
+         "max|err|/max|plain| <= 1e-4 at f32 and 1e-10 at f64, every element; two launches equal"),
+    ):
+        big = rows[name][0]  # Kmn of 4 restarts
+        by_path = {k: v[count] for k, v in batched_paths.items()}
+        kernels["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "gpar_torch/csrc/gram.cu",
+            "replaces": replaces,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "check": check,
+            "max_abs_err": worst[name][torch.float32],
+            "ms": big["ms"],
+            "kernel_ms": big["ms"],
+            "separate_ms": big["separate_ms"],
+            "plain_ms": big["plain_ms"],
+            "bound_ms": big["bound_ms"],
+            "bound_by": big["bound_by"],
+            "library_ms": None,
+            "shape": [big["B"], big["n"], big["m"], big["d"]],
+            "dtype": "float32",
+            "per_shape": rows[name],
+        })
     print("[free] " + json.dumps(free_res))
+    print("[restarts] " + json.dumps(restarts_res))
+    print("[batched] " + json.dumps(batched_res))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

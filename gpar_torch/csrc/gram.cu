@@ -56,6 +56,10 @@
 // operands sx / sy elements apart and a stride of 0 for an operand all
 // elements share (the inducing inputs, the training rows).  The tiles and
 // their arithmetic are the 2-D kernel's; the grid only grows by the batch.
+// The parameter vector has a stride of its own, sp: 0 shares one vector
+// (the sample axis of the serving tails), 2T + 1 gives every element its
+// own (the JAX package vmaps the fit's objective over restarts and layers,
+// which batches its pallas_call's params block too).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -150,14 +154,16 @@ template <typename T>
 __global__ void __launch_bounds__(GPAR_THREADS, 3)
 gram_tile_kernel(const T* __restrict__ xf, const T* __restrict__ yf,
                  const T* __restrict__ par, T* __restrict__ out, int n, int m,
-                 int D, int Dt, long long sx, long long sy, TermSpec spec) {
+                 int D, int Dt, long long sx, long long sy, long long sp, TermSpec spec) {
   using C = FwdCfg<T>;
   constexpr int VEC = C::VEC, BC = C::BC, BR = C::BR, RT = C::RT, KC = C::KC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // blockIdx.z is the batch element: its operands sit sx / sy elements
-  // apart (0 for an operand every element shares), its Gram n * m apart.
+  // apart and its parameters sp (0 for what every element shares), its
+  // Gram n * m apart.
   xf += blockIdx.z * sx;
   yf += blockIdx.z * sy;
+  par += blockIdx.z * sp;
   out += (size_t)blockIdx.z * n * m;
   T* xT = reinterpret_cast<T*>(smem_raw);  // [kw][BR], feature-major
   T* yT = xT + min(D, KC) * BR;            // [kw][BC]
@@ -291,11 +297,13 @@ gram_tile_kernel(const T* __restrict__ xf, const T* __restrict__ yf,
 
 template <typename T>
 static int launch(const void* xf, const void* yf, const void* par, void* out,
-                  int batch, int n, int m, int D, long long sx, long long sy, int n_terms,
-                  const int* kinds, const int* offs, const int* dims, void* stream) {
+                  int batch, int n, int m, int D, long long sx, long long sy, long long sp,
+                  int n_terms, const int* kinds, const int* offs, const int* dims,
+                  void* stream) {
   using C = FwdCfg<T>;
   TermSpec spec;
   if (batch < 1 || n < 1 || m < 1 || D % 4 != 0 || sx < 0 || sy < 0 ||
+      (sp != 0 && sp != 2 * n_terms + 1) ||
       !fill_spec(spec, n_terms, kinds, offs, dims, D))
     return (int)cudaErrorInvalidValue;
   // Rows load as 16-byte vectors, so every element's operands must stay
@@ -309,7 +317,7 @@ static int launch(const void* xf, const void* yf, const void* par, void* out,
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidConfiguration;
   const size_t smem = C::smem(D < C::KC ? D : C::KC);  // at most 48 KB
   gram_tile_kernel<T><<<grid, GPAR_THREADS, smem, (cudaStream_t)stream>>>(
-      (const T*)xf, (const T*)yf, (const T*)par, (T*)out, n, m, D, Dt, sx, sy, spec);
+      (const T*)xf, (const T*)yf, (const T*)par, (T*)out, n, m, D, Dt, sx, sy, sp, spec);
   return (int)cudaGetLastError();
 }
 
@@ -384,6 +392,17 @@ static int launch(const void* xf, const void* yf, const void* par, void* out,
 // tree.  A second kernel sums the partials in a fixed order, one lane per
 // 8 partials (at most 8 lanes) per entry, combined in lane order.  There
 // are no atomics: the result is the same bit for bit from call to call.
+//
+// A batch (the JAX package vmaps the VJP with the forward, over restarts
+// and layers): g is (B, n, m), and xf, yf and par each either carry the
+// batch (strides sx = n D, sy = m D, sp = 2T + 1) or are shared by every
+// element (stride 0).  The grid's z runs over b T + t, so a batch fills the
+// card without row splits; the partials get a batch axis, du_part (B, ct,
+// n, D), dv_part (B, r, m, D) and sc_part (3, T, B, ct, r).  The reduction
+// sums a batched operand's partials per element and a shared operand's
+// over every element's, in the same fixed order (element, then tile or
+// split): the gradient of a shared operand is the sum over the batch, with
+// no atomics.  At B = 1 the launch, the plan and the bits are the 2-D ones.
 //
 // What bounds it on an H100: the function reads G, xf and yf once and
 // writes dxf, dyf (bytes: (n m + 2 (n + m) D) sizeof(T)).  Its operations,
@@ -569,7 +588,7 @@ gram_bwd_kernel(const T* __restrict__ xf, const T* __restrict__ yf,
                 const T* __restrict__ par, const T* __restrict__ g,
                 T* __restrict__ du_part, T* __restrict__ dv_part,
                 T* __restrict__ sc_part, int n, int m, int D, int rows_per_split,
-                int dmax, TermSpec spec) {
+                int dmax, long long sx, long long sy, long long sp, TermSpec spec) {
   using C = BwdCfg<T, ROWS>;
   constexpr int BC = C::BC, BR = C::BR, R = C::R, VEC = C::VEC, SV = C::SV, KC = C::KC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -579,7 +598,15 @@ gram_bwd_kernel(const T* __restrict__ xf, const T* __restrict__ yf,
   __shared__ T red[C::WARPS][3];
 
   const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5;
-  const int t = blockIdx.z, ct = blockIdx.x, rs = blockIdx.y;
+  // blockIdx.z = b T + t: batch element b, term t.
+  const int t = blockIdx.z % spec.n_terms, b = blockIdx.z / spec.n_terms;
+  const int nb = gridDim.z / spec.n_terms, ct = blockIdx.x, rs = blockIdx.y;
+  xf += b * sx;
+  yf += b * sy;
+  par += b * sp;
+  g += (size_t)b * n * m;
+  du_part += (size_t)b * gridDim.x * n * D;
+  dv_part += (size_t)b * gridDim.y * m * D;
   const int kind = spec.kind[t], off = spec.off[t], d = spec.dim[t];
   const int c0 = ct * BC;
   const int rbeg = rs * rows_per_split;
@@ -728,61 +755,73 @@ gram_bwd_kernel(const T* __restrict__ xf, const T* __restrict__ yf,
   if (tid < 3) {
     T acc = T(0);
     for (int wi = 0; wi < C::WARPS; ++wi) acc += red[wi][tid];
-    sc_part[(((size_t)tid * spec.n_terms + t) * gridDim.x + ct) * gridDim.y + rs] = acc;
+    sc_part[((((size_t)tid * spec.n_terms + t) * nb + b) * gridDim.x + ct) * gridDim.y + rs] = acc;
   }
 }
 
 // Sums the partials in a fixed order: dxf over column tiles, dyf over row
 // splits, each dpar entry over all blocks of its term; pad columns get
-// zeros.  Blocks [0, bx) take 256 / lx consecutive entries of dxf each,
-// with lx lanes splitting the column tiles; blocks [bx, bx + by) do the
-// same for dyf with ly lanes; the last 2T + 1 blocks take one scalar each.
-// The lanes' sums are combined in lane order: the result does not depend
-// on scheduling.
+// zeros.  A batched operand (xb, yb, pb) sums each element's own partials;
+// a shared one sums every element's, element by element.  Blocks [0, bx)
+// take 256 / lx consecutive entries of dxf each, with lx lanes splitting
+// its partials; blocks [bx, bx + by) do the same for dyf with ly lanes; the
+// rest take one scalar each, 2T + 1 per element of a batched par (2T + 1
+// for a shared one).  The lanes' sums are combined in lane order: the
+// result does not depend on scheduling.
 template <typename T>
 __global__ void __launch_bounds__(GPAR_THREADS)
 gram_bwd_reduce(const T* __restrict__ du_part, const T* __restrict__ dv_part,
                 const T* __restrict__ sc_part, T* __restrict__ dxf,
                 T* __restrict__ dyf, T* __restrict__ dpar, int n, int m, int D,
-                int Dt, int CT, int R, int bx, int lx, int by, int ly, TermSpec spec) {
+                int Dt, int CT, int R, int B, int xb, int yb, int pb, int bx, int lx,
+                int by, int ly, TermSpec spec) {
   __shared__ T buf[GPAR_THREADS];
   const int tid = threadIdx.x;
   int blk = blockIdx.x;
   if (blk < bx + by) {
     const bool is_x = blk < bx;
-    const int lanes = is_x ? lx : ly, P = is_x ? CT : R;
+    const bool own = is_x ? xb : yb;
+    const int lanes = is_x ? lx : ly;
+    const int P = (is_x ? CT : R) * (own ? 1 : B);  // partials per entry
     const int per = GPAR_THREADS / lanes;
     const int lane = tid / per, el = tid % per;
-    const size_t E = (size_t)(is_x ? n : m) * D;
+    const size_t E = (size_t)(is_x ? n : m) * D;  // one element's entries
+    const size_t EA = own ? (size_t)B * E : E;     // the output's entries
     const size_t e = (size_t)(is_x ? blk : blk - bx) * per + el;
     const T* part = is_x ? du_part : dv_part;
     T acc = T(0);
-    if (e < E && (int)(e % D) < Dt) {
+    if (e < EA) {
+      const size_t be = e / E, w = e - be * E;
+      if ((int)(w % D) < Dt) {
+        const T* src = part + be * P * E + w;
 #pragma unroll 4
-      for (int p = lane; p < P; p += lanes) acc += part[p * E + e];
+        for (int p = lane; p < P; p += lanes) acc += src[p * E];
+      }
     }
     buf[tid] = acc;
     __syncthreads();
-    if (lane == 0 && e < E) {
+    if (lane == 0 && e < EA) {
       T sum = T(0);
       for (int l = 0; l < lanes; ++l) sum += buf[l * per + el];
       (is_x ? dxf : dyf)[e] = sum;
     }
     return;
   }
-  // One scalar: dw_t (slot 0), dalpha_t (slot 1, rq terms only) or the
-  // constant's dc (slot 2, kept by term 0's blocks).
-  const int T_ = spec.n_terms, sidx = blk - bx - by;
+  // One scalar of element be: dw_t (slot 0), dalpha_t (slot 1, rq terms
+  // only) or the constant's dc (slot 2, kept by term 0's blocks).
+  const int T_ = spec.n_terms, NS = 2 * T_ + 1, sidx = blk - bx - by;
+  const int be = sidx / NS, s = sidx - be * NS;
   int t = 0, slot = 2;
-  if (sidx < T_) {
-    t = sidx, slot = 0;
-  } else if (sidx < 2 * T_) {
-    t = sidx - T_, slot = spec.kind[t] == KIND_RQ ? 1 : -1;
+  if (s < T_) {
+    t = s, slot = 0;
+  } else if (s < 2 * T_) {
+    t = s - T_, slot = spec.kind[t] == KIND_RQ ? 1 : -1;
   }
   T acc = T(0);
   if (slot >= 0) {
-    const T* src = sc_part + ((size_t)slot * T_ + t) * CT * R;
-    for (int b = tid; b < CT * R; b += GPAR_THREADS) acc += src[b];
+    const size_t cnt = (size_t)CT * R * (pb ? 1 : B);
+    const T* src = sc_part + (((size_t)slot * T_ + t) * B + be) * CT * R;
+    for (size_t q = tid; q < cnt; q += GPAR_THREADS) acc += src[q];
   }
   acc = warp_sum(acc);
   if ((tid & 31) == 0) buf[tid >> 5] = acc;
@@ -805,24 +844,30 @@ static int lanes_for(int parts) {
 template <typename T, int ROWS>
 static void launch_bwd_tile(const void* xf, const void* yf, const void* par, const void* g,
                             void* du_part, void* dv_part, void* sc_part, int n, int m, int D,
-                            int n_terms, int ct, int r, int rps, int dmax, const TermSpec& spec,
+                            int batch, int n_terms, int ct, int r, int rps, int dmax,
+                            long long sx, long long sy, long long sp, const TermSpec& spec,
                             cudaStream_t st) {
   const size_t smem = BwdCfg<T, ROWS>::smem(dmax);
-  gram_bwd_kernel<T, ROWS><<<dim3(ct, r, n_terms), GPAR_THREADS, smem, st>>>(
+  gram_bwd_kernel<T, ROWS><<<dim3(ct, r, batch * n_terms), GPAR_THREADS, smem, st>>>(
       (const T*)xf, (const T*)yf, (const T*)par, (const T*)g, (T*)du_part, (T*)dv_part,
-      (T*)sc_part, n, m, D, rps, dmax, spec);
+      (T*)sc_part, n, m, D, rps, dmax, sx, sy, sp, spec);
 }
 
 template <typename T>
 static int launch_bwd(const void* xf, const void* yf, const void* par, const void* g,
                       void* dxf, void* dyf, void* dpar, void* du_part, void* dv_part,
-                      void* sc_part, int n, int m, int D, int n_terms, const int* kinds,
+                      void* sc_part, int batch, int n, int m, int D, long long sx,
+                      long long sy, long long sp, int n_terms, const int* kinds,
                       const int* offs, const int* dims, int ct, int r, int rps, int step,
                       void* stream) {
   constexpr int BIG = BwdTiles<T>::BIG_ROWS, SMALL = BwdTiles<T>::SMALL_ROWS;
   constexpr int BC = BwdCfg<T, BIG>::BC;
   TermSpec spec;
-  if (n < 1 || m < 1 || !fill_spec(spec, n_terms, kinds, offs, dims, D))
+  if (batch < 1 || n < 1 || m < 1 || !fill_spec(spec, n_terms, kinds, offs, dims, D))
+    return (int)cudaErrorInvalidValue;
+  // Each operand carries the batch (a whole element's stride) or is shared.
+  if ((sx != 0 && sx != (long long)n * D) || (sy != 0 && sy != (long long)m * D) ||
+      (sp != 0 && sp != 2 * n_terms + 1))
     return (int)cudaErrorInvalidValue;
   // The wrapper's plan (gram_kernel._bwd_plan) chose the tile's step (rows
   // per step, one of the two tiles') and sized the partial buffers: ct
@@ -830,7 +875,7 @@ static int launch_bwd(const void* xf, const void* yf, const void* par, const voi
   if ((step != BwdCfg<T, BIG>::BR && step != BwdCfg<T, SMALL>::BR) || ct != (m + BC - 1) / BC ||
       rps < step || rps % step != 0 || r != (n + rps - 1) / rps)
     return (int)cudaErrorInvalidValue;
-  if (r > 65535) return (int)cudaErrorInvalidConfiguration;
+  if (r > 65535 || (long long)batch * n_terms > 65535) return (int)cudaErrorInvalidConfiguration;
   int dmax = 0, Dt = 0;
   for (int t = 0; t < n_terms; ++t) {
     dmax = dims[t] > dmax ? dims[t] : dmax;
@@ -838,21 +883,23 @@ static int launch_bwd(const void* xf, const void* yf, const void* par, const voi
   }
   cudaStream_t st = (cudaStream_t)stream;
   if (step == BwdCfg<T, BIG>::BR)
-    launch_bwd_tile<T, BIG>(xf, yf, par, g, du_part, dv_part, sc_part, n, m, D, n_terms, ct, r,
-                            rps, dmax, spec, st);
+    launch_bwd_tile<T, BIG>(xf, yf, par, g, du_part, dv_part, sc_part, n, m, D, batch, n_terms,
+                            ct, r, rps, dmax, sx, sy, sp, spec, st);
   else
-    launch_bwd_tile<T, SMALL>(xf, yf, par, g, du_part, dv_part, sc_part, n, m, D, n_terms, ct,
-                              r, rps, dmax, spec, st);
+    launch_bwd_tile<T, SMALL>(xf, yf, par, g, du_part, dv_part, sc_part, n, m, D, batch,
+                              n_terms, ct, r, rps, dmax, sx, sy, sp, spec, st);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int lx = lanes_for(ct), ly = lanes_for(r);
-  const size_t bx = ((size_t)n * D + GPAR_THREADS / lx - 1) / (GPAR_THREADS / lx);
-  const size_t by = ((size_t)m * D + GPAR_THREADS / ly - 1) / (GPAR_THREADS / ly);
-  const size_t blocks = bx + by + 2 * n_terms + 1;
+  const int xb = sx != 0, yb = sy != 0, pb = sp != 0;
+  const int lx = lanes_for(ct * (xb ? 1 : batch)), ly = lanes_for(r * (yb ? 1 : batch));
+  const size_t ex = (size_t)n * D * (xb ? batch : 1), ey = (size_t)m * D * (yb ? batch : 1);
+  const size_t bx = (ex + GPAR_THREADS / lx - 1) / (GPAR_THREADS / lx);
+  const size_t by = (ey + GPAR_THREADS / ly - 1) / (GPAR_THREADS / ly);
+  const size_t blocks = bx + by + (size_t)(2 * n_terms + 1) * (pb ? batch : 1);
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   gram_bwd_reduce<T><<<(unsigned)blocks, GPAR_THREADS, 0, st>>>(
       (const T*)du_part, (const T*)dv_part, (const T*)sc_part, (T*)dxf, (T*)dyf,
-      (T*)dpar, n, m, D, Dt, ct, r, (int)bx, lx, (int)by, ly, spec);
+      (T*)dpar, n, m, D, Dt, ct, r, batch, xb, yb, pb, (int)bx, lx, (int)by, ly, spec);
   return (int)cudaGetLastError();
 }
 
@@ -877,40 +924,46 @@ int gpar_gram_init() {
   return e != 0 ? e : opt_in_smem<double, BwdTiles<double>::SMALL_ROWS>();
 }
 
+// sx, sy, sp: each operand's stride between batch elements, 0 when it is
+// shared by every element.
 int gpar_gram_f32(const void* xf, const void* yf, const void* par, void* out,
-                  int batch, int n, int m, int D, long long sx, long long sy,
+                  int batch, int n, int m, int D, long long sx, long long sy, long long sp,
                   int n_terms, const int* kinds, const int* offs, const int* dims,
                   void* stream) {
-  return launch<float>(xf, yf, par, out, batch, n, m, D, sx, sy, n_terms, kinds, offs,
+  return launch<float>(xf, yf, par, out, batch, n, m, D, sx, sy, sp, n_terms, kinds, offs,
                        dims, stream);
 }
 
 int gpar_gram_f64(const void* xf, const void* yf, const void* par, void* out,
-                  int batch, int n, int m, int D, long long sx, long long sy,
+                  int batch, int n, int m, int D, long long sx, long long sy, long long sp,
                   int n_terms, const int* kinds, const int* offs, const int* dims,
                   void* stream) {
-  return launch<double>(xf, yf, par, out, batch, n, m, D, sx, sy, n_terms, kinds, offs,
+  return launch<double>(xf, yf, par, out, batch, n, m, D, sx, sy, sp, n_terms, kinds, offs,
                         dims, stream);
 }
 
-// du_part is (ct, n, D), dv_part (r, m, D), sc_part (3, T, ct, r); step is
-// the row tile's rows per step.
+// g is (batch, n, m); du_part is (batch, ct, n, D), dv_part (batch, r, m, D),
+// sc_part (3, T, batch, ct, r); step is the row tile's rows per step.
 int gpar_gram_bwd_f32(const void* xf, const void* yf, const void* par, const void* g,
                       void* dxf, void* dyf, void* dpar, void* du_part, void* dv_part,
-                      void* sc_part, int n, int m, int D, int n_terms, const int* kinds,
+                      void* sc_part, int batch, int n, int m, int D, long long sx,
+                      long long sy, long long sp, int n_terms, const int* kinds,
                       const int* offs, const int* dims, int ct, int r, int rps, int step,
                       void* stream) {
   return launch_bwd<float>(xf, yf, par, g, dxf, dyf, dpar, du_part, dv_part, sc_part,
-                           n, m, D, n_terms, kinds, offs, dims, ct, r, rps, step, stream);
+                           batch, n, m, D, sx, sy, sp, n_terms, kinds, offs, dims, ct, r,
+                           rps, step, stream);
 }
 
 int gpar_gram_bwd_f64(const void* xf, const void* yf, const void* par, const void* g,
                       void* dxf, void* dyf, void* dpar, void* du_part, void* dv_part,
-                      void* sc_part, int n, int m, int D, int n_terms, const int* kinds,
+                      void* sc_part, int batch, int n, int m, int D, long long sx,
+                      long long sy, long long sp, int n_terms, const int* kinds,
                       const int* offs, const int* dims, int ct, int r, int rps, int step,
                       void* stream) {
   return launch_bwd<double>(xf, yf, par, g, dxf, dyf, dpar, du_part, dv_part, sc_part,
-                            n, m, D, n_terms, kinds, offs, dims, ct, r, rps, step, stream);
+                            batch, n, m, D, sx, sy, sp, n_terms, kinds, offs, dims, ct, r,
+                            rps, step, stream);
 }
 
 const char* gpar_cuda_error_string(int code) {

@@ -64,11 +64,25 @@ layers ``0..pi``, eagerly.  :func:`make_scan_posterior_logpdf_tail` scores
 new data under the posterior, each layer's training factors taken from
 :func:`posterior_factor_layers`.
 
+Multi-start fits (``restarts > 1``) and ``fused="batched"`` evaluate the
+layer objective over a batch of latent vectors: ``z_full`` (B, n_z + 1)
+gives a kernel tree whose leaves carry the batch axis
+(:func:`_layer_kernel`), the Grams and their gradients are one batched
+launch of each kernel, and the factorisations, the jitter ladder and the
+NLL are per element, (B,).  One batched L-BFGS
+(``params.lbfgs.BatchedDeviceLBFGS``) runs every element's trajectory:
+:class:`ScanStep` with ``restarts = R`` holds the R starts of the current
+layer and keeps the best at ``layer_finish``; the joint fit restarts over
+each position's prefix span; :func:`make_batched_fit_body` fits all p
+layers times R starts as one batch.  Unbatched latents take the same
+operations as before.
+
 Not ported: the posterior-factor cache (``make_scan_cached_tail``),
-``fused="batched"``, and the mesh.
+``fused="unroll"``, and the mesh.
 """
 
 import contextlib
+import functools
 import hashlib
 from dataclasses import dataclass
 
@@ -80,6 +94,7 @@ from ..ops.kernels import EQ, RQ, Const, Linear, gram, kdiag
 from ..ops.linalg import (
     LOG_2PI,
     _cholesky,
+    _mv,
     floor_noise,
     psd_sample_factor,
     psd_sample_factor_batched,
@@ -88,8 +103,9 @@ from ..ops.linalg import (
     solve_lower,
     titsias_factors,
 )
-from ..params.lbfgs import MAX_LINESEARCH, DeviceLBFGS, iterate, new_stats
-from ..params.optim import check_restarts
+from ..params.lbfgs import (
+    MAX_LINESEARCH, BatchedDeviceLBFGS, DeviceLBFGS, best_of, iterate, new_stats,
+)
 from ..params.store import _Bounded, _Identity, _LowerBounded
 
 __all__ = [
@@ -104,6 +120,7 @@ __all__ = [
     "plan_tensors",
     "make_scan_fit_body",
     "make_scan_free_fit_body",
+    "make_batched_fit_body",
     "make_scan_logpdf_body",
     "make_scan_posterior_logpdf_tail",
     "make_scan_predict_tail",
@@ -402,18 +419,34 @@ def plan_tensors(plan, dtype, device, rows=None):
     return out
 
 
+def _cat(*parts):
+    """Concatenate along the last axis, broadcasting the leading ones (a
+    batched field beside unbatched ones)."""
+    lead = torch.broadcast_shapes(*(a.shape[:-1] for a in parts))
+    return torch.cat([a.expand(*lead, a.shape[-1]) for a in parts], dim=-1)
+
+
 def _layer_kernel(plan, lin, z_full):
     """Layer ``pi``'s prior kernel from gathered parameters: the uniform
     counterpart of ``_model_generator``'s composition
-    (``gpar/regression.py:92-180``), gates in place of ``select``."""
+    (``gpar/regression.py:92-180``), gates in place of ``select``.
+
+    ``z_full`` (B, n_z + 1) gives a tree whose leaves carry the batch axis;
+    ``lin`` may carry it too (one layer's plan slice per element, as
+    :func:`make_batched_fit_body` stacks them)."""
     cfg = plan.config
     m, P1 = plan.m, plan.W - plan.m
     dt, dev = z_full.dtype, z_full.device
+    lead = z_full.shape[:-1]
+    per_element = lin["in_var"].ndim > 0
 
     def nat(tr, idx):
         # A gather, not ``z_full[idx]``: indexing by a 0-d tensor reads the
         # index back to the host, which a CUDA graph capture refuses.
-        return tr.constrain(z_full.index_select(0, idx.reshape(-1)).reshape(idx.shape))
+        if per_element:
+            return tr.constrain(torch.gather(z_full, -1, idx.reshape(idx.shape[0], -1))
+                                .reshape(idx.shape))
+        return tr.constrain(z_full.index_select(-1, idx.reshape(-1)).reshape((*lead, *idx.shape)))
 
     def ones(k):
         return torch.ones((k,), dtype=dt, device=dev)
@@ -422,21 +455,21 @@ def _layer_kernel(plan, lin, z_full):
         return torch.zeros((k,), dtype=dt, device=dev)
 
     gate_in = torch.cat([ones(m), zeros(P1)])
-    gate_out = torch.cat([zeros(m), lin["out_gate"]])
+    gate_out = _cat(zeros(m), lin["out_gate"])
 
     # Input terms (first m dims; padded dims gated to zero).
-    in_scales = torch.cat([nat(_POS, lin["in_scales"]), ones(P1)])
+    in_scales = _cat(nat(_POS, lin["in_scales"]), ones(P1))
     base_in = RQ(nat(_ALPHA, lin["in_alpha"])) if cfg["rq"] else EQ()
     kin = nat(_POS, lin["in_var"]) * base_in.stretch(in_scales)
     if cfg["per"]:
-        per_scales = torch.cat([nat(_POS, lin["per_scales"]), ones(2 * P1)])
-        per_pers = torch.cat([nat(_POS, lin["per_pers"]), ones(P1)])
-        per_decay = torch.cat([nat(_POS, lin["per_decay"]), ones(P1)])
+        per_scales = _cat(nat(_POS, lin["per_scales"]), ones(2 * P1))
+        per_pers = _cat(nat(_POS, lin["per_pers"]), ones(P1))
+        per_decay = _cat(nat(_POS, lin["per_decay"]), ones(P1))
         kin = kin + nat(_POS, lin["per_var"]) * EQ().stretch(per_scales).periodic(
             per_pers
         ) * EQ().stretch(per_decay)
     if cfg["input_linear"]:
-        inlin_scales = torch.cat([nat(_POS, lin["inlin_scales"]), ones(P1)])
+        inlin_scales = _cat(nat(_POS, lin["inlin_scales"]), ones(P1))
         kin = kin + Linear().stretch(inlin_scales) + Const(nat(_ID, lin["inlin_const"]))
     kernel = kin.gate(gate_in)
 
@@ -444,10 +477,10 @@ def _layer_kernel(plan, lin, z_full):
     # nonlinear variance is gated too, because EQ/RQ of all-zero inputs is
     # 1, not 0).
     if cfg["linear"]:
-        outlin_scales = torch.cat([ones(m), nat(_POS, lin["outlin_scales"])])
+        outlin_scales = _cat(ones(m), nat(_POS, lin["outlin_scales"]))
         kernel = kernel + Linear().stretch(outlin_scales).gate(gate_out)
     if cfg["nonlinear"]:
-        outnl_scales = torch.cat([ones(m), nat(_POS, lin["outnl_scales"])])
+        outnl_scales = _cat(ones(m), nat(_POS, lin["outnl_scales"]))
         base_out = RQ(nat(_ALPHA, lin["outnl_alpha"])) if cfg["rq"] else EQ()
         kernel = kernel + (lin["nl_gate"] * nat(_POS, lin["outnl_var"])) * (
             base_out.stretch(outnl_scales).gate(gate_out)
@@ -467,14 +500,18 @@ def _masked_dense_factors(K, r, mask, noise_w, eps, escalations=None):
 
     ``K`` is (rows, rows): the masking multiplies by the two mask vectors
     (no (rows, rows) mask is formed or kept for the backward) and the
-    diagonal is added in place."""
-    A = K * mask[:, None] * mask[None, :]
-    torch.diagonal(A).add_(mask * noise_w + (1.0 - mask) * (1.0 - eps))
+    diagonal is added in place.  A batch: ``K`` (B, rows, rows),
+    ``noise_w`` (B, rows), ``r`` and ``mask`` (rows,) or (B, rows)."""
+    A = K * mask[..., :, None] * mask[..., None, :]
+    torch.diagonal(A, dim1=-2, dim2=-1).add_(mask * noise_w + (1.0 - mask) * (1.0 - eps))
     L = _cholesky(A, None, escalations)
     rm = r * mask
+    if rm.ndim < L.ndim - 1:
+        rm = rm.expand(L.shape[:-1])
     v = solve_lower(L, rm)
-    logpdf = (-0.5 * torch.sum(mask) * LOG_2PI - torch.sum(torch.log(torch.diagonal(L)) * mask)
-              - 0.5 * torch.sum(v * v))
+    logpdf = (-0.5 * torch.sum(mask, dim=-1) * LOG_2PI
+              - torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)) * mask, dim=-1)
+              - 0.5 * torch.sum(v * v, dim=-1))
     return logpdf, solve_chol(L, rm), L
 
 
@@ -484,9 +521,10 @@ def _layer_nll_factors(plan, lin, z_full, x_aug, zi_aug, escalations=None):
     ``lin`` at parameters ``z_full``, and the factors of
     :func:`_est_from_factors`, ``(Kmm, Kmn, beta)`` or ``(K, alpha)``.
     With ``escalations`` the factorisations take the jitter ladder on the
-    device (``ops.linalg.cholesky_ladder_on_device``)."""
+    device (``ops.linalg.cholesky_ladder_on_device``).  A batch of latents
+    ``z_full`` (B, n_z + 1) gives (B,) NLLs and batched factors."""
     kernel, noise = _layer_kernel(plan, lin, z_full)
-    noise_w = floor_noise(noise / lin["w_col"])
+    noise_w = floor_noise((noise if noise.ndim == 0 else noise[..., None]) / lin["w_col"])
     r = lin["y_col"]  # zero-filled; masked rows neutralised
     if not plan.sparse:
         K = gram(kernel, x_aug, x_aug)
@@ -506,9 +544,9 @@ def _est_from_factors(plan, factors):
     inducing inputs (``gpar/model.py:291-322``)."""
     if not plan.sparse:
         K, alpha = factors
-        return K @ alpha, None
+        return _mv(K, alpha), None
     Kmm, Kmn, beta = factors
-    return Kmn.T @ beta, Kmm @ beta
+    return _mv(Kmn.mT, beta), _mv(Kmm, beta)
 
 
 def _next_column(plan, lin, est_rows):
@@ -537,11 +575,18 @@ def _augmented(plan, lin, y_next, est_ind, x_aug, zi_aug):
     differentiates through: layer ``l``'s Grams read the columns that the
     layers before it wrote, which depend on their latents.  Each layer gets
     a new buffer, so no write can reach a tensor that an earlier layer's
-    operations saved for the backward."""
+    operations saved for the backward.  A batched column (B, rows) gives
+    batched inputs (B, rows, W)."""
     col = (plan.m + lin["col"]).reshape(1)
-    x_aug = x_aug.index_copy(1, col, y_next[:, None])
+
+    def put(a, c):
+        if a.ndim < c.ndim + 1:
+            a = a.expand(*c.shape[:-1], *a.shape)
+        return a.index_copy(-1, col, c[..., None])
+
+    x_aug = put(x_aug, y_next)
     if plan.sparse:
-        zi_aug = zi_aug.index_copy(1, col, est_ind[:, None])
+        zi_aug = put(zi_aug, est_ind)
     return x_aug, zi_aug
 
 
@@ -551,7 +596,8 @@ def _chain_nll(plan, z_ext, xs, x, zi, n_layers, escalations=None):
     (:func:`_layer_nll_factors`), then one augmentation step out of place
     (:func:`_augmented`), so the value is differentiable end to end in
     ``z_ext``.  The chain of ``make_scan_logpdf_body`` (``n_layers = p``,
-    under ``no_grad``) and of every objective of the free fit."""
+    under ``no_grad``) and of every objective of the free fit; (B,) for
+    a batch of latents ``z_ext`` (B, n_z + 1)."""
     x_aug, zi_aug = _widen(x, plan.W), _widen(zi, plan.W)
     nlls = []
     for pi in range(n_layers):
@@ -563,7 +609,7 @@ def _chain_nll(plan, z_ext, xs, x, zi, n_layers, escalations=None):
             x_aug, zi_aug = _augmented(plan, lin, _next_column(plan, lin, est_rows), est_ind,
                                        x_aug, zi_aug)
         del factors
-    return torch.stack(nlls).sum()
+    return torch.stack(nlls).sum(0)
 
 
 class ScanStep:
@@ -590,14 +636,25 @@ class ScanStep:
       results, and one augmentation step: the layer's posterior-mean
       estimates written into its output column of the augmented inputs;
       ``layer += 1``.
+
+    With ``restarts = R > 1`` the optimiser is a
+    :class:`~gpar_torch.params.lbfgs.BatchedDeviceLBFGS` over R starts of
+    the layer's latents (the JAX package's ``lbfgs_traced_restarts`` in
+    its scan body, ``gpar_tpu/models/fused.py:997-1006``): ``layer_init``
+    starts element 0 at the gathered span and the others at the span plus
+    the layer's row of ``pert`` (p, R - 1, s_max), the scaled normals
+    loaded with the fit's inputs (dummy slots perturbed too, as in JAX;
+    they feed only gated-out fields); ``layer_finish`` keeps the best
+    finite optimum, chosen on the device, with element 0's initial NLL.
     """
 
     BODIES = ("layer_init", "step", "trial", "commit", "layer_finish")
 
-    def __init__(self, plan, n_rows, n_ind, dtype, device, gtol=1e-9, memory_size=10):
+    def __init__(self, plan, n_rows, n_ind, dtype, device, gtol=1e-9, memory_size=10,
+                 restarts=1):
         self.plan, self.n_rows, self.n_ind = plan, n_rows, n_ind
         self.dtype, self.device = dtype, torch.device(device)
-        self.gtol, self.memory_size = gtol, memory_size
+        self.gtol, self.memory_size, self.restarts = gtol, memory_size, restarts
 
         def zeros(*shape, dt=dtype):
             return torch.zeros(shape, dtype=dt, device=self.device)
@@ -611,31 +668,36 @@ class ScanStep:
         self.x_aug = zeros(n_rows, plan.W)
         self.zi_aug = zeros(n_ind, plan.W)
         self.escalations = zeros(dt=torch.int64)
-        self.opt = DeviceLBFGS(self._value_and_grad, self._value, plan.s_max, dtype, self.device,
-                               memory=memory_size, gtol=gtol)
+        self.pert = zeros(plan.p, restarts - 1, plan.s_max)
+        if restarts > 1:
+            self.opt = BatchedDeviceLBFGS(self._value_and_grad, self._value, restarts,
+                                          plan.s_max, dtype, self.device, memory=memory_size,
+                                          gtol=gtol)
+        else:
+            self.opt = DeviceLBFGS(self._value_and_grad, self._value, plan.s_max, dtype,
+                                   self.device, memory=memory_size, gtol=gtol)
         self.out = zeros(3, plan.p)  # per layer: final NLL, initial NLL, iterations
 
     def _buffers(self):
-        o = self.opt
         return [
             *self.xs.values(), *self.lin.values(), self.layer, self.z_ext, self.x_aug,
-            self.zi_aug, self.escalations, *o.state, *o.cand, o.z0, o.f0, o.direction, o.dg, o.t,
-            o.mode, o.flags, self.out,
+            self.zi_aug, self.escalations, self.pert, *self.opt.buffers(), self.out,
         ]
 
     def clone(self):
         """A step with copies of every buffer (a CUDA graph's warm-up runs
         on one, so that it moves none of this step's state)."""
         other = ScanStep(self.plan, self.n_rows, self.n_ind, self.dtype, self.device,
-                         self.gtol, self.memory_size)
+                         self.gtol, self.memory_size, self.restarts)
         for dst, src in zip(other._buffers(), self._buffers()):
             dst.copy_(src)
         return other
 
-    def load(self, z_all, x, rows, x_ind):
+    def load(self, z_all, x, rows, x_ind, pert=None):
         """A fit's inputs: latents, (padded) data rows, their row arrays
-        and the inducing inputs ((0, m) for a dense plan); back to layer
-        0."""
+        and the inducing inputs ((0, m) for a dense plan), and with
+        restarts the perturbations of the starts, (p, R - 1, s_max); back
+        to layer 0."""
         m = self.plan.m
         self.z_ext.zero_()
         self.z_ext[:-1].copy_(z_all)
@@ -645,15 +707,17 @@ class ScanStep:
         self.zi_aug[:, :m].copy_(x_ind)
         for k in _ROW_KEYS:
             self.xs[k].copy_(rows[k])
+        if self.restarts > 1:
+            self.pert.copy_(pert)
         self.layer.zero_()
         self.escalations.zero_()
 
     # -- the layer objective ------------------------------------------------
 
     def _full(self, z):
-        """``z_ext`` with the layer's latents set to ``z``: a scatter that
-        carries the gradient back to ``z``."""
-        return self.z_ext.index_put((self.lin["layer_gather"],), z)
+        """``z_ext`` with the layer's latents set to ``z`` ((R, s_max): one
+        row per start): a scatter that carries the gradient back to ``z``."""
+        return _with_span(self.z_ext, self.lin["layer_gather"], z)
 
     def _nll_factors(self, z_full):
         return _layer_nll_factors(self.plan, self.lin, z_full, self.x_aug, self.zi_aug,
@@ -663,11 +727,7 @@ class ScanStep:
         return self._nll_factors(self._full(z))[0]
 
     def _value_and_grad(self, z):
-        z = z.detach().requires_grad_(True)
-        with torch.enable_grad():
-            f = self.nll(z)
-            (g,) = torch.autograd.grad(f, z)
-        return f.detach(), g
+        return _value_and_grad(self.nll, z)
 
     def _value(self, z):
         with torch.no_grad():
@@ -678,7 +738,8 @@ class ScanStep:
     def layer_init(self):
         for k, buf in self.lin.items():
             buf.copy_(self.xs[k].index_select(0, self.layer)[0])
-        self.opt.start(self.z_ext.index_select(0, self.lin["layer_gather"]))
+        z0 = self.z_ext.index_select(0, self.lin["layer_gather"])
+        self.opt.start(_starts(z0, self.pert.index_select(0, self.layer)[0]))
 
     def step(self):
         self.opt.step()
@@ -690,7 +751,7 @@ class ScanStep:
         self.opt.commit()
 
     def layer_finish(self):
-        z, f = self.opt.final()
+        z, f, f0, it = _optimum(self.opt)
         self.z_ext.index_put_((self.lin["layer_gather"],), z)
         self.z_ext[-1:].zero_()
         with torch.no_grad():
@@ -699,7 +760,7 @@ class ScanStep:
             est_rows, est_ind = _est_from_factors(self.plan, self._nll_factors(self.z_ext)[1])
         _augment_cols(self.plan, self.lin, _next_column(self.plan, self.lin, est_rows), est_ind,
                       self.x_aug, self.zi_aug)
-        res = torch.stack([f, self.opt.f0, self.opt.state.it.to(f.dtype)])
+        res = torch.stack([f, f0, it.to(f.dtype)])
         self.out.index_copy_(1, self.layer, res[:, None])
         self.layer.add_(1)
 
@@ -712,6 +773,47 @@ class ScanStep:
         out = torch.cat([self.out.reshape(-1), self.escalations.to(self.out.dtype).reshape(1)]).cpu()
         out, stats["ladder_escalations"] = out[:-1].numpy().reshape(3, -1), int(out[-1])
         return self.z_ext[:-1].clone(), out[0], out[2].astype(np.int64), out[1]
+
+
+def _with_span(z_ext, gather, z):
+    """``z_ext`` with the entries ``gather`` set to ``z``: (d,), or one row
+    per start (R, d), then (R, n_z + 1).  Padded gather slots all alias the
+    dummy latent, which feeds only gated-out fields, so which of them wins
+    does not matter."""
+    if z.ndim == 1:
+        return z_ext.index_put((gather,), z)
+    R = z.shape[0]
+    return z_ext.expand(R, -1).scatter(1, gather.expand(R, -1), z)
+
+
+def _value_and_grad(nll, z):
+    """Value and gradient of ``nll`` at ``z``; a batch of points (B, d)
+    gives the (B,) values and each element's gradient."""
+    z = z.detach().requires_grad_(True)
+    with torch.enable_grad():
+        f = nll(z)
+        (g,) = torch.autograd.grad(f if f.ndim == 0 else f.sum(), z)
+    return f.detach(), g
+
+
+def _starts(z0, pert):
+    """The starts of a fit: ``z0`` alone, or with restarts ``z0`` and
+    ``z0 + pert[r]`` for each row of the scaled normals ``pert``."""
+    if pert.shape[0] == 0:
+        return z0
+    return torch.cat([z0[None], z0[None] + pert])
+
+
+def _optimum(opt):
+    """``(z, f, f0, iterations)`` of an optimiser's end state: the
+    guarded optimum, or, of a batch of starts, the best finite one (chosen
+    on the device), with the unperturbed start's initial value."""
+    z, f = opt.final()
+    if z.ndim == 1:
+        return z, f, opt.f0, opt.state.it
+    best = best_of(f)
+    pick = lambda a: a.index_select(0, best)[0]  # noqa: E731
+    return pick(z), pick(f), opt.f0[0], pick(opt.state.it)
 
 
 class Eager:
@@ -770,34 +872,52 @@ def _cusolver(device):
         torch.backends.cuda.preferred_linalg_library(prev)
 
 
-def make_scan_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1, rows_traced=False,
-                       cuda_graphs=True):
-    """The scan-fused whole-fit program ``(z_all, x, xs_rows=None,
-    stats=None) -> (z_final, layer_nll, layer_iters, layer_nll0)`` (the
-    contract of ``gpar_tpu/models/fused.py:909-1047`` without the mesh
-    branch).  ``rows_traced``: ``x`` and ``xs_rows`` are bucket-padded
-    (:func:`device_bucket_inputs`); otherwise ``x`` has the plan's exact
-    rows.  On a CUDA tensor with ``cuda_graphs`` the step's bodies replay
-    CUDA graphs captured once per key (``models/graphs.py``); otherwise
-    they run eagerly.  ``stats`` (``params.lbfgs.new_stats()``) receives
-    the counters, ``graph_replays``, ``replay_counts`` (what the replays
-    added to the Gram counters) and ``capture_s``."""
-    check_restarts(restarts)
+def _perturbations(normals, restarts, restart_scale, shape, like):
+    """``restart_scale`` times the caller's standard normals ``shape``, or
+    an empty (p, 0, .) tensor for a single start."""
+    if restarts == 1:
+        return like.new_zeros((shape[0], 0, shape[2]))
+    if normals is None or tuple(normals.shape) != tuple(shape):
+        got = None if normals is None else tuple(normals.shape)
+        raise ValueError(f"restarts={restarts} needs standard normals of shape {tuple(shape)}, "
+                         f"got {got}")
+    return restart_scale * normals.to(like)
 
-    def program(z_all, x, xs_rows=None, stats=None):
+
+def make_scan_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1, restart_scale=1.0,
+                       rows_traced=False, cuda_graphs=True):
+    """The scan-fused whole-fit program ``(z_all, x, xs_rows=None,
+    stats=None, normals=None) -> (z_final, layer_nll, layer_iters,
+    layer_nll0)`` (the contract of ``gpar_tpu/models/fused.py:909-1047``
+    without the mesh branch).  ``rows_traced``: ``x`` and ``xs_rows`` are
+    bucket-padded (:func:`device_bucket_inputs`); otherwise ``x`` has the
+    plan's exact rows.  ``restarts > 1``: each layer's L-BFGS runs from
+    its latents and from ``restarts - 1`` perturbations of them,
+    ``restart_scale`` times ``normals`` (p, restarts - 1, s_max), as one
+    batch, and keeps the best (:class:`ScanStep`).  On a CUDA tensor with
+    ``cuda_graphs`` the step's bodies replay CUDA graphs captured once per
+    key (``models/graphs.py``); otherwise they run eagerly.  ``stats``
+    (``params.lbfgs.new_stats()``) receives the counters,
+    ``graph_replays``, ``replay_counts`` (what the replays added to the
+    Gram counters) and ``capture_s``."""
+
+    def program(z_all, x, xs_rows=None, stats=None, normals=None):
         stats = new_stats() if stats is None else stats
         dtype, device = x.dtype, x.device
         rows = xs_rows if rows_traced else plan_tensors(plan, dtype, device)
         zi = _inducing(x_ind, plan.m, dtype, device)
-        args = (z_all, x, rows, zi)
+        pert = _perturbations(normals, restarts, restart_scale,
+                              (plan.p, restarts - 1, plan.s_max), x)
+        args = (z_all, x, rows, zi, pert)
         with _cusolver(device):
             if device.type == "cuda" and cuda_graphs:
                 from .graphs import graphed_step
 
                 step, run, capture_s = graphed_step(plan, x.shape[0], zi.shape[0], dtype, device,
-                                                    iters, gtol, memory_size, args)
+                                                    iters, gtol, memory_size, args, restarts)
             else:
-                step = ScanStep(plan, x.shape[0], zi.shape[0], dtype, device, gtol, memory_size)
+                step = ScanStep(plan, x.shape[0], zi.shape[0], dtype, device, gtol, memory_size,
+                                restarts)
                 step.load(*args)
                 run, capture_s = Eager(step), 0.0
             replays0, replayed0 = run.replays, dict(run.replayed)
@@ -826,11 +946,11 @@ def _prefix_gather(plan):
 
 
 def make_scan_free_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1,
-                            rows_traced=False):
+                            restart_scale=1.0, rows_traced=False):
     """The whole-fit program of ``fit(fix=False)`` (the contract of
     ``gpar_tpu/models/fused.py:1236-1390`` without the mesh branch):
-    ``program(z_all, x, xs_rows=None, stats=None) -> (z_final, layer_nll,
-    layer_iters, layer_nll0)``.
+    ``program(z_all, x, xs_rows=None, stats=None, normals=None) ->
+    (z_final, layer_nll, layer_iters, layer_nll0)``.
 
     At position ``pi`` one L-BFGS (``params.lbfgs.DeviceLBFGS``, sized to
     ``plan.n_z``) minimises the NLL of the chain of layers ``0..pi`` from
@@ -846,52 +966,132 @@ def make_scan_free_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1,
     The program runs eagerly, CUDA tensors included: the chain's length
     changes with the position, so no graph is captured.  ``rows_traced``
     as in :func:`make_scan_fit_body`; ``stats`` receives the L-BFGS
-    counters, one host read for the results and ``graph_replays = 0``."""
-    check_restarts(restarts)
+    counters, one host read for the results and ``graph_replays = 0``.
+
+    ``restarts > 1``: at each position the L-BFGS runs from the prefix
+    span's latents and from ``restarts - 1`` perturbations of the whole
+    span (``gpar_tpu/models/fused.py:1360-1379``), ``restart_scale`` times
+    ``normals`` (p, restarts - 1, n_z), as one batch whose chains are
+    batched too; the best finite optimum is kept."""
     prefix = _prefix_gather(plan)
 
-    def program(z_all, x, xs_rows=None, stats=None):
+    def program(z_all, x, xs_rows=None, stats=None, normals=None):
         stats = new_stats() if stats is None else stats
         dtype, device = x.dtype, x.device
         with _cusolver(device):
             xs, z_ext = _serving_inputs(plan, z_all, x, xs_rows, rows_traced)
             zi = _inducing(x_ind, plan.m, dtype, device)
             gathers = torch.as_tensor(prefix, device=device)
+            pert = _perturbations(normals, restarts, restart_scale,
+                                  (plan.p, restarts - 1, plan.n_z), x)
             escalations = torch.zeros((), dtype=torch.int64, device=device)
             position = [0]
 
             def nll(z_sub):
                 pi = position[0]
-                z_full = z_ext.index_put((gathers[pi],), z_sub)
+                z_full = _with_span(z_ext, gathers[pi], z_sub)
                 return _chain_nll(plan, z_full, xs, x, zi, pi + 1, escalations)
-
-            def value_and_grad(z):
-                z = z.detach().requires_grad_(True)
-                with torch.enable_grad():
-                    f = nll(z)
-                    (g,) = torch.autograd.grad(f, z)
-                return f.detach(), g
 
             def value(z):
                 with torch.no_grad():
                     return nll(z)
 
-            opt = DeviceLBFGS(value_and_grad, value, plan.n_z, dtype, device,
-                              memory=memory_size, gtol=gtol)
+            args = (functools.partial(_value_and_grad, nll), value)
+            if restarts > 1:
+                opt = BatchedDeviceLBFGS(*args, restarts, plan.n_z, dtype, device,
+                                         memory=memory_size, gtol=gtol)
+            else:
+                opt = DeviceLBFGS(*args, plan.n_z, dtype, device, memory=memory_size, gtol=gtol)
             out = torch.zeros((3, plan.p), dtype=dtype, device=device)
             for pi in range(plan.p):
                 position[0] = pi
-                opt.start(z_ext.index_select(0, gathers[pi]))
+                opt.start(_starts(z_ext.index_select(0, gathers[pi]), pert[pi]))
                 _iterations(Eager(opt), opt, iters, stats)
-                z, f = opt.final()
+                z, f, f0, it = _optimum(opt)
                 z_ext.index_put_((gathers[pi],), z)
                 z_ext[-1:].zero_()
-                out[:, pi] = torch.stack([f, opt.f0, opt.state.it.to(dtype)])
+                out[:, pi] = torch.stack([f, f0, it.to(dtype)])
             stats["host_syncs"] += 1
             res = torch.cat([out.reshape(-1), escalations.to(dtype).reshape(1)]).cpu()
         per_pos, stats["ladder_escalations"] = res[:-1].numpy().reshape(3, -1), int(res[-1])
         stats.update(graph_replays=0, replay_counts=dict.fromkeys(GK.counters(), 0), capture_s=0.0)
         return z_ext[:-1].clone(), per_pos[0], per_pos[2].astype(np.int64), per_pos[1]
+
+    return program
+
+
+def make_batched_fit_body(plan, iters, gtol, memory_size, restarts=1, restart_scale=1.0,
+                          rows_traced=False):
+    """All p layers' fits as one batched L-BFGS, ``fused="batched"``
+    (``gpar_tpu/models/fused.py:1146-1234``): ``program(z_all, x,
+    xs_rows=None, stats=None, normals=None) -> (z_final, layer_nll,
+    layer_iters, layer_nll0)``.
+
+    The layers are independent when no estimate feeds forward, which holds
+    for exactly the JAX package's preconditions, checked here with its
+    messages: a dense model, ``replace=False``, ``scale_tie=False`` and
+    fully observed data.  Then every layer's objective reads only its own
+    latent span and the raw data: the augmented inputs are the observed
+    outputs, filled once (the gates hide the columns a layer may not see),
+    and the p layers times ``restarts`` starts (``restart_scale`` times
+    ``normals`` (p, restarts - 1, s_max)) are one batch of p R elements,
+    each with its own plan slice.  Every evaluation is one batched Gram
+    launch (and, for the gradient, one batched backward launch) and one
+    batched factorisation.  Each layer keeps its best finite start; the
+    spans are scattered back and the dummy slot re-zeroed.  It runs
+    eagerly: one L-BFGS over the batch, its host reads one per iteration
+    and round of backtracking trials.  ``rows_traced`` as in
+    :func:`make_scan_fit_body`."""
+    if plan.sparse:
+        raise ValueError("batched layer fits require a dense model")
+    if plan.replace:
+        raise ValueError("batched layer fits require replace=False")
+    if plan.config["scale_tie"]:
+        raise ValueError("batched layer fits require scale_tie=False")
+    if not np.all(np.asarray(plan.xs["avail"]) == 1.0):
+        raise ValueError("batched layer fits require fully-observed data")
+    p, R, s_max = plan.p, restarts, plan.s_max
+
+    def program(z_all, x, xs_rows=None, stats=None, normals=None):
+        stats = new_stats() if stats is None else stats
+        dtype, device = x.dtype, x.device
+        with _cusolver(device):
+            xs, z_ext = _serving_inputs(plan, z_all, x, xs_rows, rows_traced)
+            x_aug = torch.cat([x, xs["y_col"].T], dim=1)  # (rows, W): every output column
+            zi_aug = x_aug.new_zeros((0, plan.W))
+            lin = {k: v.repeat_interleave(R, dim=0) for k, v in xs.items()}  # element pi R + r
+            gather = lin["layer_gather"]
+            pert = _perturbations(normals, R, restart_scale, (p, R - 1, s_max), x)
+            z0 = z_ext[xs["layer_gather"]]  # (p, s_max)
+            starts = torch.cat([z0[:, None], z0[:, None] + pert], dim=1).reshape(p * R, s_max)
+            escalations = torch.zeros((), dtype=torch.int64, device=device)
+
+            def nll(z):
+                z_full = z_ext.expand(p * R, -1).scatter(1, gather, z)
+                return _layer_nll_factors(plan, lin, z_full, x_aug, zi_aug, escalations)[0]
+
+            def value(z):
+                with torch.no_grad():
+                    return nll(z)
+
+            opt = BatchedDeviceLBFGS(functools.partial(_value_and_grad, nll), value, p * R, s_max,
+                                     dtype, device, memory=memory_size, gtol=gtol)
+            opt.start(starts)
+            _iterations(Eager(opt), opt, iters, stats)
+            z, f = opt.final()
+            f = f.reshape(p, R)
+            best = torch.argmin(torch.where(torch.isfinite(f), f, torch.inf), dim=1)
+            rows = torch.arange(p, device=device)
+            z_best = z.reshape(p, R, s_max)[rows, best]
+            z_ext.scatter_(0, xs["layer_gather"].reshape(-1), z_best.reshape(-1))
+            z_ext[-1:].zero_()
+            its = opt.state.it.reshape(p, R)[rows, best]
+            out = torch.stack([f[rows, best], opt.f0.reshape(p, R)[:, 0], its.to(dtype)])
+            stats["host_syncs"] += 1
+            res = torch.cat([out.reshape(-1), escalations.to(dtype).reshape(1)]).cpu()
+        per_layer, stats["ladder_escalations"] = res[:-1].numpy().reshape(3, -1), int(res[-1])
+        stats.update(graph_replays=0, replay_counts=dict.fromkeys(GK.counters(), 0), capture_s=0.0)
+        return z_ext[:-1].clone(), per_layer[0], per_layer[2].astype(np.int64), per_layer[1]
 
     return program
 

@@ -8,8 +8,8 @@ package's cross-instance program cache (``regressor._shared_jit``,
 iteration and every later fit with the same key, by any estimator.  The
 key covers the plan's fingerprint (model structure and index maps), the
 row bucket, the number of inducing points (0 for a dense plan), the dtype, ``iters``, ``gtol``,
-``memory_size``, the device and the jitter settings the captured work
-bakes in.
+``memory_size``, the number of restarts (the batch of the step's L-BFGS),
+the device and the jitter settings the captured work bakes in.
 
 - The bodies read everything from the step's static buffers; the layer's
   plan slice is copied on the device from the stacked plan by a layer
@@ -96,25 +96,26 @@ class GraphedStep:
             self.replayed[k] += v
 
 
-def _key(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size):
+def _key(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size, restarts=1):
     return (
         plan_static_fingerprint(plan), n_rows, n_ind, str(dtype), str(device), iters, gtol,
-        memory_size, config.epsilon, config.epsilon_f32, tuple(config.cholesky_retry_factors),
+        memory_size, restarts, config.epsilon, config.epsilon_f32,
+        tuple(config.cholesky_retry_factors),
     )
 
 
-def graphed_step(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size, args):
+def graphed_step(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size, args, restarts=1):
     """``(step, graphs, capture_s)`` for a fit: the cached step of this key
     with ``args`` (``ScanStep.load``'s) loaded, or a new one, loaded and
     captured (``capture_s`` is 0 on a hit)."""
-    key = _key(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size)
+    key = _key(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size, restarts)
     hit = _CACHE.get(key)
     if hit is not None:
         _CACHE.move_to_end(key)
         step, graphs = hit
         step.load(*args)
         return step, graphs, 0.0
-    step = ScanStep(plan, n_rows, n_ind, dtype, device, gtol, memory_size)
+    step = ScanStep(plan, n_rows, n_ind, dtype, device, gtol, memory_size, restarts)
     step.load(*args)
     graphs = GraphedStep(step)
     _CACHE[key] = (step, graphs)

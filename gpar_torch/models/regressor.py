@@ -55,11 +55,18 @@ Design, in PyTorch terms:
   ``fused.make_scan_free_fit_body`` (``fused=True``) or through
   ``GPAR.logpdf`` (``fused=False``).
 
+- ``fit(restarts=R)`` runs each position's L-BFGS from the current
+  latents and ``R - 1`` perturbations of them and keeps the best finite
+  optimum, on every route: the scan step and the joint fit optimise the R
+  starts as one batch (batched Grams and factorisations), the per-layer
+  driver one start after the other.  ``fused="batched"`` fits all layers
+  of a dense, fully observed, ``replace=False`` model as one batch
+  (``fused.make_batched_fit_body``).
+
 Both the sparse model (``x_ind`` given) and the dense one (``x_ind=None``,
 the exact marginal likelihood over the data rows) run through every entry
-point above.  Not ported yet: restarts and ``fused="batched"``/
-``"unroll"``, greedy ordering, the posterior-factor cache, ``warmup`` /
-``precompute`` and checkpointing.
+point above.  Not ported yet: ``fused="unroll"``, greedy ordering, the
+posterior-factor cache, ``warmup`` / ``precompute`` and checkpointing.
 """
 
 import time
@@ -71,7 +78,7 @@ from ..config import bucket_rows, config, default_dtype, resolve_device
 from ..gp.core import GP
 from ..ops.kernels import EQ, RQ, Const, Linear, ZeroKernel
 from ..params.lbfgs import new_stats
-from ..params.optim import check_restarts, minimise_l_bfgs_b
+from ..params.optim import minimise_l_bfgs_b, restart_normals
 from ..params.store import Vars, load_latents
 from ..utils.rng import default_generator
 from .gpar import GPAR, per_output
@@ -393,7 +400,8 @@ class GPARRegressor:
         return self._untransform_y(y)
 
     def fit(self, x, y, w=None, greedy=False, fix=True, iters=1000, gtol=1e-9, memory_size=10,
-            fused=True, restarts=1, cuda_graphs=True):
+            fused=True, restarts=1, cuda_graphs=True, restart_scale=1.0, generator=None,
+            restart_normals=None):
         """Fit the model to data (``gpar/regression.py:391-459``), one
         L-BFGS per layer position.  With ``fix=True`` (default) position
         ``pi`` optimises layer ``pi``'s variables and the layer is fixed
@@ -405,26 +413,43 @@ class GPARRegressor:
         with ``fix=True`` its layer step is captured as CUDA graphs on a
         CUDA device unless ``cuda_graphs=False``, with ``fix=False`` it runs
         eagerly.  ``fused=False``: the per-layer driver.  ``"batched"``
-        with ``fix=False`` raises ``ValueError`` (it fits layers
-        independently); ``"batched"``/``"unroll"`` otherwise and
-        ``restarts > 1`` are not ported."""
+        (``fix=True`` only): every layer's L-BFGS as one batch, for a dense,
+        fully observed, ``replace=False`` model without ``scale_tie``
+        (``fused.make_batched_fit_body``); ``"unroll"`` is not ported.
+
+        ``restarts > 1``: each position's L-BFGS also starts from
+        ``restarts - 1`` perturbations of the latents, ``restart_scale``
+        times standard normals in the latent space, and keeps the best
+        finite optimum (``layer_iters`` are its iterations, ``layer_nll0``
+        the unperturbed start's).  ``restart_normals`` supplies the normals,
+        a list of one array per layer in the route's shape: (restarts - 1,
+        s_max), the layer's padded latent span, for the scan and
+        ``"batched"``; (restarts - 1, n_z), the prefix span, for the joint
+        fit; (restarts - 1, d_pi), the optimised latents, for the per-layer
+        driver.  Otherwise they come from ``generator`` (default: the
+        device's generator of ``utils.rng``)."""
         if greedy:
             raise NotImplementedError("Greedy search is not implemented yet.")
         if fused == "batched" and not fix:
             raise ValueError("fused='batched' requires independent layer fits; fit(fix=False) "
                              "optimises layers jointly: use fused=True or fused=False.")
-        if fused not in (True, False):
+        if fused not in (True, False, "batched"):
             raise NotImplementedError(f"gpar_torch: fit(fused={fused!r}) is not ported yet")
-        check_restarts(restarts)
+        if int(restarts) != restarts or restarts < 1:
+            raise ValueError(f"restarts must be a positive integer, got {restarts!r}")
+        restarts = int(restarts)
         self.condition(x, y, w)
         self._ensure_vars(self.p)
         t0 = time.perf_counter()
+        starts = dict(restarts=restarts, restart_scale=restart_scale, generator=generator,
+                      normals=restart_normals)
         if fused:
-            report = self._fit_scan(iters, gtol, memory_size, cuda_graphs, fix)
+            report = self._fit_scan(iters, gtol, memory_size, cuda_graphs, fix, fused, **starts)
         else:
-            nll0, nll, its = self._fit_per_layer_loop(iters, gtol, memory_size, fix)
+            nll0, nll, its = self._fit_per_layer_loop(iters, gtol, memory_size, fix, **starts)
             report = {"layer_nll0": np.asarray(nll0), "layer_nll": np.asarray(nll),
                       "layer_iters": np.asarray(its), "fused": False, "graph_replays": 0}
+        report["restarts"] = restarts
         report["wall_clock_s"] = time.perf_counter() - t0
         self.last_fit_report = report
 
@@ -451,24 +476,47 @@ class GPARRegressor:
             ))
         return self._bucket_cache[1:]
 
-    def _fit_scan(self, iters, gtol, memory_size, cuda_graphs, fix=True):
-        from .fused import make_scan_fit_body, make_scan_free_fit_body
+    def _layer_normals(self, normals, restarts, width, generator):
+        """The restarts' standard normals of every layer, (p, restarts - 1,
+        width): the caller's list of per-layer arrays, or draws from
+        ``generator``; None for a single start."""
+        if restarts == 1:
+            return None
+        shape = (restarts - 1, width)
+        if normals is None:
+            return restart_normals(None, (self.p, *shape), self.dtype, self.device, generator)
+        if len(normals) != self.p:
+            raise ValueError(f"restart_normals has {len(normals)} layers; expected {self.p}")
+        return torch.stack([restart_normals(a, shape, self.dtype, self.device)
+                            for a in normals])
+
+    def _fit_scan(self, iters, gtol, memory_size, cuda_graphs, fix=True, fused=True, restarts=1,
+                  restart_scale=1.0, generator=None, normals=None):
+        from .fused import make_batched_fit_body, make_scan_fit_body, make_scan_free_fit_body
 
         names = self.vs.select(None)
         plan = self._scan_fit_plan(names)
         x_pad, rows = self._bucket_fit_inputs(plan)
-        if fix:
-            program = make_scan_fit_body(plan, self.x_ind, iters, gtol, memory_size,
-                                         rows_traced=True, cuda_graphs=cuda_graphs)
+        width = plan.s_max if fix else plan.n_z  # a start's latents
+        common = (iters, gtol, memory_size, restarts, restart_scale)
+        if fused == "batched":
+            program = make_batched_fit_body(plan, *common, rows_traced=True)
+        elif fix:
+            program = make_scan_fit_body(plan, self.x_ind, *common, rows_traced=True,
+                                         cuda_graphs=cuda_graphs)
         else:
-            program = make_scan_free_fit_body(plan, self.x_ind, iters, gtol, memory_size,
-                                              rows_traced=True)
+            program = make_scan_free_fit_body(plan, self.x_ind, *common, rows_traced=True)
         stats = new_stats()
-        z, nll, its, nll0 = program(self.vs.latent_vector(names), x_pad, rows, stats=stats)
+        z, nll, its, nll0 = program(self.vs.latent_vector(names), x_pad, rows, stats=stats,
+                                    normals=self._layer_normals(normals, restarts, width,
+                                                                generator))
         self.vs.set_latent_vector(names, z)
         return {"layer_nll0": nll0, "layer_nll": nll, "layer_iters": its, "fused": True, **stats}
 
-    def _fit_per_layer_loop(self, iters, gtol, memory_size, fix=True):
+    def _fit_per_layer_loop(self, iters, gtol, memory_size, fix=True, restarts=1,
+                            restart_scale=1.0, generator=None, normals=None):
+        if normals is not None and len(normals) != self.p:
+            raise ValueError(f"restart_normals has {len(normals)} layers; expected {self.p}")
         y_cached = self._y_cache
         x_pi, x_ind_pi = self.x, self.x_ind
         nll0, nll, its = [], [], []
@@ -495,6 +543,10 @@ class GPARRegressor:
                 iters=iters,
                 gtol=gtol,
                 memory_size=memory_size,
+                restarts=restarts,
+                restart_scale=restart_scale,
+                generator=generator,
+                normals=None if normals is None else normals[pi],
             )
             nll0.append(f0)
             nll.append(f)
@@ -767,8 +819,10 @@ class GPARRegressor:
         **fit_kw,
     ):
         """``fit(x, y, w, **fit_kw)`` followed by ``predict(x_test, w_test,
-        ...)``; ``x_test`` defaults to the training inputs."""
-        self.fit(x, y, w, **fit_kw)
+        ...)``; ``x_test`` defaults to the training inputs.  ``generator``
+        serves both: the fit's restart perturbations (``restarts > 1``)
+        are drawn first, then the predictive's normals."""
+        self.fit(x, y, w, generator=generator, **fit_kw)
         return self.predict(
             self._x_np if x_test is None else x_test,
             w_test,

@@ -90,11 +90,11 @@ def _declare(lib):
     ip = ctypes.POINTER(ctypes.c_int)
     for fn in ("gpar_gram_f32", "gpar_gram_f64"):
         f = getattr(lib, fn)
-        f.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cl, cl, ci, ip, ip, ip, vp]
+        f.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cl, cl, cl, ci, ip, ip, ip, vp]
         f.restype = ci
     for fn in ("gpar_gram_bwd_f32", "gpar_gram_bwd_f64"):
         f = getattr(lib, fn)
-        f.argtypes = [vp] * 10 + [ci, ci, ci, ci, ip, ip, ip, ci, ci, ci, ci, vp]
+        f.argtypes = [vp] * 10 + [ci, ci, ci, ci, cl, cl, cl, ci, ip, ip, ip, ci, ci, ci, ci, vp]
         f.restype = ci
     lib.gpar_gram_max_terms.argtypes = []
     lib.gpar_gram_max_terms.restype = ci

@@ -30,13 +30,17 @@ C++, forward and backward in ``gpar_torch/csrc/gram.cu``, built by
    backward's ``(dxf, dyf, dpar)`` through the feature maps and ``par``
    into ``x``, ``y`` and the tree's hyperparameters; no tree is
    re-evaluated in the backward.
-5. A leading sample axis (the JAX package vmaps ``gram`` over Monte-Carlo
-   samples in its ancestral tails): either operand may be ``(S, n, W)``,
-   the other ``(n, W)`` (shared by every sample) or ``(S, n, W)``, and the
-   Gram is ``(S, n, m)``.  One launch of the forward kernel computes all S
-   (``blockIdx.z``), the shared operand's stride 0.  The batched Gram is
-   forward only, for the serving tails that run under ``no_grad``: one
-   that would need a gradient raises.
+5. A leading batch axis.  The JAX package vmaps ``gram`` over
+   Monte-Carlo samples in its ancestral tails, and over restarts and
+   layers in its fits, where the tree's hyperparameters carry the batch
+   too.  Either operand may be ``(B, n, W)``, the other ``(n, W)`` (shared
+   by every element) or ``(B, n, W)``, and a tree's leaves may carry a
+   leading batch axis (a scalar field ``(B,)``, a vector field ``(B, W)``):
+   the features are then ``(B, n, D)`` and the parameters ``(B, 2T + 1)``,
+   and the Gram is ``(B, n, m)``.  One launch of the forward kernel
+   computes all B (``blockIdx.z``), a shared operand's stride 0; one launch
+   of the backward kernel their VJP, the gradient of a shared operand
+   summed over the batch.
 """
 
 import ctypes
@@ -64,6 +68,7 @@ __all__ = [
     "gram_batched_kernel_launches",
     "gram_plain_cuda_calls",
     "gram_bwd_kernel_launches",
+    "gram_bwd_batched_kernel_launches",
     "gram_eval_cuda_calls",
     "gram_autograd_calls",
     "counters",
@@ -91,6 +96,8 @@ gram_kernel_launches = 0
 gram_batched_kernel_launches = 0
 #: Launches of the CUDA Gram backward kernel (incremented by its wrapper only).
 gram_bwd_kernel_launches = 0
+#: Of those, the launches with a batch axis (one per batched Gram's VJP).
+gram_bwd_batched_kernel_launches = 0
 #: Grams of CUDA tensors evaluated by ``gram_eval`` because the analyser
 #: refused the tree.
 gram_plain_cuda_calls = 0
@@ -104,6 +111,7 @@ _COUNTERS = (
     "gram_kernel_launches",
     "gram_batched_kernel_launches",
     "gram_bwd_kernel_launches",
+    "gram_bwd_batched_kernel_launches",
     "gram_plain_cuda_calls",
     "gram_eval_cuda_calls",
     "gram_autograd_calls",
@@ -149,17 +157,19 @@ def _collect(k, weight, fmap, dim, terms, const_acc):
         return _collect(k.k, weight * k.scale, fmap, dim, terms, const_acc)
     if isinstance(k, K.Stretch):
         return _collect(
-            k.k, weight, lambda x, f=fmap, s=k.scales: f(x) / s, dim, terms, const_acc
+            k.k, weight, lambda x, f=fmap, s=K._rowvec(k.scales): f(x) / s, dim, terms,
+            const_acc
         )
     if isinstance(k, K.Gate):
         return _collect(
-            k.k, weight, lambda x, f=fmap, g=k.gates: f(x) * g, dim, terms, const_acc
+            k.k, weight, lambda x, f=fmap, g=K._rowvec(k.gates): f(x) * g, dim, terms,
+            const_acc
         )
     if isinstance(k, K.Periodic):
         return _collect(
             k.k,
             weight,
-            lambda x, f=fmap, p=k.period: K._embed_periodic(f(x), p),
+            lambda x, f=fmap, p=K._rowvec(k.period): K._embed_periodic(f(x), p),
             None if dim is None else 2 * dim,
             terms,
             const_acc,
@@ -235,9 +245,19 @@ def supported(kernel, d=None):
 
 
 def _scalar(v, like):
+    """A weight, alpha or constant as a tensor: 0-d, or (B,) for a leaf
+    with a batch axis."""
     if isinstance(v, torch.Tensor):
-        return v.to(dtype=like.dtype, device=like.device).reshape(())
+        v = v.to(dtype=like.dtype, device=like.device)
+        return v.reshape(()) if v.numel() == 1 and v.ndim <= 1 else v
     return like.new_full((), float(v))
+
+
+def _cat_lead(parts, n):
+    """``parts`` (each (..., n, d)) broadcast over their leading axes and
+    concatenated along the last one."""
+    lead = torch.broadcast_shapes(*(u.shape[:-2] for u in parts))
+    return torch.cat([u.expand(*lead, n, u.shape[-1]) for u in parts], dim=-1)
 
 
 def _prepare(terms, const, x, y):
@@ -246,7 +266,9 @@ def _prepare(terms, const, x, y):
     columns to a width that is a multiple of 4 (rows load as 16-byte vectors
     in the kernels); ``par = [w_0..w_{T-1}, alpha_0..alpha_{T-1}, const]``;
     everything in ``x``'s dtype, computed under ordinary autograd.  ``x`` and
-    ``y`` may carry a leading sample axis."""
+    ``y``, and the tree's leaves, may carry a leading batch axis: ``xf``
+    (``yf``) then has it wherever ``x`` (``y``) or a leaf does, and ``par``
+    is (B, 2T + 1) wherever a weight, alpha or constant does."""
     us, vs, dims, ws, alphas = [], [], [], [], []
     for t in terms:
         u = t.feats(x).to(x.dtype)
@@ -258,11 +280,16 @@ def _prepare(terms, const, x, y):
         alphas.append(_scalar(1.0 if t.alpha is None else t.alpha, x))
     pad = -sum(dims) % 4
     if pad:
-        us.append(x.new_zeros((*x.shape[:-1], pad)))
-        vs.append(x.new_zeros((*y.shape[:-1], pad)))
-    xf = torch.cat(us, dim=-1).contiguous()
-    yf = torch.cat(vs, dim=-1).contiguous()
-    par = torch.stack(ws + alphas + [_scalar(const, x)])
+        us.append(x.new_zeros((x.shape[-2], pad)))
+        vs.append(x.new_zeros((y.shape[-2], pad)))
+    xf = _cat_lead(us, x.shape[-2]).contiguous()
+    yf = _cat_lead(vs, y.shape[-2]).contiguous()
+    scal = ws + alphas + [_scalar(const, x)]
+    lead = torch.broadcast_shapes(*(a.shape for a in scal))
+    if lead:
+        par = torch.stack([a.expand(lead) for a in scal], dim=-1)
+    else:
+        par = torch.stack(scal)
     kinds = tuple(t.kind for t in terms)
     return kinds, tuple(dims), xf, yf, par
 
@@ -281,7 +308,7 @@ def gram_terms_plain(kinds, dims, xf, yf, par):
     """The kernel's function in plain PyTorch ops, on prepared terms: the
     same per-term arithmetic (direct squared differences), in the same
     order (terms, then the constant).  Either operand may carry a leading
-    sample axis (the other broadcasts)."""
+    batch axis (the other broadcasts), and ``par`` may be (B, 2T + 1)."""
     T = len(kinds)
     acc = None
     off = 0
@@ -289,7 +316,7 @@ def gram_terms_plain(kinds, dims, xf, yf, par):
         u = xf[..., off : off + d]
         v = yf[..., off : off + d]
         off += d
-        w = par[t]
+        w = _par(par, t)
         if kind == "lin":
             term = w * (u @ v.mT)
         else:
@@ -298,17 +325,26 @@ def gram_terms_plain(kinds, dims, xf, yf, par):
             if kind == "rbf":
                 term = w * torch.exp(-0.5 * s)
             else:
-                alpha = par[T + t]
+                alpha = _par(par, T + t)
                 term = w * torch.exp(-alpha * torch.log1p(s / (2.0 * alpha)))
         acc = term if acc is None else acc + term
-    return acc + par[2 * T]
+    return acc + _par(par, 2 * T)
+
+
+def _par(par, i):
+    """Entry ``i`` of ``par``: 0-d, or (B, 1, 1) against (B, n, m) Grams."""
+    return par[i] if par.ndim == 1 else par[:, i, None, None]
 
 
 def gram_terms_plain_vjp(kinds, dims, xf, yf, par, g):
     """The backward kernel's function in plain PyTorch ops: the VJP of
     :func:`gram_terms_plain` for the upstream gradient ``g (n, m)``, written
     out per term with direct differences; returns ``(dxf, dyf, dpar)``,
-    zero in the pad columns."""
+    zero in the pad columns.  With ``g (B, n, m)`` each element's VJP in
+    turn: the gradient of an operand with the batch axis per element, of a
+    shared one summed over the elements."""
+    if g.ndim == 3:
+        return _plain_vjp_batched(kinds, dims, xf, yf, par, g)
     T = len(kinds)
     dxf, dyf = torch.zeros_like(xf), torch.zeros_like(yf)
     zero = par.new_zeros(())
@@ -345,9 +381,25 @@ def gram_terms_plain_vjp(kinds, dims, xf, yf, par, g):
     return dxf, dyf, torch.stack(dws + das + [torch.sum(g)])
 
 
-def _check_terms(what, kinds, dims, xf, yf, par, batched=False):
-    """The checks both kernels' wrappers make on prepared terms; with
-    ``batched`` either operand may carry a leading sample axis."""
+def _plain_vjp_batched(kinds, dims, xf, yf, par, g):
+    """:func:`gram_terms_plain_vjp` over ``g (B, n, m)``, element by element."""
+
+    def el(a, b, rank):
+        return a[b] if a.ndim == rank else a
+
+    outs = [gram_terms_plain_vjp(kinds, dims, el(xf, b, 3), el(yf, b, 3), el(par, b, 2), g[b])
+            for b in range(g.shape[0])]
+    grads = []
+    for i, (a, rank) in enumerate(((xf, 3), (yf, 3), (par, 2))):
+        parts = torch.stack([o[i] for o in outs])
+        grads.append(parts if a.ndim == rank else parts.sum(0))
+    return tuple(grads)
+
+
+def _check_terms(what, kinds, dims, xf, yf, par):
+    """The checks both kernels' wrappers make on prepared terms: either
+    operand may carry a leading batch axis, and ``par`` may be (B, 2T + 1);
+    returns the batch size, or None when nothing carries one."""
     if not (xf.is_cuda and yf.is_cuda and par.is_cuda):
         raise ValueError(f"{what}: tensors must be on a CUDA device")
     if not (xf.device == yf.device == par.device):
@@ -356,15 +408,16 @@ def _check_terms(what, kinds, dims, xf, yf, par, batched=False):
         raise TypeError(f"{what}: unsupported dtype {xf.dtype}")
     if yf.dtype != xf.dtype or par.dtype != xf.dtype:
         raise TypeError(f"{what}: mixed dtypes")
-    ranks = (2, 3) if batched else (2,)
-    if xf.ndim not in ranks or yf.ndim not in ranks or xf.shape[-1] != yf.shape[-1]:
-        raise ValueError(f"{what}: xf/yf must be (n, D) and (m, D)"
-                         + (", either with a leading sample axis" if batched else ""))
-    if xf.ndim == yf.ndim == 3 and xf.shape[0] != yf.shape[0]:
-        raise ValueError(f"{what}: xf and yf have different sample counts")
+    if xf.ndim not in (2, 3) or yf.ndim not in (2, 3) or xf.shape[-1] != yf.shape[-1]:
+        raise ValueError(f"{what}: xf/yf must be (n, D) and (m, D), either with a leading "
+                         "batch axis")
     T = len(kinds)
-    if not 1 <= T <= MAX_TERMS or len(dims) != T or par.shape != (2 * T + 1,):
+    if not 1 <= T <= MAX_TERMS or len(dims) != T or par.ndim not in (1, 2) \
+            or par.shape[-1] != 2 * T + 1:
         raise ValueError(f"{what}: bad term specification")
+    sizes = {a.shape[0] for a, rank in ((xf, 3), (yf, 3), (par, 2)) if a.ndim == rank}
+    if len(sizes) > 1:
+        raise ValueError(f"{what}: xf, yf and par have different batch sizes")
     D = xf.shape[-1]
     if not sum(dims) <= D < sum(dims) + 4 or D % 4 or any(not 0 < d <= LANES for d in dims):
         raise ValueError(f"{what}: term widths do not match the padded features")
@@ -372,6 +425,14 @@ def _check_terms(what, kinds, dims, xf, yf, par, batched=False):
         raise ValueError(f"{what}: tensors must be contiguous")
     if (xf.data_ptr() | yf.data_ptr()) % 16:
         raise ValueError(f"{what}: features must be 16-byte aligned")
+    return sizes.pop() if sizes else None
+
+
+def _strides(xf, yf, par):
+    """Each operand's stride between batch elements (0: shared)."""
+    n, m, D = xf.shape[-2], yf.shape[-2], xf.shape[-1]
+    return (n * D if xf.ndim == 3 else 0, m * D if yf.ndim == 3 else 0,
+            par.shape[-1] if par.ndim == 2 else 0)
 
 
 def _c_terms(kinds, dims):
@@ -392,14 +453,14 @@ def _raise_on(lib, rc, what):
 def gram_kernel_launch(kinds, dims, xf, yf, par):
     """Launch the CUDA Gram kernel on prepared terms (CUDA tensors only);
     returns the (n, m) Gram, or the (S, n, m) Grams of one launch when
-    ``xf`` (S, n, D) or ``yf`` (S, m, D) carries a sample axis (a 2-D
-    operand is shared by every sample).  Raises on anything the kernel does
-    not take and on a refused launch."""
+    ``xf`` (S, n, D), ``yf`` (S, m, D) or ``par`` (S, 2T + 1) carries a batch
+    axis (an operand without it is shared by every element).  Raises on
+    anything the kernel does not take and on a refused launch."""
     global gram_kernel_launches, gram_batched_kernel_launches
-    _check_terms("gram_kernel_launch", kinds, dims, xf, yf, par, batched=True)
+    size = _check_terms("gram_kernel_launch", kinds, dims, xf, yf, par)
     n, m, D = xf.shape[-2], yf.shape[-2], xf.shape[-1]
-    batched = xf.ndim == 3 or yf.ndim == 3
-    S = (xf if xf.ndim == 3 else yf).shape[0] if batched else 1
+    batched = size is not None
+    S = size if batched else 1
     out = torch.empty(((S,) if batched else ()) + (n, m), dtype=xf.dtype, device=xf.device)
     if n == 0 or m == 0 or S == 0:
         return out
@@ -411,8 +472,7 @@ def gram_kernel_launch(kinds, dims, xf, yf, par):
         stream = torch.cuda.current_stream(xf.device).cuda_stream
         rc = fn(
             xf.data_ptr(), yf.data_ptr(), par.data_ptr(), out.data_ptr(),
-            S, n, m, D, n * D if xf.ndim == 3 else 0, m * D if yf.ndim == 3 else 0,
-            len(kinds), *_c_terms(kinds, dims), stream,
+            S, n, m, D, *_strides(xf, yf, par), len(kinds), *_c_terms(kinds, dims), stream,
         )
     _raise_on(lib, rc, "gram kernel launch")
     gram_kernel_launches += 1
@@ -437,9 +497,10 @@ def _sm_count(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _bwd_plan(n, m, n_terms, dtype, device):
+def _bwd_plan(n, m, n_terms, dtype, device, batch=1):
     """``(column tiles, row splits, rows per split, rows per step)`` of one
-    backward launch; the first three size its partial buffers.  The big
+    backward launch over ``batch`` elements (the grid is batch x terms x
+    column tiles x row splits); the first three size its partial buffers.  The big
     tile, unless one step per split of it would still leave more than half
     the SMs without a block: such a grid is latency-bound, and the small
     tile gives it more blocks of less work each.  Rows are split in whole
@@ -451,12 +512,13 @@ def _bwd_plan(n, m, n_terms, dtype, device):
     ct = -(-m // _BWD_COLS[dtype])
     sms = _sm_count(device)
     big, small = _BWD_ROWS[dtype]
-    step = small if 2 * ct * n_terms * -(-n // big) < sms else big
+    blocks = batch * n_terms * ct  # per row split
+    step = small if 2 * blocks * -(-n // big) < sms else big
     steps = -(-n // step)
     for splits in range(1, steps + 1):
         rps = -(-steps // splits) * step
         r = -(-n // rps)
-        per_sm = ct * n_terms * r / sms
+        per_sm = blocks * r / sms
         if per_sm >= _BWD_MIN_PER_SM and math.ceil(per_sm) <= _BWD_BALANCE * per_sm:
             break
     return ct, r, rps, step
@@ -464,14 +526,17 @@ def _bwd_plan(n, m, n_terms, dtype, device):
 
 def gram_bwd_kernel_launch(kinds, dims, xf, yf, par, g):
     """Launch the CUDA Gram backward kernel (CUDA tensors only): the VJP of
-    :func:`gram_kernel_launch` for the upstream gradient ``g (n, m)``;
-    returns ``(dxf, dyf, dpar)``.  Raises on anything the kernel does not
-    take and on a refused launch."""
-    global gram_bwd_kernel_launches
-    _check_terms("gram_bwd_kernel_launch", kinds, dims, xf, yf, par)
-    n, m, D = xf.shape[0], yf.shape[0], xf.shape[1]
-    if g.shape != (n, m) or g.dtype != xf.dtype or g.device != xf.device:
-        raise ValueError("gram_bwd_kernel_launch: g must be (n, m) like the forward's output")
+    :func:`gram_kernel_launch` for the upstream gradient ``g``, (n, m) or,
+    batched, (B, n, m); returns ``(dxf, dyf, dpar)``, each shaped like its
+    input (a shared operand's gradient summed over the batch).  Raises on
+    anything the kernel does not take and on a refused launch."""
+    global gram_bwd_kernel_launches, gram_bwd_batched_kernel_launches
+    size = _check_terms("gram_bwd_kernel_launch", kinds, dims, xf, yf, par)
+    n, m, D = xf.shape[-2], yf.shape[-2], xf.shape[-1]
+    B = 1 if size is None else size
+    want = (n, m) if size is None else (B, n, m)
+    if g.shape != want or g.dtype != xf.dtype or g.device != xf.device:
+        raise ValueError("gram_bwd_kernel_launch: g must be shaped like the forward's output")
     if not g.is_contiguous():
         raise ValueError("gram_bwd_kernel_launch: g must be contiguous")
     dxf, dyf, dpar = torch.empty_like(xf), torch.empty_like(yf), torch.empty_like(par)
@@ -481,22 +546,24 @@ def gram_bwd_kernel_launch(kinds, dims, xf, yf, par, g):
 
     lib = load_library()
     T = len(kinds)
-    ct, r, rps, step = _bwd_plan(n, m, T, xf.dtype, xf.device)
+    ct, r, rps, step = _bwd_plan(n, m, T, xf.dtype, xf.device, B)
     fn = lib.gpar_gram_bwd_f64 if xf.dtype == torch.float64 else lib.gpar_gram_bwd_f32
     # Per-block partials, summed in a fixed order by the second kernel.
-    du_part = torch.empty((ct, n, D), dtype=xf.dtype, device=xf.device)
-    dv_part = torch.empty((r, m, D), dtype=xf.dtype, device=xf.device)
-    sc_part = torch.empty((3, T, ct, r), dtype=xf.dtype, device=xf.device)
+    du_part = torch.empty((B, ct, n, D), dtype=xf.dtype, device=xf.device)
+    dv_part = torch.empty((B, r, m, D), dtype=xf.dtype, device=xf.device)
+    sc_part = torch.empty((3, T, B, ct, r), dtype=xf.dtype, device=xf.device)
     with torch.cuda.device(xf.device):
         stream = torch.cuda.current_stream(xf.device).cuda_stream
         rc = fn(
             xf.data_ptr(), yf.data_ptr(), par.data_ptr(), g.data_ptr(),
             dxf.data_ptr(), dyf.data_ptr(), dpar.data_ptr(),
             du_part.data_ptr(), dv_part.data_ptr(), sc_part.data_ptr(),
-            n, m, D, T, *_c_terms(kinds, dims), ct, r, rps, step, stream,
+            B, n, m, D, *_strides(xf, yf, par), T, *_c_terms(kinds, dims), ct, r, rps, step,
+            stream,
         )
     _raise_on(lib, rc, "gram backward kernel launch")
     gram_bwd_kernel_launches += 1
+    gram_bwd_batched_kernel_launches += int(size is not None)
     return dxf, dyf, dpar
 
 
@@ -547,9 +614,9 @@ class _GramFn(torch.autograd.Function):
 def gram_fused_or_none(kernel, x, y):
     """Fused Gram, or None when the analyser refuses the tree (the dispatch
     in :func:`gpar_torch.ops.kernels.gram` then evaluates ``gram_eval``).
-    ``x`` or ``y`` may carry a leading sample axis: the (S, n, m) Grams are
-    one forward launch, with no autograd (a batched Gram that would need a
-    gradient raises)."""
+    ``x``, ``y`` or the tree's leaves may carry a leading batch axis: the
+    (B, n, m) Grams are one forward launch, and under autograd one backward
+    launch."""
     global gram_autograd_calls
     if x.ndim not in (2, 3) or y.ndim not in (2, 3) or x.dtype not in (torch.float32, torch.float64):
         return None
@@ -557,13 +624,6 @@ def gram_fused_or_none(kernel, x, y):
     if parsed is None:
         return None
     prep = _prepare(*parsed, x, y)
-    if x.ndim == 3 or y.ndim == 3:
-        if torch.is_grad_enabled() and any(a.requires_grad for a in prep[2:]):
-            raise RuntimeError("gram: a Gram with a sample axis is forward only; "
-                               "call it under torch.no_grad()")
-        if prep[2].is_cuda:
-            return gram_kernel_launch(*prep)
-        return gram_terms_plain(*prep)
     out = _GramFn.apply(*prep)
     if out.is_cuda and out.requires_grad:
         gram_autograd_calls += 1

@@ -15,6 +15,11 @@ Evaluation has two routes:
   ``ops/gram_kernel.py`` accepts runs through the hand-written kernel (on
   a CUDA tensor) or its plain PyTorch version (on a CPU tensor); other
   trees run through :func:`gram_eval`.
+
+A tree whose leaves carry a leading batch axis (a scalar field (B,), a
+vector field (B, W); the JAX package vmaps its fits' objectives over
+restarts and layers) is B trees: ``gram`` gives (B, n, m) and ``kdiag``
+(B, n), the inputs shared by every element or carrying the batch too.
 """
 
 import math
@@ -221,6 +226,18 @@ def _select(x, inds):
     return x[..., list(inds)]
 
 
+def _rowvec(v):
+    """A vector field against (..., n, W) inputs: (W,) as it is, a batched
+    (B, W) as (B, 1, W)."""
+    return v if v.ndim <= 1 else v[..., None, :]
+
+
+def _sc(v, k):
+    """A scalar field against (..., n, m) Grams (``k = 2``) or (..., n)
+    diagonals (``k = 1``): a batched (B,) gets ``k`` trailing unit axes."""
+    return v[(...,) + (None,) * k] if v.ndim == 1 and v.numel() > 1 else v
+
+
 def gram(k, x, y):
     """The full pairwise kernel matrix ``k(x, y)`` of shape (n, m); (S, n, m)
     when ``x`` or ``y`` carries a leading sample axis (forward only).
@@ -255,25 +272,28 @@ def _gram_eval(k, x, y):
     if isinstance(k, Product):
         return _gram_eval(k.k1, x, y) * _gram_eval(k.k2, x, y)
     if isinstance(k, Scaled):
-        return k.scale * _gram_eval(k.k, x, y)
+        return _sc(k.scale, 2) * _gram_eval(k.k, x, y)
     if isinstance(k, Stretch):
-        return _gram_eval(k.k, x / k.scales, y / k.scales)
+        s = _rowvec(k.scales)
+        return _gram_eval(k.k, x / s, y / s)
     if isinstance(k, Periodic):
-        return _gram_eval(
-            k.k, _embed_periodic(x, k.period), _embed_periodic(y, k.period)
-        )
+        p = _rowvec(k.period)
+        return _gram_eval(k.k, _embed_periodic(x, p), _embed_periodic(y, p))
     if isinstance(k, Select):
         return _gram_eval(k.k, _select(x, k.inds), _select(y, k.inds))
     if isinstance(k, Gate):
-        return _gram_eval(k.k, x * k.gates, y * k.gates)
+        g = _rowvec(k.gates)
+        return _gram_eval(k.k, x * g, y * g)
     if isinstance(k, EQ):
         return torch.exp(-0.5 * sq_dists(x, y))
     if isinstance(k, RQ):
-        return (1.0 + sq_dists(x, y) / (2.0 * k.alpha)) ** (-k.alpha)
+        a = _sc(k.alpha, 2)
+        return (1.0 + sq_dists(x, y) / (2.0 * a)) ** (-a)
     if isinstance(k, Linear):
         return x @ y.mT
     if isinstance(k, Const):
-        return k.value.to(x.dtype).expand(_gram_shape(x, y))
+        v = _sc(k.value.to(x.dtype), 2)
+        return v.expand(torch.broadcast_shapes(v.shape, _gram_shape(x, y)))
     if isinstance(k, ZeroKernel):
         return x.new_zeros(_gram_shape(x, y))
     raise TypeError(f"Unknown kernel type: {type(k)!r}")
@@ -285,27 +305,28 @@ def _gram_shape(x, y):
 
 def kdiag(k, x):
     """The kernel's diagonal ``k(x_i, x_i)`` of shape (n,) (the Titsias
-    trace term, ``gpar/model.py:286-289``)."""
+    trace term, ``gpar/model.py:286-289``); (B, n) for a batched tree."""
     if isinstance(k, Sum):
         return kdiag(k.k1, x) + kdiag(k.k2, x)
     if isinstance(k, Product):
         return kdiag(k.k1, x) * kdiag(k.k2, x)
     if isinstance(k, Scaled):
-        return k.scale * kdiag(k.k, x)
+        return _sc(k.scale, 1) * kdiag(k.k, x)
     if isinstance(k, Stretch):
-        return kdiag(k.k, x / k.scales)
+        return kdiag(k.k, x / _rowvec(k.scales))
     if isinstance(k, Periodic):
-        return kdiag(k.k, _embed_periodic(x, k.period))
+        return kdiag(k.k, _embed_periodic(x, _rowvec(k.period)))
     if isinstance(k, Select):
         return kdiag(k.k, _select(x, k.inds))
     if isinstance(k, Gate):
-        return kdiag(k.k, x * k.gates)
+        return kdiag(k.k, x * _rowvec(k.gates))
     if isinstance(k, (EQ, RQ)):
-        return x.new_ones(x.shape[0])
+        return x.new_ones(x.shape[:-1])
     if isinstance(k, Linear):
         return torch.sum(x * x, dim=-1)
     if isinstance(k, Const):
-        return k.value.to(x.dtype).expand(x.shape[0])
+        v = _sc(k.value.to(x.dtype), 1)
+        return v.expand(torch.broadcast_shapes(v.shape, x.shape[:-1]))
     if isinstance(k, ZeroKernel):
-        return x.new_zeros(x.shape[0])
+        return x.new_zeros(x.shape[:-1])
     raise TypeError(f"Unknown kernel type: {type(k)!r}")

@@ -27,6 +27,13 @@ host-read ladder (the same factorisation of the same matrix; the
 unchosen rungs add exact zeros), so a captured step computes what the
 eager one does, at the price of the probes.  The JAX counterpart is the
 ladder through ``lax.cond`` (``gpar_tpu/ops/linalg.py:337-380``).
+
+The on-device ladder, the solves and the Titsias factors take a leading
+batch axis (the JAX package vmaps its fits' objectives over restarts and
+layers): every reduction runs over each element's own axes, and the ladder
+picks its rung per element, as JAX's vmapped ``lax.cond`` does, so one
+element's failing factorisation never changes another's jitter.  Unbatched
+inputs take the same operations as before.
 """
 
 import torch
@@ -86,29 +93,53 @@ def _attempt(K, e):
     return L, bool(info.item() == 0)
 
 
+#: Order above which a batch of CUDA matrices is factored one matrix at a
+#: time: cuSOLVER's batched ``potrf`` (which ``cholesky_ex`` takes for any
+#: batch) is made for small matrices, and two dense restarts at 11 840 rows
+#: took 4.4 times one restart's fit through it on an H100 (PERF.md §6,
+#: PR 9).  Each element then gets the factor the unbatched route computes.
+BATCHED_CHOLESKY_MAX_N = 512
+
+
+def _cholesky_ex(A):
+    """``torch.linalg.cholesky_ex`` of ``A``; a batch of large CUDA matrices
+    one matrix at a time (:data:`BATCHED_CHOLESKY_MAX_N`)."""
+    if A.ndim == 2 or not A.is_cuda or A.shape[-1] <= BATCHED_CHOLESKY_MAX_N:
+        return torch.linalg.cholesky_ex(A)
+    parts = [torch.linalg.cholesky_ex(a) for a in A.reshape(-1, *A.shape[-2:])]
+    return (torch.stack([L for L, _ in parts]).reshape(A.shape),
+            torch.stack([i for _, i in parts]).reshape(A.shape[:-2]))
+
+
 def cholesky_ladder_on_device(K, escalations, epsilon=None):
     """:func:`safe_cholesky` with no host read.  Every rung's factorisation
     is tried without autograd, the jitter of the first that holds is
     selected on the device, and ``K`` plus that jitter is factored again
     with autograd; a NaN matrix if every rung fails.  A factorisation that
     needed more than the first rung adds one to the integer device tensor
-    ``escalations``."""
+    ``escalations``.  ``K`` (B, n, n) takes its rungs per element, and
+    every element that escalates counts."""
     eps = resolve_epsilon(K.dtype, epsilon)
     if K.shape[-1] == 0:
         return torch.zeros_like(K)
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     # The relative rung's jitter keeps its gradient, as in the eager ladder;
     # the where-chain passes it on only when that rung is chosen.
-    rel = torch.clamp_min(1e-6 * torch.max(torch.abs(torch.diagonal(K))), eps)
+    rel = torch.clamp_min(1e-6 * torch.amax(torch.abs(torch.diagonal(K, dim1=-2, dim2=-1)), -1),
+                          eps)
     rungs = [eps] + [eps * f for f in config.cholesky_retry_factors]
+
+    def jit(e):
+        return e[..., None, None] if isinstance(e, torch.Tensor) and e.ndim else e
+
     with torch.no_grad():
-        ok = [torch.linalg.cholesky_ex(K + e * eye)[1] == 0 for e in rungs + [rel]]
-        escalations.add_((~ok[0]).to(escalations.dtype))
+        ok = [_cholesky_ex(K + jit(e) * eye)[1] == 0 for e in rungs + [rel]]
+        escalations.add_(torch.sum(~ok[0]).to(escalations.dtype))
     e = rel
     for r, held in zip(reversed(rungs), reversed(ok[:-1])):
         e = torch.where(held, r, e)
-    L, _ = torch.linalg.cholesky_ex(K + e * eye)
-    return torch.where(torch.stack(ok).any(), L, float("nan"))
+    L, _ = _cholesky_ex(K + jit(e) * eye)
+    return torch.where(jit(torch.stack(ok).any(0)), L, float("nan"))
 
 
 def safe_cholesky(K, epsilon=None):
@@ -174,19 +205,24 @@ def psd_sample_factor_batched(K, epsilon=None):
 
 def solve_lower(L, b):
     """Solve ``L x = b`` with ``L`` lower triangular (``b`` a vector or a
-    matrix)."""
+    matrix; with a batch of factors (B, n, n), (B, n) or (B, n, k))."""
     if L.shape[-1] == 0:
         return b
-    if b.ndim == 1:
-        return torch.linalg.solve_triangular(L, b[:, None], upper=False)[:, 0]
+    if b.ndim == L.ndim - 1:
+        return torch.linalg.solve_triangular(L, b[..., None], upper=False)[..., 0]
     return torch.linalg.solve_triangular(L, b, upper=False)
 
 
 def _solve_lower_t(L, b):
     """Solve ``L^T x = b`` with ``L`` lower triangular."""
-    if b.ndim == 1:
-        return torch.linalg.solve_triangular(L.mT, b[:, None], upper=True)[:, 0]
+    if b.ndim == L.ndim - 1:
+        return torch.linalg.solve_triangular(L.mT, b[..., None], upper=True)[..., 0]
     return torch.linalg.solve_triangular(L.mT, b, upper=True)
+
+
+def _mv(A, v):
+    """``A @ v`` for a vector ``v``, or (B, k) vectors against (B, ., k)."""
+    return A @ v if v.ndim == 1 else (A @ v[..., None])[..., 0]
 
 
 def solve_chol(L, b):
@@ -239,6 +275,10 @@ def titsias_factors(Kmm, Kmn, knn_diag, y, mean, noise_diag, epsilon=None, mask=
     :func:`cholesky_ladder_on_device`, which reads nothing back to the host
     and counts into it, instead of :func:`safe_cholesky`.
 
+    A batch: ``Kmm`` (B, m, m), ``Kmn`` (B, m, n), ``knn_diag`` and
+    ``noise_diag`` (B, n); ``y``, ``mean`` and ``mask`` (n,) or (B, n).
+    Every result then has the batch axis.
+
     The cancellation-free float32 form of the JAX package: ``A0 = Lm^{-1}
     Kmn`` stays at O(1) scale and both differences — the trace
     ``sum (knn - qnn) / D`` and the quadratic form ``sum r (r - est) / D``
@@ -252,23 +292,23 @@ def titsias_factors(Kmm, Kmn, knn_diag, y, mean, noise_diag, epsilon=None, mask=
     r = y - mean
     if mask is None:
         d_inv = 1.0 / noise_diag
-        logdet_d = torch.sum(torch.log(noise_diag))
-        n_eff = y.shape[0]
+        logdet_d = torch.sum(torch.log(noise_diag), dim=-1)
+        n_eff = y.shape[-1]
     else:
         r = r * mask
         d_inv = mask / noise_diag
-        logdet_d = torch.sum(torch.log(noise_diag) * mask)
-        n_eff = torch.sum(mask)
+        logdet_d = torch.sum(torch.log(noise_diag) * mask, dim=-1)
+        n_eff = torch.sum(mask, dim=-1)
 
     Lm = _cholesky(Kmm, epsilon, escalations)
     A0 = solve_lower(Lm, Kmn)  # (m, n), O(1) entries
-    qnn = torch.sum(A0 * A0, dim=0)
-    trace_num = torch.sum(torch.clamp_min(knn_diag - qnn, 0.0) * d_inv)
-    G = (A0 * d_inv[None, :]) @ A0.T
-    u = A0 @ (r * d_inv)
+    qnn = torch.sum(A0 * A0, dim=-2)
+    trace_num = torch.sum(torch.clamp_min(knn_diag - qnn, 0.0) * d_inv, dim=-1)
+    G = (A0 * d_inv[..., None, :]) @ A0.mT
+    u = _mv(A0, r * d_inv)
     LB, w, beta = titsias_solve(G, u, Lm, escalations)
-    est = A0.T @ w
-    quad = torch.sum(r * (r - est) * d_inv)
+    est = _mv(A0.mT, w)
+    quad = torch.sum(r * (r - est) * d_inv, dim=-1)
     elbo = titsias_assemble(logdet_d, LB, quad, trace_num, n_eff)
     return elbo, Lm, LB, beta
 
@@ -280,7 +320,7 @@ def titsias_solve(G, u, Lm, escalations=None):
     ``beta = Lm^{-T} w``.  ``G`` is resymmetrised first; ``escalations``
     as in :func:`titsias_factors`."""
     m = G.shape[-1]
-    G = 0.5 * (G + G.T)
+    G = 0.5 * (G + G.mT)
     LB = _cholesky(G + torch.eye(m, dtype=G.dtype, device=G.device), None, escalations)
     c = solve_lower(LB, u)
     w = _solve_lower_t(LB, c)
@@ -290,6 +330,6 @@ def titsias_solve(G, u, Lm, escalations=None):
 
 def titsias_assemble(logdet_d, LB, quad, trace_num, n_total):
     """Assemble the collapsed ELBO from its stable pieces."""
-    logdet = logdet_d + 2.0 * torch.sum(torch.log(torch.diagonal(LB)))
+    logdet = logdet_d + 2.0 * torch.sum(torch.log(torch.diagonal(LB, dim1=-2, dim2=-1)), dim=-1)
     lognorm = -0.5 * (n_total * LOG_2PI + logdet + quad)
     return lognorm - 0.5 * trace_num

@@ -104,11 +104,19 @@ def test_batched_gram_matches_jax_vmap(case, layout):
 
 
 def test_batched_gram_is_forward_only():
+    # The Gram with a sample axis was forward only; it now has a backward
+    # (the batched backward kernel; its plain version here): the gradient of
+    # the batched Gram equals the gradients of the per-sample Grams.
     build, d = CASES["layer-kernel-gated"]
     tree = build(TorchFW(np.float64))
     xb = torch.randn(3, 6, d, dtype=torch.float64, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        TK.gram(tree, xb, xb)
+    y2 = torch.randn(5, d, dtype=torch.float64, requires_grad=True)
+    w = torch.randn(3, 6, 5, dtype=torch.float64)
+    gx, gy = torch.autograd.grad(torch.sum(TK.gram(tree, xb, y2) * w), (xb, y2))
+    want = [torch.autograd.grad(torch.sum(TK.gram(tree, xb[s], y2) * w[s]), (xb, y2))
+            for s in range(3)]
+    close(gx, sum(g[0] for g in want), rtol=1e-12, atol=1e-12)
+    close(gy, sum(g[1] for g in want), rtol=1e-12, atol=1e-12)
 
 
 # -- the batched sampling factor ----------------------------------------------------

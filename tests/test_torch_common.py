@@ -23,6 +23,7 @@ __all__ = [
     "bench_kwargs",
     "jax_chain_normals",
     "jax_missing_normals",
+    "jax_restart_normals",
     "close_tail",
 ]
 
@@ -81,6 +82,35 @@ def jax_missing_normals(key, y, dtype=jnp.float64):
             key, k = jax.random.split(key)
             out.append(np.array(jax.random.normal(k, (n_missing,), dtype=dtype)))
     return out
+
+
+def jax_restart_normals(key, route, p, restarts, width, dtype=jnp.float64):
+    """The standard normals of the restart perturbations the JAX package
+    draws from ``key`` for a fit with ``restarts`` starts per layer, one
+    (restarts - 1, width) array per layer (``lbfgs_traced_restarts`` draws
+    ``normal(key, (restarts - 1, d))``, ``gpar_tpu/params/optim.py:73``),
+    in the port's ``fit(restart_normals=...)`` form.  Each route keys its
+    layers its own way:
+
+    - ``"scan"`` (``fused=True``, ``fix=True``) and ``"batched"``: layer
+      ``pi`` takes ``split(key, p)[pi]`` (``_fit_layer_keys``,
+      ``gpar_tpu/models/regressor.py:1455-1460``), ``width`` the padded
+      span ``s_max``;
+    - ``"joint"`` (``fix=False``, fused): position ``pi`` takes the same
+      split, ``width`` the prefix span ``n_z``;
+    - ``"layer"`` (``fused=False``): layer ``pi`` takes ``fold_in(key, pi)``
+      (``regressor.py:1262-1269``), ``width`` a list of the optimised
+      latents' counts per layer."""
+    if route in ("scan", "batched", "joint"):
+        keys = list(jax.random.split(key, p))
+        widths = [width] * p
+    elif route == "layer":
+        keys = [jax.random.fold_in(key, pi) for pi in range(p)]
+        widths = list(width)
+    else:
+        raise ValueError(route)
+    return [np.asarray(jax.random.normal(k, (restarts - 1, w), dtype=dtype))
+            for k, w in zip(keys, widths)]
 
 
 def close_tail(got, want, normals, latent, rtol=1e-8, atol=1e-10):

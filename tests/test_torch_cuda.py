@@ -116,7 +116,7 @@ def test_cuda_backward_kernel_at_the_lane_maps_edges_gives_the_same_bits(dtype, 
             assert float((a - c).abs().max()) <= tol * max(float(c.abs().max()), 1e-30), (n, m)
 
 
-def _small_step(dtype, dense=False):
+def _small_step(dtype, dense=False, restarts=1):
     x, y, _ = chain_data(n=100, p=3, seed=0)
     y[::7, 2] = np.nan
     kw = dict(bench_kwargs(n_ind=8), **({"x_ind": None} if dense else {}))
@@ -127,18 +127,20 @@ def _small_step(dtype, dense=False):
     plan = build_scan_fit_plan(reg, names)
     x_pad, rows = reg._bucket_fit_inputs(plan)
     zi = x_pad.new_zeros((0, plan.m)) if dense else reg.x_ind
-    step = ScanStep(plan, x_pad.shape[0], zi.shape[0], dtype, "cuda")
-    step.load(reg.vs.latent_vector(names), x_pad, rows, zi)
+    step = ScanStep(plan, x_pad.shape[0], zi.shape[0], dtype, "cuda", restarts=restarts)
+    pert = torch.as_tensor(np.random.default_rng(3).normal(size=(plan.p, restarts - 1, plan.s_max)),
+                           dtype=dtype, device="cuda")
+    step.load(reg.vs.latent_vector(names), x_pad, rows, zi, pert)
     return reg, x, y, step
 
 
-def _graphed_step_matches_eager_step(dtype, dense):
+def _graphed_step_matches_eager_step(dtype, dense, restarts=1):
     # The same bodies from the same buffers: replayed graphs and the eager
     # run give the same bits.
     from gpar_torch.models.fused import _cusolver
     from gpar_torch.models.graphs import GraphedStep
 
-    _, _, _, step = _small_step(dtype, dense)
+    _, _, _, step = _small_step(dtype, dense, restarts)
     twin = step.clone()
     with _cusolver("cuda"):
         graphs = GraphedStep(step)
@@ -171,6 +173,89 @@ def test_cuda_graphed_dense_layer_step_matches_eager_step(dtype):
     # No inducing points: the (rows, rows) Gram and its factorisation
     # through the on-device ladder, captured.
     _graphed_step_matches_eager_step(dtype, dense=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+def test_cuda_graphed_restart_step_matches_eager_step(dense):
+    _need_cuda()
+    # Three starts per layer: the batched L-BFGS's bodies and the best-of
+    # selection in layer_finish, captured; every Gram a batched launch.
+    _graphed_step_matches_eager_step(torch.float64, dense, restarts=3)
+    assert GK.gram_batched_kernel_launches > 0 and GK.gram_bwd_batched_kernel_launches > 0
+
+
+def _batched_tree(B, npdt, device, d):
+    """A gated tree of ``B`` elements: every hyperparameter with a leading
+    batch axis."""
+    from gpar_torch.ops.kernels import EQ, RQ, Linear
+
+    r = np.random.default_rng(B)
+
+    def P(a):
+        return torch.as_tensor(np.asarray(a, npdt), device=device)
+
+    gin = P((np.arange(d) < 2).astype(float))
+    gout = P((np.arange(d) >= 2).astype(float))
+    k = (P(r.uniform(0.5, 2, B)) * EQ().stretch(P(r.uniform(0.5, 3, (B, d))))).gate(gin)
+    k = k + Linear().stretch(P(r.uniform(3, 9, (B, d)))).gate(gout)
+    return k + P(r.uniform(0.5, 1.5, B)) * RQ(P(r.uniform(0.3, 2, B))).stretch(P(r.uniform(1, 4, (B, d))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+def test_cuda_batched_backward_kernel_matches_plain(dtype, tol):
+    _need_cuda()
+    # A batch of per-element trees (the restarts' Grams): forward and
+    # backward against their plain versions, element by element, with
+    # every operand batched and with either one shared (its gradient the
+    # sum over the batch); a second launch gives the same bits.
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    dev = torch.device("cuda")
+    B, d = 5, 9
+    tree = _batched_tree(B, npdt, dev, d)
+    x, y = _inputs(d, npdt, n=300, m=133)
+    prep = GK.prepare_terms(tree, torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev))
+    assert prep[2].ndim == prep[3].ndim == 3 and prep[4].shape == (B, 7)
+    g = torch.as_tensor(np.random.default_rng(9).normal(size=(B, 300, 133)).astype(npdt), device=dev)
+    for layout in ("both", "left shared", "right shared"):
+        kinds, dims, xf, yf, par = prep
+        if layout == "left shared":
+            xf = xf[0].contiguous()
+        elif layout == "right shared":
+            yf = yf[0].contiguous()
+        case = (kinds, dims, xf, yf, par)
+        launches = (GK.gram_batched_kernel_launches, GK.gram_bwd_batched_kernel_launches)
+        K = GK.gram_kernel_launch(*case)
+        got = GK.gram_bwd_kernel_launch(*case, g)
+        again = GK.gram_bwd_kernel_launch(*case, g)
+        torch.cuda.synchronize()
+        assert (GK.gram_batched_kernel_launches - launches[0],
+                GK.gram_bwd_batched_kernel_launches - launches[1]) == (1, 2)
+        fwd_tol = 1e-5 if dtype == torch.float32 else 1e-12
+        torch.testing.assert_close(K, GK.gram_terms_plain(*case), rtol=fwd_tol, atol=fwd_tol, msg=layout)
+        want = GK.gram_terms_plain_vjp(*case, g)
+        for a, b, c in zip(got, again, want):
+            assert a.shape == c.shape and torch.equal(a, b), layout
+            assert float((a - c).abs().max()) <= tol * max(float(c.abs().max()), 1e-30), layout
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_restart_fit_equals_eager_fit():
+    _need_cuda()
+    reg, x, y, _ = _small_step(torch.float64)
+    z0 = reg.vs.snapshot()
+    normals = list(np.random.default_rng(5).normal(
+        size=(reg.p, 2, build_scan_fit_plan(reg, reg.vs.select(None)).s_max)))
+    reg.fit(x, y, iters=5, restarts=3, restart_normals=normals)
+    graphed = (reg.last_fit_report, reg.vs.snapshot())
+    reg.vs.restore(z0)
+    reg.fit(x, y, iters=5, restarts=3, restart_normals=normals, cuda_graphs=False)
+    eager = (reg.last_fit_report, reg.vs.snapshot())
+    assert graphed[0]["graph_replays"] > 0 and eager[0]["graph_replays"] == 0
+    np.testing.assert_array_equal(graphed[0]["layer_nll"], eager[0]["layer_nll"])
+    for k, v in eager[1].items():
+        np.testing.assert_array_equal(graphed[1][k], v)
 
 
 @pytest.mark.cuda

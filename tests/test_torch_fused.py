@@ -350,10 +350,14 @@ def test_escalating_ladder_in_the_scan_fit_equals_the_driver(fits, monkeypatch):
 
 
 def test_unported_fit_options_raise(fits):
+    # fused="unroll" is not ported; fused="batched" and restarts are
+    # (tests/test_torch_batched_fit.py, tests/test_torch_restarts.py), and
+    # "batched" refuses this sparse model with JAX's message.
     rt = TReg(**fits["kw"], device="cpu")
-    for kw in (dict(fused="batched"), dict(fused="unroll"), dict(restarts=2)):
-        with pytest.raises(NotImplementedError):
-            rt.fit(fits["x"], fits["y"], iters=1, **kw)
+    with pytest.raises(NotImplementedError):
+        rt.fit(fits["x"], fits["y"], iters=1, fused="unroll")
+    with pytest.raises(ValueError, match="dense"):
+        rt.fit(fits["x"], fits["y"], iters=1, fused="batched")
     # The dense path (x_ind=None) is ported: it fits, as JAX's does.
     kw = dict(fits["kw"], x_ind=None)
     dense, jdense = TReg(**kw, device="cpu"), JReg(**kw)

@@ -166,3 +166,84 @@ def test_backward_plan_covers_rows_in_whole_steps_and_balances_the_sms(monkeypat
     rows = np.concatenate([np.arange(s * rps, min(n, (s + 1) * rps)) for s in range(r)])
     np.testing.assert_array_equal(rows, np.arange(n))
     assert (r - 1) * rps < n
+
+
+# Plans over a batch of B elements (restarts, fused="batched"; the grid is
+# B x terms x column tiles x row splits), worked by hand the same way on 132
+# SMs with the gated tree's three terms: (B, n, m) -> plan.
+_BATCHED_PLANS = {
+    torch.float32: {
+        # 4 x 3 x 93 = 1116 blocks with no split: 8.45 per SM (busiest 9 <=
+        # 10.15); Kmn of 4 restarts needs no row split.
+        (4, 256, 11_840): (93, 1, 256, 64),
+        # 4 x 3 x 2 = 24 blocks a split, 192 at one step per split of the big
+        # tile (>= 66): big; never 3 per SM, so one step per split.
+        (4, 256, 256): (2, 4, 64, 64),
+        # 64 x 3 x 19 = 3648: 27.64 per SM (busiest 28 <= 33.16).
+        (64, 2432, 2432): (19, 1, 2432, 64),
+        # 2 x 3 x 93 = 558: 4.23 per SM (busiest 5 <= 5.07); the dense step
+        # with 2 restarts walks all its rows in one split.
+        (2, 11_840, 11_840): (93, 1, 11_840, 64),
+        # 4 x 3 x 1 x 1 = 12 blocks, 24 at one step per split of the big tile
+        # (< 66): small, 3 steps of 16.
+        (4, 37, 23): (1, 3, 16, 16),
+    },
+    torch.float64: {
+        # 4 x 3 x 185 = 2220: 16.82 per SM (busiest 17 <= 20.18).
+        (4, 256, 11_840): (185, 1, 256, 32),
+        # 4 x 3 x 4 = 48 a split, 384 at one step per split (>= 66): big;
+        # 2.91 per SM at 8 splits, one step each.
+        (4, 256, 256): (4, 8, 32, 32),
+        # 64 x 3 x 38 = 7296: 55.27 per SM (busiest 56 <= 66.33).
+        (64, 2432, 2432): (38, 1, 2432, 32),
+        # 2 x 3 x 185 = 1110: 8.41 per SM (busiest 9 <= 10.09).
+        (2, 11_840, 11_840): (185, 1, 11_840, 32),
+        # 12 blocks, 24 x 2 = 48 at one step per split of the big tile: small.
+        (4, 37, 23): (1, 3, 16, 16),
+    },
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,m", list(_BATCHED_PLANS[torch.float32]))
+def test_batched_backward_plan_counts_the_whole_grid(monkeypatch, B, n, m, dtype):
+    monkeypatch.setattr(GK, "_sm_count", lambda device: 132)
+    ct, r, rps, step = GK._bwd_plan(n, m, 3, dtype, "cuda", B)
+    assert (ct, r, rps, step) == _BATCHED_PLANS[dtype][(B, n, m)]
+    assert step in GK._BWD_ROWS[dtype] and rps % step == 0 and r == -(-n // rps)
+    # The grid's z axis, B T, stays within the launch's limit.
+    assert B * 3 <= 65_535
+    # At one element the plan is the 2-D launch's.
+    assert GK._bwd_plan(n, m, 3, dtype, "cuda", 1) == GK._bwd_plan(n, m, 3, dtype, "cuda")
+
+
+@pytest.mark.parametrize("layout", ["both", "left shared", "right shared", "params shared"])
+def test_batched_plain_vjp_is_the_per_element_vjp(layout):
+    # The batched plain VJP (the backward kernel's plain version over a
+    # batch) against each element's 2-D plain VJP: per element for an
+    # operand with the batch axis, summed over the batch for a shared one.
+    _, kt, d = _build("layer-kernel-gated", np.float64)
+    x, y = _inputs(d, np.float64)
+    kinds, dims, xf, yf, par = GK.prepare_terms(kt, torch.as_tensor(x), torch.as_tensor(y))
+    r = np.random.default_rng(3)
+    B = 3
+    xb = xf[None] * torch.as_tensor(r.uniform(0.5, 1.5, (B, 1, xf.shape[1])))
+    yb = yf[None] * torch.as_tensor(r.uniform(0.5, 1.5, (B, 1, yf.shape[1])))
+    pb = par[None] * torch.as_tensor(r.uniform(0.5, 1.5, (B, par.shape[0])))
+    ops = {"both": (xb, yb, pb), "left shared": (xf, yb, pb), "right shared": (xb, yf, pb),
+           "params shared": (xb, yb, par)}[layout]
+    g = torch.as_tensor(r.normal(size=(B, xf.shape[0], yf.shape[0])))
+    got = GK.gram_terms_plain_vjp(kinds, dims, *ops, g)
+    per = [GK.gram_terms_plain_vjp(kinds, dims, *[a[b] if a.ndim == k else a
+                                                  for a, k in zip(ops, (3, 3, 2))], g[b])
+           for b in range(B)]
+    for i, (a, k) in enumerate(zip(ops, (3, 3, 2))):
+        want = torch.stack([q[i] for q in per])
+        want = want if a.ndim == k else want.sum(0)
+        assert got[i].shape == a.shape
+        close(got[i], want, rtol=1e-14, atol=1e-14)
+    # The batched forward, element by element, likewise.
+    K = GK.gram_terms_plain(kinds, dims, *ops)
+    for b in range(B):
+        el = [a[b] if a.ndim == k else a for a, k in zip(ops, (3, 3, 2))]
+        close(K[b], GK.gram_terms_plain(kinds, dims, *el), rtol=1e-14, atol=1e-14)

@@ -124,13 +124,15 @@ def test_condition_normalisation_matches_jax():
 
 
 def test_unported_options_raise(runs):
+    # Restarts are ported (tests/test_torch_restarts.py); greedy ordering
+    # and fused="unroll" are not.
     rt = TReg(**runs["kw"], device="cpu")
     with pytest.raises(NotImplementedError):
-        rt.fit(runs["x"], runs["y"], fix=False, restarts=2)
+        rt.fit(runs["x"], runs["y"], fused="unroll")
     with pytest.raises(NotImplementedError):
         rt.fit(runs["x"], runs["y"], greedy=True)
-    with pytest.raises(NotImplementedError):
-        rt.fit(runs["x"], runs["y"], restarts=2)
+    with pytest.raises(ValueError, match="restarts"):
+        rt.fit(runs["x"], runs["y"], restarts=0)
     with pytest.raises(RuntimeError, match="condition"):
         TReg(**runs["kw"], device="cpu").load_latents({})
 
