@@ -51,7 +51,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    float64 (forward 1e-5 / 1e-12, backward 1e-4 / 1e-10 of the largest
    entry), two launches of each giving the same bits; in float32 each
    timed beside B separate 2-D launches, the plain version and B times the
-   single Gram's bound.
+   single Gram's bound.  The same for the greedy scorer's Grams at its
+   first position: the estimator's layer-0 tree over 16 candidates at
+   (16, 256, 11840), with the left operand shared too, and (16, 2432, 2432).
 3. Main path at full width: ``GPARRegressor.fit_predict`` at the
    benchmark's configuration (``bench.py``): n=10 000, p=16, 256 inducing
    points, 10 L-BFGS iterations per layer, 100-sample predictive with
@@ -111,7 +113,19 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    whose reckoned peak stays under 24 GiB (layer NLLs within 1e-5 at the
    initial latents; after 10 iterations the gap is printed), and JAX's
    error for each broken precondition.
-10. Small-input agreement: a float64 fit_predict (p=3, n=100, sparse with
+10. Greedy ordering (``[greedy]`` lines, :func:`phase_greedy`):
+   ``fit(greedy=True, iters=10)`` of the bench's model with
+   ``compat=False`` on the bench's data with its columns shuffled by a
+   fixed permutation, graphed, cold and warm (the same order and bits, the
+   ``10k`` gates in the original columns), and the dense model at
+   n = 2000; the search's and the fit's wall-clocks, host reads and rounds
+   of trials per position, and the scorer's batched launches (every scorer
+   Gram one batched launch; no plain-route Gram, no ``gram_eval``).
+11. The examples' configurations (``[configs]`` lines,
+   :func:`phase_configs`) at n = 2000, p = 4, sparse and dense, in
+   float32 on the card (finite, the analyser's terms, no ``gram_eval``),
+   and at n = 96 in float64 against the CPU (rtol 1e-6).
+12. Small-input agreement: a float64 fit_predict (p=3, n=100, sparse with
    8 inducing points and dense, ``replace`` True and False) through the
    scan path on the card (graphed) against the same run on the CPU (eager;
    the CPU route is held against the JAX package by the test suite), rtol
@@ -119,14 +133,17 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    other data after it, sparse and dense, the same way; then three restarts
    of the graphed scan against the per-layer driver's sequential restarts,
    and ``fused="batched"`` (one start and two) against the graphed scan,
-   all on the card, from the same normals (rtol 1e-6).
-11. Summary: ``[main]``, ``[dense]``, ``[ancestral]``, ``[logpdf]``,
-   ``[free]``, ``[restarts]`` and ``[batched]`` JSON lines, a ``kernels``
+   all on the card, from the same normals (rtol 1e-6); and the greedy
+   search at n = 64, p = 4, sparse and dense, on the card against the CPU
+   (the same order, NLLs to rtol 1e-6).
+13. Summary: ``[main]``, ``[dense]``, ``[ancestral]``, ``[logpdf]``,
+   ``[free]``, ``[restarts]``, ``[batched]``, ``[greedy]`` and
+   ``[configs]`` JSON lines, a ``kernels``
    JSON line (launches of the sparse and the dense graphed cold runs, the
    scan-route scores' cold runs and the sparse joint fit; the sample-axis
    route's from the ``[ancestral]`` sparse cold and dense requests; the
    per-element-parameter forward and the batched backward from the
-   ``[restarts]`` and ``[batched]`` runs), the card line, and last
+   ``[restarts]``, ``[batched]`` and ``[greedy]`` runs), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` additionally traces one warm (graphed) fit_predict of each
@@ -693,6 +710,12 @@ def phase_batched_kernel_check(device):
 #: of a 2000-row dataset (bucket 2432).  Features and parameters carry the
 #: batch (each element's length scales give it its own features).
 PARAM_BATCH_SHAPES = [(4, 256, 11_840), (4, 256, 256), (64, 2432, 2432)]
+#: The greedy scorer's Grams at its first position: all 16 candidates of the
+#: bench's model as one batch, Kmn of the sparse model (and with the left
+#: operand shared by the batch) and K of the dense one at a 2000-row
+#: dataset (bucket 2432); every candidate's tree is the estimator's layer-0
+#: tree with its own parameters.
+SCORER_SHAPES = [(16, 256, 11_840, ""), (16, 256, 11_840, "left"), (16, 2432, 2432, "")]
 
 
 def gated_tree_batched(B, dtype, device, m=1, P1=16, pi=9, seed=5):
@@ -721,6 +744,28 @@ def gated_tree_batched(B, dtype, device, m=1, P1=16, pi=9, seed=5):
     return k
 
 
+def scorer_tree_batched(C, position, dtype, device, seed=7):
+    """The greedy scorer's tree at ``position`` for the bench's model, as
+    ``GPARRegressor._greedy_position_nlls`` builds it: the estimator's layer
+    tree (``_model_generator``) whose leaves carry a candidate axis of ``C``,
+    each candidate's latents drawn around the fresh initialisation.  Returns
+    ``(tree, input width)``."""
+    import torch
+
+    from gpar_torch.models.regressor import GPARRegressor, _model_generator
+    from gpar_torch.params.store import Vars
+
+    cfg = GPARRegressor(**model_kwargs(np.zeros(2)), device=device, dtype=dtype).model_config
+    vs = Vars(dtype=dtype, device=device)
+    _model_generator(vs, 1, position, **cfg)()
+    names = vs.select(None)
+    z0 = vs.latent_vector(names)
+    noise = np.random.default_rng(seed).standard_normal((C, z0.numel()))
+    z = z0 + 0.3 * torch.as_tensor(noise, dtype=dtype, device=device)
+    f, _ = _model_generator(vs.with_latent_vector(names, z), 1, position, **cfg)()
+    return f.kernel, 1 + position
+
+
 def element(prep, b):
     """Element ``b`` of prepared terms with a batch axis (a shared operand as
     it is)."""
@@ -731,11 +776,11 @@ def element(prep, b):
 
 def phase_param_batched_kernel_check(device):
     """Both kernels over a batch of per-element trees, the route of the
-    restarts and of ``fused="batched"``: one launch of the forward kernel
-    for B Grams with per-element parameters (the JAX package's vmapped
-    ``pallas_call``), one of the backward kernel for their VJP, at
-    ``PARAM_BATCH_SHAPES``, in both dtypes, every element against its plain
-    version in float64 (forward 1e-5 / 1e-12, backward max|err|/max|plain|
+    restarts, of ``fused="batched"`` and of the greedy scorer: one launch
+    of the forward kernel for B Grams with per-element parameters (the JAX
+    package's vmapped ``pallas_call``), one of the backward kernel for
+    their VJP, at ``PARAM_BATCH_SHAPES`` and ``SCORER_SHAPES``, in both
+    dtypes, every element against its plain version in float64 (forward 1e-5 / 1e-12, backward max|err|/max|plain|
     1e-4 / 1e-10), two launches of each giving the same bits; at Kmn also
     with the left operand shared by the batch, whose gradient is the sum
     over it.  In float32 the device time of each beside B separate 2-D
@@ -749,19 +794,25 @@ def phase_param_batched_kernel_check(device):
     bwd_tol = {torch.float32: 1e-4, torch.float64: 1e-10}
     rows = {"gram": [], "gram_bwd": []}
     worst = {k: {torch.float32: 0.0, torch.float64: 0.0} for k in rows}
-    cases = [(B, n, m, "") for B, n, m in PARAM_BATCH_SHAPES] + [(*PARAM_BATCH_SHAPES[0], "left")]
+    cases = ([(B, n, m, "", "gated") for B, n, m in PARAM_BATCH_SHAPES]
+             + [(*PARAM_BATCH_SHAPES[0], "left", "gated")]
+             + [(*shape, "scorer") for shape in SCORER_SHAPES])
     for dtype in (torch.float32, torch.float64):
-        for B, n, m, shared in cases:
-            tree = gated_tree_batched(B, dtype, device)
-            x = inputs(n, 17, dtype, device, seed=n + 3)
-            y = inputs(m, 17, dtype, device, seed=m + 4)
+        for B, n, m, shared, kind in cases:
+            if kind == "gated":
+                tree, d = gated_tree_batched(B, dtype, device), 17
+            else:
+                tree, d = scorer_tree_batched(B, 0, dtype, device)
+            x = inputs(n, d, dtype, device, seed=n + 3)
+            y = inputs(m, d, dtype, device, seed=m + 4)
             with torch.no_grad():
                 prep = GK.prepare_terms(tree, x, y)
             if shared:  # the left features shared by every element
                 prep = (*prep[:2], prep[2][0].contiguous(), *prep[3:])
             kinds, dims = prep[:2]
             what = (f"({B}, {n}, {m}) per-element parameters"
-                    + (", left operand shared" if shared else ""))
+                    + (", left operand shared" if shared else "")
+                    + (", the greedy scorer's position-0 tree" if kind == "scorer" else ""))
             dt = str(dtype)[6:]
             before = (GK.gram_batched_kernel_launches, GK.gram_bwd_batched_kernel_launches)
             got = GK.gram_kernel_launch(*prep)
@@ -796,7 +847,7 @@ def phase_param_batched_kernel_check(device):
             brel, babs = rel_err([a.to(torch.float64) for a in bgot], bgrads)
             bok = brel <= bwd_tol[dtype]
             torch.cuda.synchronize()
-            print(f"[kernel] param-batched gated {dt} {what}: forward max|err| {err:.3e} (max|K| "
+            print(f"[kernel] param-batched {kind} {dt} {what}: forward max|err| {err:.3e} (max|K| "
                   f"{kmax:.3e}) {'ok' if ok else 'FAIL'}; backward max|err|/max|plain| {brel:.3e} (max|err| "
                   f"{babs:.3e}) {'ok' if bok else 'FAIL'}; two launches of each give the same bits: {bits}; "
                   f"backward {bwd_plan_text(GK, n, m, len(kinds), dtype, x.device, B)}")
@@ -833,7 +884,7 @@ def phase_param_batched_kernel_check(device):
                 sep_ms = device_ms(lambda: separate(bwd), max(1, reps // 4))
                 p_ms = device_ms(lambda: plain(bwd), 1)
                 one_ms, b_by = bound(kinds, dims, n, m, 4)
-                rows[kname].append(dict(tree="gated-batched", B=B, n=n, m=m, d=17, shared=shared or "none",
+                rows[kname].append(dict(tree=f"{kind}-batched", B=B, n=n, m=m, d=d, shared=shared or "none",
                                         ms=k_ms, separate_ms=sep_ms, plain_ms=p_ms, bound_ms=B * one_ms,
                                         bound_by=b_by, max_abs_err=e))
                 print(f"[kernel] time param-batched {kname} {what} f32: kernel {k_ms:.5f} ms device, {B} "
@@ -1815,6 +1866,272 @@ def phase_small_agreement():
               f"both on cuda (rtol 1e-6): layer NLL {nc.tolist()}")
 
 
+#: The fixed permutation of the bench's columns that the greedy phase's
+#: search must undo or reorder (numpy.random.default_rng(11)).
+GREEDY_PERM_SEED = 11
+
+
+def greedy_lines(P, tag, reg, counts, fit_s, predict_s, peak):
+    """Print a greedy fit's order, search wall-clock, its per-position host
+    reads and rounds of trials and the scorer's launches; returns them."""
+    g = reg.last_greedy_report
+    order = [int(o) for o in reg.order]
+    is_perm = sorted(order) == list(range(len(order)))
+    reads = [p["host_syncs"] for p in g["positions"]]
+    trials = [p["linesearch_trials"] for p in g["positions"]]
+    print(f"{P} {tag}: order {order} (a permutation: {is_perm}); greedy search {g['wall_clock_s']:.3f} s, "
+          f"fit after it {reg.last_fit_report['wall_clock_s']:.3f} s (fit() {fit_s:.3f} s in all), predict "
+          f"{predict_s:.3f} s; peak device memory {peak:.2f} GiB")
+    print(f"{P} {tag}: per position host reads {reads}, rounds of backtracking trials {trials}, "
+          f"escalated factorisations {[p['ladder_escalations'] for p in g['positions']]}; the scorer's "
+          f"batched launches: forward {counts['gram_batched_kernel_launches']} (of "
+          f"{counts['gram_kernel_launches']}), backward {counts['gram_bwd_batched_kernel_launches']} (of "
+          f"{counts['gram_bwd_kernel_launches']}); plain CUDA Grams {counts['gram_plain_cuda_calls']}, "
+          f"gram_eval on CUDA {counts['gram_eval_cuda_calls']}")
+    if not is_perm:
+        raise AssertionError(f"{tag}: the greedy order is not a permutation: {order}")
+    check_batched_counts(f"{tag} greedy search", counts)
+    if counts["gram_batched_kernel_launches"] != counts["gram_kernel_launches"]:
+        raise AssertionError(f"{tag}: a scorer Gram was not one batched launch: {counts}")
+    return dict(order=order, greedy_s=g["wall_clock_s"], fit_after_s=reg.last_fit_report["wall_clock_s"],
+                fit_s=fit_s, predict_s=predict_s, peak_gib=peak, host_syncs=reads, trials=trials,
+                escalations=[p["ladder_escalations"] for p in g["positions"]],
+                batched_launches=counts["gram_batched_kernel_launches"],
+                bwd_batched_launches=counts["gram_bwd_batched_kernel_launches"],
+                gram_eval_calls=counts["gram_eval_cuda_calls"], plain_calls=counts["gram_plain_cuda_calls"])
+
+
+def greedy_request(reg, x, y, x_test, device):
+    """``fit(greedy=True, iters=10)`` on the graphed scan route, then a
+    100-sample ``predict`` with credible bounds; the scorer's Gram counters
+    are read around the search alone.  Returns ``(out, fit_s, predict_s,
+    peak_gib, scorer counters, fit counters)``."""
+    import torch
+
+    from gpar_torch.ops import gram_kernel as GK
+
+    search = type(reg)._greedy_order
+    scorer = {}
+
+    def spy(*a):
+        GK.reset_counters()
+        order = search(reg, *a)
+        torch.cuda.synchronize()
+        scorer.update(GK.counters())
+        GK.reset_counters()
+        return order
+
+    reg._greedy_order = spy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reg.fit(x, y, greedy=True, iters=10)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = GK.counters()
+    t0 = time.perf_counter()
+    out = reg.predict(x_test, num_samples=100, credible_bounds=True,
+                      generator=torch.Generator(device).manual_seed(0))
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    del reg._greedy_order
+    return out, fit_s, predict_s, torch.cuda.max_memory_allocated() / 2**30, scorer, fit_counts
+
+
+def phase_greedy(device):
+    """Greedy output ordering at full width (``[greedy]`` lines): the bench's
+    model with ``compat=False`` on ``make_data(10 000, 16)`` whose columns
+    are shuffled by a fixed permutation, ``fit(greedy=True, iters=10)`` on
+    the graphed scan route and a 100-sample ``predict`` with credible
+    bounds, cold and warm (the same order and the same bits), held to the
+    ``10k`` gates in the original columns; then the dense model
+    (``x_ind=None``) on ``make_data(2000, 16, seed=500)`` (bucket 2432),
+    once.  Every scorer Gram must be one batched launch of the forward
+    kernel and every gradient one of the backward, with no plain-route
+    Gram and no ``gram_eval`` on the card."""
+    import torch
+
+    import gpar_torch
+    from gpar_torch import GPARRegressor
+
+    P = "[greedy]"
+    gpar_torch.config.epsilon = 1e-6
+    perm = np.random.default_rng(GREEDY_PERM_SEED).permutation(16)
+    res = {"permutation": perm.tolist()}
+    x, y, f = make_data(10_000, 16)
+    y, f = y[:, perm], f[:, perm]
+    test_idx = np.arange(len(x))[:: max(len(x) // 1024, 1)][:1024]
+    runs = []
+    for tag in ("sparse cold", "sparse warm"):
+        reg = GPARRegressor(**model_kwargs(x), compat=False, device=device)
+        out, fit_s, predict_s, peak, scorer, fit_counts = greedy_request(reg, x, y, x[test_idx], device)
+        res[tag] = greedy_lines(P, tag, reg, scorer, fit_s, predict_s, peak)
+        res[tag]["quality"] = check_quality(P, tag + " (original columns)", out, reg.last_fit_report,
+                                            f[test_idx])
+        res[tag]["fit_launches"] = fit_counts["gram_kernel_launches"]
+        if fit_counts["gram_plain_cuda_calls"] or fit_counts["gram_eval_cuda_calls"]:
+            raise AssertionError(f"{tag}: the fit after the search bypassed the kernel: {fit_counts}")
+        runs.append((res[tag]["order"], out))
+    same = runs[0][0] == runs[1][0] and all(np.array_equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    print(f"{P} sparse cold and warm: the same order and the same bits: {same}; the order undoes the "
+          f"shuffle {perm.tolist()} into original columns {[int(perm[o]) for o in runs[0][0]]}")
+    if not same:
+        raise AssertionError("the greedy request is not deterministic")
+    xd, yd, fd = make_data(2000, 16, seed=500)
+    yd, fd = yd[:, perm], fd[:, perm]
+    reg = GPARRegressor(**dict(model_kwargs(xd), x_ind=None), compat=False, device=device)
+    out, fit_s, predict_s, peak, scorer, _ = greedy_request(reg, xd, yd, xd[::2], device)
+    res["dense"] = greedy_lines(P, "dense n=2000 (bucket 2432)", reg, scorer, fit_s, predict_s, peak)
+    res["dense"]["quality"] = check_quality(P, "dense n=2000 (original columns)", out, reg.last_fit_report,
+                                            fd[::2], gates=False)
+    return res
+
+
+def phase_small_greedy():
+    """The greedy search in float64 at n = 64, p = 4, sparse and dense, on
+    the card and on the CPU in the same process (the plain versions of the
+    kernels): the same order, per-position NLLs equal to rtol 1e-6."""
+    import torch
+
+    from gpar_torch import GPARRegressor
+
+    x, y, _ = make_data(64, 4, seed=9)
+    x, y = x.astype(np.float64), y[:, [2, 0, 3, 1]].astype(np.float64)
+    y[::9, 3] = np.nan
+    for model, n_ind in (("sparse", 8), ("dense", None)):
+        kw = dict(model_kwargs(x, n_ind=n_ind or 8), compat=False)
+        if n_ind is None:
+            kw["x_ind"] = None
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            reg = GPARRegressor(**kw, device=dev, dtype=torch.float64)
+            reg.condition(x, y)
+            order = reg._greedy_order(15)
+            outs[dev] = (order.tolist(), [p["nll"] for p in reg.last_greedy_report["positions"]])
+        (oc, nc), (oh, nh) = outs["cuda"], outs["cpu"]
+        if oc != oh:
+            raise AssertionError(f"float64 greedy order on cuda {oc} != on cpu {oh}")
+        for a, b in zip(nc, nh):
+            np.testing.assert_allclose(a, b, rtol=1e-6)
+        print(f"[small] float64 {model} greedy search n=64 p=4, on cuda == on cpu: order {oc}, per-position "
+              f"NLLs equal to rtol 1e-6 (position 0: {np.round(nc[0], 6).tolist()})")
+
+
+#: The examples' configurations (ROADMAP A10.7): name -> (constructor
+#: arguments beyond the noise, input width, transform, non-unit weights).
+CONFIGS = {
+    "exchange": (dict(scale=0.1, linear=True, linear_scale=10.0, nonlinear=True, rq=True, noise=0.01,
+                      replace=False, compat=True), 1, None, True),
+    "jura": (dict(scale=10.0, linear=False, nonlinear=True, noise=0.1, impute=False, replace=True,
+                  compat=False), 2, "log", False),
+    "ml": (dict(scale=1.0, linear=True, linear_scale=100.0, nonlinear=True, noise=0.01, replace=True,
+                markov=1, scale_tie=True, compat=True), 6, None, False),
+    "eeg": (dict(scale=0.02, linear=False, nonlinear=True, noise=0.01, replace=False, compat=False), 1,
+            "squish", False),
+    "periodic": (dict(per=True, per_period=3.0, per_decay=10.0, input_linear=True, input_linear_scale=10.0,
+                      linear=True, linear_scale=10.0, noise=0.1, replace=True, normalise_y=False,
+                      compat=False), 1, None, True),
+}
+
+
+def config_data(n, p, m, transform, seed):
+    """A ``p``-output chain on ``m`` inputs with 10 % of the later outputs
+    missing; positive for the log transform; non-unit weights."""
+    r = np.random.default_rng(seed)
+    x = r.uniform(0.0, 10.0, (n, m))
+    t = x[:, 0] + 0.3 * x.sum(axis=1)
+    cols = [np.sin(t)]
+    for i in range(1, p):
+        cols.append(np.cos(cols[-1]) ** 2 + np.sin((i + 1) * t / 3.0))
+    y = np.stack(cols, axis=1) + 0.05 * r.standard_normal((n, p))
+    if transform == "log":
+        y = np.exp(y)
+    y[:, 1:][r.uniform(size=(n, p - 1)) < 0.1] = np.nan
+    return x, y, r.uniform(0.5, 2.0, (n, p))
+
+
+def phase_configs(device):
+    """The examples' configurations on the card (``[configs]`` lines): each
+    of :data:`CONFIGS` at n = 2000, p = 4, sparse (64 inducing points) and
+    dense, ``fit_predict`` (scan route, graphed, 5 iterations) and
+    ``logpdf`` of other data (prior and posterior) in float32: finite
+    results, every Gram through the kernels (the analyser's terms printed;
+    no ``gram_eval`` and no plain-route Gram); then each at n = 96 in
+    float64 on the card against the CPU, rtol 1e-6: the fit's layer NLLs,
+    then predictions and scores at the CPU's fitted latents."""
+    import torch
+
+    import gpar_torch
+    from gpar_torch import GPARRegressor
+    from gpar_torch.models.regressor import _model_generator, log_transform, squishing_transform
+    from gpar_torch.ops import gram_kernel as GK
+
+    P = "[configs]"
+    gpar_torch.config.epsilon = 1e-6
+    transforms = {"log": log_transform, "squish": squishing_transform}
+    res = {}
+
+    def build(name, n_ind, dev, dtype):
+        kw, m, transform, _ = CONFIGS[name]
+        kw = dict(kw)
+        if transform:
+            kw["transform_y"] = transforms[transform]
+        x_ind = np.random.default_rng(12).uniform(0.0, 10.0, (n_ind, m)) if n_ind else None
+        return GPARRegressor(**kw, x_ind=x_ind, device=dev, dtype=dtype)
+
+    def request(reg, name, n, seed, latents=None):
+        """Fit, then (at ``latents`` if given) predict and score; returns
+        ``(predictions, scores, layer NLLs, fitted latents)``."""
+        _, m, transform, weighted = CONFIGS[name]
+        x, y, w = config_data(n, 4, m, transform, seed)
+        xs, ys, ws = config_data(n // 4, 4, m, transform, seed + 1)
+        reg.fit(x, y, w if weighted else None, iters=5)
+        fitted = reg.vs.snapshot()
+        if latents is not None:
+            reg.load_latents(latents)
+        # The same standard normals on either device (their generators differ).
+        normals = np.random.default_rng(seed + 2).standard_normal((2, 4, 50, len(x[::8])))
+        out = reg.predict(x[::8], num_samples=50, credible_bounds=True, normals=normals[0],
+                          noise_normals=normals[1])
+        scores = [reg.logpdf(xs, ys, ws, posterior=post) for post in (False, True)]
+        return out, scores, reg.last_fit_report["layer_nll"], fitted
+
+    for name in CONFIGS:
+        for model, n_ind in (("sparse", 64), ("dense", 0)):
+            reg = build(name, n_ind, device, torch.float32)
+            (out, scores, nll, _), wall, _, c = launches_checked(
+                f"{name} {model}", lambda: request(reg, name, 2000, 3), backward=True)
+            terms = []
+            for pi in range(reg.p):
+                f, _ = _model_generator(reg.vs, reg.m, pi, **reg.model_config)()
+                parsed = GK.analyze_kernel(f.kernel, reg.m + pi)
+                terms.append("refused" if parsed is None else "+".join(t.kind for t in parsed[0]))
+            ok = all(np.isfinite(a).all() for a in out) and np.isfinite(scores).all() and "refused" not in terms
+            res[f"{name} {model}"] = dict(wall_s=wall, launches=c["gram_kernel_launches"],
+                                          bwd_launches=c["gram_bwd_kernel_launches"],
+                                          gram_eval_calls=c["gram_eval_cuda_calls"], scores=scores)
+            print(f"{P} {name} {model} n=2000 p=4 float32: fit_predict + 2 scores {wall:.3f} s; layer NLL "
+                  f"{np.round(nll, 3).tolist()}; scores {np.round(scores, 3).tolist()}; analyser terms per "
+                  f"layer {terms}; gram launches {c['gram_kernel_launches']}, backward "
+                  f"{c['gram_bwd_kernel_launches']}, gram_eval on CUDA {c['gram_eval_cuda_calls']}, "
+                  f"plain-route CUDA Grams {c['gram_plain_cuda_calls']}; finite: {ok}")
+            if not ok:
+                raise AssertionError(f"{name} {model}: non-finite results or a refused tree: {terms}")
+        for model, n_ind in (("sparse", 8), ("dense", 0)):
+            # Predictions and scores at the CPU's fitted latents: the two
+            # fits agree to rounding, which the periodic term's period
+            # amplifies in the predictions (to 4e-6 of a small value).
+            oh, sh, nh, lh = request(build(name, n_ind, "cpu", torch.float64), name, 96, 5)
+            oc, sc, nc, _ = request(build(name, n_ind, "cuda", torch.float64), name, 96, 5, latents=lh)
+            np.testing.assert_allclose(nc, nh, rtol=1e-6)
+            np.testing.assert_allclose(sc, sh, rtol=1e-6)
+            for a, b in zip(oc, oh):
+                np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-8)
+        print(f"{P} {name} float64 n=96, sparse and dense: the fit's layer NLLs on cuda == on cpu, and "
+              f"at the CPU's latents predictions and scores (rtol 1e-6)")
+    return res
+
+
 def phase_profile(state, out_dir, tag="main"):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1915,7 +2232,10 @@ def main(argv):
     free_res = phase_free("cuda")
     restarts_res = phase_restarts("cuda", main_res, dense_res, free_res)
     batched_res = phase_batched_fit("cuda", dense_res)
+    greedy_res = phase_greedy("cuda")
+    configs_res = phase_configs("cuda")
     phase_small_agreement()
+    phase_small_greedy()
     if "--profile" in argv:
         out_dir = argv[argv.index("--profile") + 1]
         phase_profile(state, out_dir, "main")
@@ -1929,8 +2249,10 @@ def main(argv):
                      "max|err|/max|plain| <= 1e-4 at f32 and 1e-10 at f64; fused-Gram gradient "
                      "within 1e-5 (f32) / 1e-10 (f64) of the float64 recursion's"),
     }
-    by_path = {"gram": {"logpdf": logpdf_res["launches"], "free": free_res["sparse"]["launches"]},
-               "gram_bwd": {"free": free_res["sparse"]["bwd_launches"]}}
+    by_path = {"gram": {"logpdf": logpdf_res["launches"], "free": free_res["sparse"]["launches"],
+                        "configs": sum(r["launches"] for r in configs_res.values())},
+               "gram_bwd": {"free": free_res["sparse"]["bwd_launches"],
+                            "configs": sum(r["bwd_launches"] for r in configs_res.values())}}
     kernels = {"kernels": []}
     for name, (source, replaces, count, check) in sources.items():
         big = next(r for r in rows[name] if r["tree"] == "gated" and (r["n"], r["m"]) == SCAN_SHAPES[0])
@@ -1985,13 +2307,15 @@ def main(argv):
     print("[dense] " + json.dumps(dense_res))
     print("[ancestral] " + json.dumps(anc_res))
     print("[logpdf] " + json.dumps(logpdf_res))
-    # Both kernels over a batch of per-element trees: the restarts' and
-    # fused="batched"'s route; launches from the [restarts] phase's sparse
-    # graphed cold run, its joint fit and its dense run, and the [batched]
-    # phase's 10-iteration batched fit, each counted from 0.
+    # Both kernels over a batch of per-element trees: the restarts',
+    # fused="batched"'s and the greedy scorer's route; launches from the
+    # [restarts] phase's sparse graphed cold run, its joint fit and its dense
+    # run, the [batched] phase's 10-iteration batched fit and the [greedy]
+    # phase's sparse cold and dense searches, each counted from 0.
     batched_paths = {
         "restarts sparse": restarts_res["graphed cold"], "restarts joint": restarts_res["joint"],
         "restarts dense": restarts_res["dense"], "fused=batched": batched_res["iters10"]["batched"],
+        "greedy sparse": greedy_res["sparse cold"], "greedy dense": greedy_res["dense"],
     }
     for name, count, replaces, check in (
         ("gram_param_batched", "batched_launches", "gpar_tpu/ops/pallas_gram.py:215",
@@ -2024,6 +2348,8 @@ def main(argv):
     print("[free] " + json.dumps(free_res))
     print("[restarts] " + json.dumps(restarts_res))
     print("[batched] " + json.dumps(batched_res))
+    print("[greedy] " + json.dumps(greedy_res))
+    print("[configs] " + json.dumps(configs_res))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,7 +3,7 @@
 Port of the main-path slice of ``gpar_tpu/models/regressor.py`` (itself a
 rebuild of the reference ``gpar/regression.py:200-597``): the constructor,
 the per-layer kernel generator with its variable-naming contract verbatim,
-``condition``, ``fit`` (``fix`` True and False), ``predict`` /
+``condition``, ``fit`` (``fix`` True and False, ``greedy``), ``predict`` /
 ``fit_predict`` (both ``replace`` modes), posterior and prior ``sample``,
 ``logpdf``, and ``get_variables`` / ``load_latents``.
 
@@ -63,10 +63,18 @@ Design, in PyTorch terms:
   of a dense, fully observed, ``replace=False`` model as one batch
   (``fused.make_batched_fit_body``).
 
+- ``fit(greedy=True)`` with ``compat=False`` first orders the outputs
+  greedily (:meth:`GPARRegressor._greedy_order`): at each position all
+  remaining candidates are scored as one batch, one batched L-BFGS over
+  the candidates of the position's single-layer objective, every Gram one
+  batched launch.  Layer ``pi`` then models output ``order[pi]``; every
+  entry point takes and returns the outputs in their original columns.
+
 Both the sparse model (``x_ind`` given) and the dense one (``x_ind=None``,
 the exact marginal likelihood over the data rows) run through every entry
-point above.  Not ported yet: ``fused="unroll"``, greedy ordering, the
-posterior-factor cache, ``warmup`` / ``precompute`` and checkpointing.
+point above.  Not ported yet: ``fused="unroll"``, the posterior-factor
+cache, ``warmup`` / ``precompute``, checkpointing and the mesh (the
+greedy scorer's candidate axis sharded over devices included).
 """
 
 import time
@@ -75,9 +83,10 @@ import numpy as np
 import torch
 
 from ..config import bucket_rows, config, default_dtype, resolve_device
-from ..gp.core import GP
-from ..ops.kernels import EQ, RQ, Const, Linear, ZeroKernel
-from ..params.lbfgs import new_stats
+from ..gp.core import GP, Obs, PseudoObs
+from ..ops.kernels import EQ, RQ, Const, Linear, ZeroKernel, gram, kdiag
+from ..ops.linalg import floor_noise, resolve_epsilon, titsias_factors
+from ..params.lbfgs import lbfgs_minimize, lbfgs_minimize_batched, new_stats
 from ..params.optim import minimise_l_bfgs_b, restart_normals
 from ..params.store import Vars, load_latents
 from ..utils.rng import default_generator
@@ -260,7 +269,8 @@ class GPARRegressor:
 
     The arguments are those of the reference, plus ``device`` (default
     ``config.device``, i.e. ``"cuda"``) and ``dtype`` (default
-    ``config.dtype``).  ``compat`` only affects :meth:`logpdf`.
+    ``config.dtype``).  ``compat`` affects :meth:`logpdf` and whether
+    ``fit(greedy=True)`` runs.
     """
 
     def __init__(
@@ -330,6 +340,45 @@ class GPARRegressor:
         self.x = None  # conditioned inputs (device)
         self._x_np = self._y_np = self._w_np = None
         self.n = self.m = self.p = None
+        #: Greedy output ordering (original column per layer), set by
+        #: ``fit(greedy=True)`` with ``compat=False``; None is the identity.
+        #: Layer ``pi`` models output ``order[pi]``; user-facing inputs and
+        #: outputs stay in the original column order.
+        self.order = None
+        #: The most recent greedy search: per position the candidates, their
+        #: optimised NLLs and observed rows, the host reads and backtracking
+        #: trials of its batched L-BFGS; the search's wall-clock.
+        self.last_greedy_report = None
+
+    def _permute_outputs(self, a, strict=True):
+        """Original column order -> layer order.  With a greedy ordering in
+        effect the binding between columns and layers is defined only for
+        the full set of fitted outputs: ``strict`` raises on another width;
+        otherwise (a prior sample of another chain length, whose columns
+        are greedy positions) such a width passes through unchanged."""
+        if a is None or self.order is None or (not strict and a.shape[1] != len(self.order)):
+            return a
+        if a.shape[1] != len(self.order):
+            raise ValueError(
+                f"A greedy output ordering over {len(self.order)} outputs "
+                f"is in effect; data with {a.shape[1]} output columns "
+                "cannot be matched to layers. Pass all fitted outputs, or "
+                "clear `self.order`."
+            )
+        return a[:, np.asarray(self.order)]
+
+    def _unpermute_outputs(self, a, strict=True):
+        """Layer order -> original column order, on the last axis (sample
+        batches are (s, n, p)); ``strict`` as in :meth:`_permute_outputs`."""
+        if a is None or self.order is None or (not strict and a.shape[-1] != len(self.order)):
+            return a
+        if a.shape[-1] != len(self.order):
+            raise ValueError(
+                f"A greedy output ordering over {len(self.order)} outputs "
+                f"is in effect; cannot relabel {a.shape[-1]} sampled "
+                "columns."
+            )
+        return a[..., np.argsort(np.asarray(self.order))]
 
     def _upload(self, a):
         return torch.as_tensor(np.asarray(a, dtype=self._np_dtype), device=self.device)
@@ -351,22 +400,56 @@ class GPARRegressor:
             name: self.vs[name].detach().cpu().numpy() for name in self.vs.names
         }
 
-    def load_latents(self, latents):
+    def load_latents(self, latents, order=None):
         """Set the store's latents from a name -> latent dict (the format of
         ``gpar_tpu``'s ``Vars.snapshot()``), after instantiating every
-        layer's variables for the conditioned data."""
+        layer's variables for the conditioned data.  ``order`` is the
+        output ordering the latents were fitted under (the source
+        estimator's ``order``; None is the identity): the conditioned
+        outputs are rebound to layers under it."""
         if not self.is_conditioned:
             raise RuntimeError("load_latents() needs conditioned data (call condition() first).")
+        self._reorder(order)
         self._ensure_vars(self.p)
         load_latents(self.vs, latents)
+
+    def _reorder(self, order):
+        """Rebind the conditioned data's columns to layers under ``order``:
+        the host copies and the normalisation statistics are permuted as
+        :meth:`condition` would have permuted them (the transform and the
+        normalisation act column by column)."""
+        new = np.arange(self.p) if order is None else np.asarray(order, dtype=np.int64)
+        if sorted(new.tolist()) != list(range(self.p)):
+            raise ValueError(f"order {new.tolist()} is not a permutation of the {self.p} outputs")
+        old = np.arange(self.p) if self.order is None else np.asarray(self.order)
+        idx = np.argsort(old)[new]  # new layer j <- old layer holding column new[j]
+        self.order = None if order is None else new
+        if np.array_equal(idx, np.arange(self.p)):
+            return
+        if self._means is not None:
+            self._means, self._stds = self._means[:, idx], self._stds[:, idx]
+        self._set_outputs(self._y_np[:, idx], self._w_np[:, idx])
+
+    def _set_outputs(self, y_np, w_np):
+        """The conditioned outputs and weights (host copies, layer order),
+        the ``per_output`` plan of both ``keep`` modes, and no cached scan
+        plan or bucketed inputs."""
+        self._y_np, self._w_np = y_np, w_np
+        self._y_cache = {
+            keep: list(per_output(y_np, w_np, keep=keep)) for keep in (False, True)
+        }
+        self._plan_cache = self._bucket_cache = None
 
     def condition(self, x, y, w=None):
         """Condition the model on data without training
         (``gpar/regression.py:339-389``): host-side transform, NaN-aware
         per-output normalisation (std == 0 -> 1), the closed-downwards row
-        plan, and one upload of the inputs."""
+        plan, and one upload of the inputs.  Under a greedy ordering the
+        output columns (and weights) are permuted to layer order first; a
+        width mismatch raises before any state changes."""
+        y_np = self._permute_outputs(_uprank_np(y, self._np_dtype))
+        w_np = None if w is None else self._permute_outputs(_uprank_np(w, self._np_dtype))
         x_np = _uprank_np(x, self._np_dtype)
-        y_np = _uprank_np(y, self._np_dtype)
         y_np = np.asarray(self._transform_y(torch.as_tensor(y_np)), dtype=self._np_dtype)
         self.n, self.m = x_np.shape
         self.p = y_np.shape[1]
@@ -380,16 +463,10 @@ class GPARRegressor:
             self._means = np.asarray(means, dtype=self._np_dtype)[None, :]
             self._stds = np.asarray(stds, dtype=self._np_dtype)[None, :]
             y_np = (y_np - self._means) / self._stds
-        w_np = (
-            np.ones(y_np.shape, dtype=self._np_dtype)
-            if w is None
-            else _uprank_np(w, self._np_dtype)
-        )
-        self._x_np, self._y_np, self._w_np = x_np, y_np, w_np
-        self._y_cache = {
-            keep: list(per_output(y_np, w_np, keep=keep)) for keep in (False, True)
-        }
-        self._plan_cache = self._bucket_cache = None
+        if w_np is None:
+            w_np = np.ones(y_np.shape, dtype=self._np_dtype)
+        self._x_np = x_np
+        self._set_outputs(y_np, w_np)
         self.x = self._upload(x_np)
         self._vars_ready = None
         self.is_conditioned = True
@@ -399,7 +476,7 @@ class GPARRegressor:
             y = y * self._upload(self._stds) + self._upload(self._means)
         return self._untransform_y(y)
 
-    def fit(self, x, y, w=None, greedy=False, fix=True, iters=1000, gtol=1e-9, memory_size=10,
+    def fit(self, x, y, w=None, greedy=False, fix=True, iters=None, gtol=1e-9, memory_size=10,
             fused=True, restarts=1, cuda_graphs=True, restart_scale=1.0, generator=None,
             restart_normals=None):
         """Fit the model to data (``gpar/regression.py:391-459``), one
@@ -427,9 +504,20 @@ class GPARRegressor:
         ``"batched"``; (restarts - 1, n_z), the prefix span, for the joint
         fit; (restarts - 1, d_pi), the optimised latents, for the per-layer
         driver.  Otherwise they come from ``generator`` (default: the
-        device's generator of ``utils.rng``)."""
-        if greedy:
-            raise NotImplementedError("Greedy search is not implemented yet.")
+        device's generator of ``utils.rng``).
+
+        ``iters`` is the most L-BFGS iterations per optimisation; None
+        means 1000 for the fit and 100 for the greedy search, the JAX
+        package's defaults.
+
+        ``greedy=True`` orders the outputs greedily before the fit.  The
+        reference documents the option but raises
+        (``gpar/regression.py:410,448``): with ``compat=True`` so does this
+        method; with ``compat=False`` the search runs
+        (:meth:`_greedy_order`, with ``iters``, ``gtol`` and
+        ``memory_size``), its permutation is kept in ``order`` and the fit
+        runs on the permuted outputs, on any route above.  Every entry
+        point takes and returns the outputs in their original columns."""
         if fused == "batched" and not fix:
             raise ValueError("fused='batched' requires independent layer fits; fit(fix=False) "
                              "optimises layers jointly: use fused=True or fused=False.")
@@ -438,6 +526,14 @@ class GPARRegressor:
         if int(restarts) != restarts or restarts < 1:
             raise ValueError(f"restarts must be a positive integer, got {restarts!r}")
         restarts = int(restarts)
+        if greedy:
+            if self.compat:
+                # Reference parity (``gpar/regression.py:448-449``).
+                raise NotImplementedError("Greedy search is not implemented yet.")
+            self.order = None
+            self.condition(x, y, w)  # identity order: transforms and statistics
+            self.order = self._greedy_order(100 if iters is None else iters, gtol, memory_size)
+        iters = 1000 if iters is None else iters
         self.condition(x, y, w)
         self._ensure_vars(self.p)
         t0 = time.perf_counter()
@@ -451,7 +547,146 @@ class GPARRegressor:
                       "layer_iters": np.asarray(its), "fused": False, "graph_replays": 0}
         report["restarts"] = restarts
         report["wall_clock_s"] = time.perf_counter() - t0
+        if greedy:
+            report["greedy_s"] = self.last_greedy_report["wall_clock_s"]
         self.last_fit_report = report
+
+    def _greedy_order(self, iters=100, gtol=1e-9, memory_size=10):
+        """Greedily order the outputs by conditional marginal likelihood
+        (``gpar_tpu/models/regressor.py:812-888``; the search the GPAR
+        paper, arXiv:1802.07182, proposes and the reference stubs out).
+
+        At position ``k``, with the outputs ``S`` selected, each remaining
+        candidate ``o`` is scored by the per-observation optimised log
+        marginal likelihood of one layer-``k`` GP ``[x, y[:, S]] ->
+        y[:, o]`` on the rows where ``o`` and all of ``S`` are observed,
+        the sparse scheme and the Markov order honoured; all candidates of
+        a position are one batch (:meth:`_greedy_position_nlls`).  A
+        candidate with no observed rows, or a non-finite optimum, scores
+        ``-inf``; ties go to the first remaining candidate.  Needs
+        :meth:`condition` with the identity order.
+
+        The batched scorer factors masked full-size matrices where the
+        per-candidate oracle (:meth:`_greedy_layer_nll`) factors the
+        observed rows only; the two can pick different permutations only
+        when candidate scores are near-tied.
+
+        Returns the permutation: layer ``pi`` models output ``ret[pi]``.
+        """
+        t0 = time.perf_counter()
+        y_np, w_np, x_np = self._y_np, self._w_np, self._x_np
+        remaining, selected, positions = list(range(self.p)), [], []
+        for position in range(self.p):
+            masks = np.stack([~np.isnan(y_np[:, selected + [o]]).any(axis=1) for o in remaining])
+            n_obs = masks.sum(axis=1)
+            # Rows with a selected output missing are masked out of every
+            # candidate's likelihood, so the zero-filled NaNs feed only
+            # neutralised rows.
+            x_aug = np.concatenate([x_np, np.nan_to_num(y_np[:, selected], nan=0.0)], axis=1)
+            stats = new_stats()
+            nlls = self._greedy_position_nlls(
+                position, x_aug, np.nan_to_num(y_np[:, remaining].T, nan=0.0),
+                w_np[:, remaining].T, masks, iters, gtol, memory_size, stats=stats,
+            )
+            with np.errstate(invalid="ignore"):
+                scores = np.where(n_obs > 0, -nlls / np.maximum(n_obs, 1), -np.inf)
+            scores = np.where(np.isfinite(scores), scores, -np.inf)
+            best = remaining[int(np.argmax(scores))]
+            positions.append(dict(candidates=list(remaining), nll=nlls.tolist(),
+                                  n_obs=n_obs.tolist(), chosen=best, **stats))
+            selected.append(best)
+            remaining.remove(best)
+        self.last_greedy_report = dict(order=list(selected), positions=positions,
+                                       wall_clock_s=time.perf_counter() - t0)
+        return np.asarray(selected)
+
+    def _greedy_position_nlls(self, position, x_aug, ys, ws, masks, iters, gtol, memory_size,
+                              stats=None):
+        """Optimised single-layer NLLs of all C candidates of one greedy
+        position as one batch (``gpar_tpu/models/regressor.py:890-1081``,
+        the JAX package's ``vmap`` over candidates of ``lbfgs_traced``).
+
+        ``x_aug`` (n, m + position) is shared by every candidate; ``ys``,
+        ``ws`` and ``masks`` are (C, n).  Rows are padded to their bucket
+        (y 0, w 1, mask 0: a masked row is exactly neutral).  Each
+        candidate starts from the same fresh initialisation, a throwaway
+        store of the position's layer, so that scores are comparable and a
+        second search scores as the first.  The layer's kernel tree is the
+        estimator's own (``_model_generator`` at ``position``) with leaves
+        that carry the candidate axis, so every evaluation takes one
+        batched launch of the Gram kernel per Gram, and its gradient one of
+        the backward kernel; the factorisations take the jitter ladder per
+        candidate on the device.  One batched L-BFGS
+        (``params.lbfgs.lbfgs_minimize_batched``) runs every candidate's
+        trajectory; each candidate's final NLL is returned, (C,) NumPy.
+        ``stats`` (``new_stats()``) receives its host reads and trials, the
+        candidates' iterations and the escalated factorisations."""
+        from .fused import _masked_dense_factors
+
+        vs = Vars(dtype=self.dtype, device=self.device)
+        _model_generator(vs, self.m, position, **self.model_config)()
+        names = vs.select(None)
+        pad = bucket_rows(ys.shape[1]) - ys.shape[1]
+        x_t = self._upload(np.pad(x_aug, ((0, pad), (0, 0))))
+        y_t = self._upload(np.pad(ys, ((0, 0), (0, pad))))
+        w_t = self._upload(np.pad(ws, ((0, 0), (0, pad)), constant_values=1.0))
+        mask = self._upload(np.pad(masks.astype(self._np_dtype), ((0, 0), (0, pad))))
+        r = y_t * mask
+        C = ys.shape[0]
+        escalations = torch.zeros((), dtype=torch.int64, device=self.device)
+        if self.sparse:
+            # The inducing inputs with the prior-mean (zero) estimates of the
+            # selected outputs (``gpar/model.py:291-305``).
+            z_aug = torch.cat([self.x_ind, self.x_ind.new_zeros((self.x_ind.shape[0], position))],
+                              dim=1)
+
+        def nll(z):
+            view = vs.with_latent_vector(names, z)
+            f, noise = _model_generator(view, self.m, position, **self.model_config)()
+            noise_w = floor_noise(noise.reshape(C, 1) / w_t)
+            if self.sparse:
+                kern = f.kernel
+                return -titsias_factors(gram(kern, z_aug, z_aug), gram(kern, z_aug, x_t),
+                                        kdiag(kern, x_t), r, torch.zeros_like(r), noise_w,
+                                        mask=mask, escalations=escalations)[0]
+            K = gram(f.kernel, x_t, x_t)
+            return -_masked_dense_factors(K, r, mask, noise_w, resolve_epsilon(K.dtype),
+                                          escalations)[0]
+
+        z0 = vs.latent_vector(names).expand(C, -1)
+        _, f, its, _ = lbfgs_minimize_batched(nll, z0, iters=iters, gtol=gtol, memory=memory_size,
+                                              stats=stats)
+        out = torch.cat([f, its.to(f.dtype), escalations.to(f.dtype).reshape(1)]).cpu().numpy()
+        if stats is not None:
+            stats["host_syncs"] += 1
+            stats["iterations"] = out[C:2 * C].astype(np.int64).tolist()
+            stats["ladder_escalations"] = int(out[-1])
+        return out[:C]
+
+    def _greedy_layer_nll(self, pi, x_aug, y_t, w_t, iters, gtol, memory_size):
+        """Optimised single-layer NLL of one greedy candidate on its own
+        (filtered) rows through the GP core, ``PseudoObs`` or ``Obs``: the
+        per-candidate oracle of :meth:`_greedy_position_nlls`
+        (``gpar_tpu/models/regressor.py:1083-1140``), from the same fresh
+        initialisation, by one L-BFGS (``params.lbfgs.lbfgs_minimize``).
+        Returns a Python float."""
+        vs = Vars(dtype=self.dtype, device=self.device)
+        _model_generator(vs, self.m, pi, **self.model_config)()
+        names = vs.select(None)
+        x_t, y_v, w_v = (self._upload(a) for a in (_uprank_np(x_aug, self._np_dtype), y_t, w_t))
+        if self.sparse:
+            z_aug = torch.cat([self.x_ind, self.x_ind.new_zeros((self.x_ind.shape[0], pi))], dim=1)
+
+        def nll(z):
+            f, noise = _model_generator(vs.with_latent_vector(names, z), self.m, pi,
+                                        **self.model_config)()
+            if self.sparse:
+                return -PseudoObs(f(z_aug), f(x_t, noise / w_v), y_v).logpdf
+            return -Obs(f(x_t, noise / w_v), y_v).logpdf
+
+        _, f, _, _ = lbfgs_minimize(nll, vs.latent_vector(names), iters=iters, gtol=gtol,
+                                    memory=memory_size)
+        return float(f)
 
     def _scan_fit_plan(self, names):
         """The conditioned data's scan plan, cached per variable layout."""
@@ -597,7 +832,10 @@ class GPARRegressor:
         x_np = _uprank_np(x, self._np_dtype)
         nt, m_in = x_np.shape
         p = self.p if posterior else p_prior
-        w_np = np.ones((nt, p), self._np_dtype) if w is None else _uprank_np(w, self._np_dtype)
+        if w is None:
+            w_np = np.ones((nt, p), self._np_dtype)
+        else:
+            w_np = self._permute_outputs(_uprank_np(w, self._np_dtype), strict=posterior)
         shape = (p, num_samples, nt)
         normals = self._normals(normals, shape, generator, "normals")
         if latent and not self.replace:
@@ -647,7 +885,8 @@ class GPARRegressor:
     ):
         """Monte-Carlo predictive means, and with ``credible_bounds`` the
         2.5 / 97.5 percentiles, at new inputs
-        (``gpar/regression.py:566-597``); NumPy arrays of shape (n, p).
+        (``gpar/regression.py:566-597``); NumPy arrays of shape (n, p), in
+        the original column order (``w``, too, is in that order).
 
         ``normals`` (p, num_samples, n) supplies the standard normals of
         the draws, and ``noise_normals`` (same shape) those of the noise a
@@ -668,7 +907,7 @@ class GPARRegressor:
                 q = torch.tensor([0.025, 0.975], dtype=self.dtype, device=self.device)
                 lo, hi = torch.quantile(batch, q, dim=0, interpolation="linear")
                 out += [lo, hi]
-        out = tuple(a.cpu().numpy() for a in out)
+        out = tuple(self._unpermute_outputs(a.cpu().numpy()) for a in out)
         return out if credible_bounds else out[0]
 
     def sample(
@@ -687,7 +926,9 @@ class GPARRegressor:
         (``gpar/regression.py:508-564``): one (n, p) array, or a list of
         them when ``num_samples > 1``.  The prior needs ``p``, the number of
         outputs.  ``normals``, ``noise_normals`` and ``generator`` as in
-        :meth:`predict`."""
+        :meth:`predict`.  Under a greedy ordering the columns are the
+        original ones, except those of a prior sample of another width than
+        the fitted one, which stay in layer order."""
         if posterior and not self.is_conditioned:
             raise RuntimeError(
                 "Cannot sample from the posterior: no data has been "
@@ -699,7 +940,9 @@ class GPARRegressor:
             batch = self._sample_batch(x, w, num_samples, latent, normals, noise_normals,
                                        generator, p_prior=None if posterior else p)
             batch = self._undo_transforms(batch).cpu().numpy()
-        samples = list(batch)
+        # Layer order -> original columns (a prior sample of another chain
+        # length stays in layer order).
+        samples = list(self._unpermute_outputs(batch, strict=posterior))
         return samples[0] if num_samples == 1 else samples
 
     def logpdf(self, x, y, w=None, sample_missing=False, posterior=False, normals=None,
@@ -707,7 +950,9 @@ class GPARRegressor:
         """Log-density of observations (``gpar/regression.py:461-506``), a
         Python float: under the prior, or with ``posterior`` under the
         posterior given the conditioned data.  ``y`` may hold NaNs
-        (missing outputs) and ``w`` weights the noise (default ones).
+        (missing outputs) and ``w`` weights the noise (default ones); both
+        are in the original column order and, under a greedy ordering,
+        must have the fitted width.
 
         ``y`` is transformed by ``transform_y`` and then, when the model
         normalises and was conditioned, by the conditioned statistics: with
@@ -739,19 +984,22 @@ class GPARRegressor:
         return self._logpdf_core(x_np, y_np, w_np, posterior, sample_missing, normals, generator)
 
     def _score_data(self, x, y, w, posterior):
-        """Scored data on the host, ``y`` transformed and (un)normalised as
-        :meth:`logpdf` says, weights defaulting to ones; and every layer's
+        """Scored data on the host in layer order, ``y`` transformed and
+        (un)normalised as :meth:`logpdf` says, weights defaulting to ones;
+        and every layer's
         variables for the scored width (the conditioned one for
         ``posterior``)."""
         x_np = _uprank_np(x, self._np_dtype)
-        y_np = _uprank_np(y, self._np_dtype)
+        y_np = self._permute_outputs(_uprank_np(y, self._np_dtype))
+        w_np = None if w is None else self._permute_outputs(_uprank_np(w, self._np_dtype))
         y_np = np.asarray(self._transform_y(torch.as_tensor(y_np)), dtype=self._np_dtype)
         if self.normalise_y and self._means is not None:
             if self.compat:
                 y_np = y_np * self._stds + self._means
             else:
                 y_np = (y_np - self._means) / self._stds
-        w_np = np.ones(y_np.shape, self._np_dtype) if w is None else _uprank_np(w, self._np_dtype)
+        if w_np is None:
+            w_np = np.ones(y_np.shape, self._np_dtype)
         if posterior:
             self._ensure_vars(self.p)
         else:

@@ -142,12 +142,14 @@ class Vars:
 
     def split_latent_vector(self, names, vector):
         """Inverse of :meth:`latent_vector`: flat vector -> name -> latent
-        (views of ``vector``, so autograd flows back to it)."""
+        (views of ``vector``, so autograd flows back to it).  A batch of
+        vectors (B, d) gives latents with a leading batch axis."""
         out, off = {}, 0
+        lead = vector.shape[:-1]
         for name in names:
             shape = self._latents[name].shape
             size = self._latents[name].numel()
-            out[name] = vector[off : off + size].reshape(shape)
+            out[name] = vector[..., off : off + size].reshape((*lead, *shape))
             off += size
         return out
 

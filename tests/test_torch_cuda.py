@@ -272,3 +272,42 @@ def test_cuda_graphed_fit_equals_eager_fit():
     np.testing.assert_array_equal(graphed[0]["layer_nll"], eager[0]["layer_nll"])
     for k, v in eager[1].items():
         np.testing.assert_array_equal(graphed[1][k], v)
+
+
+def _greedy_chain(n=48, seed=5):
+    """A chain whose greedy order is [2, 0, 1], with missing outputs."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0.0, 10.0, n)
+    a = np.sin(x) + 0.3 * rng.standard_normal(n)
+    y = np.stack([2.0 * a + 0.05 * rng.standard_normal(n), rng.standard_normal(n), a], axis=1)
+    y[rng.permutation(n)[:5], 0] = np.nan
+    y[rng.permutation(n)[:9], 1] = np.nan
+    return x, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+def test_cuda_greedy_scorer_matches_cpu(dense):
+    # The batched candidate scorer on the card (every Gram one batched
+    # launch of the forward kernel, every gradient one of the backward)
+    # against the CPU (the plain versions), float64: the same order and the
+    # same per-position NLLs to 1e-6.
+    _need_cuda()
+    x, y = _greedy_chain()
+    kw = dict(noise=0.1, compat=False, nonlinear=True, linear_scale=10.0)
+    if not dense:
+        kw["x_ind"] = np.linspace(0.0, 10.0, 7)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        reg = GPARRegressor(**kw, device=dev, dtype=torch.float64)
+        reg.condition(x, y)
+        GK.reset_counters()
+        order = reg._greedy_order(8)
+        c = GK.counters()
+        out[dev] = (order, [p["nll"] for p in reg.last_greedy_report["positions"]])
+        if dev == "cuda":
+            assert c["gram_batched_kernel_launches"] > 0 and c["gram_bwd_batched_kernel_launches"] > 0
+            assert c["gram_eval_cuda_calls"] == 0 and c["gram_plain_cuda_calls"] == 0
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        np.testing.assert_allclose(a, b, rtol=1e-6)

@@ -124,8 +124,9 @@ def test_condition_normalisation_matches_jax():
 
 
 def test_unported_options_raise(runs):
-    # Restarts are ported (tests/test_torch_restarts.py); greedy ordering
-    # and fused="unroll" are not.
+    # Restarts and greedy ordering are ported (tests/test_torch_restarts.py,
+    # tests/test_torch_greedy.py); under compat=True, the default, greedy
+    # raises as the reference does.  fused="unroll" is not ported.
     rt = TReg(**runs["kw"], device="cpu")
     with pytest.raises(NotImplementedError):
         rt.fit(runs["x"], runs["y"], fused="unroll")
