@@ -84,8 +84,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    benchmark's request with ``replace=False`` (sparse, cold and warm, held
    to the ``10k`` gates; then ``latent=True``), posterior ``sample`` of it
    and of phase 3's ``replace=True`` model and a prior ``sample`` (p=16),
-   100 samples at the 1024 test inputs, and the dense model once (every
-   tail factors each layer in its loop); every run's fit and predict wall-clock, peak device memory and
+   100 samples at the 1024 test inputs, and the dense model once (its
+   stack is over the cache's limit, so its tail factors each layer in its
+   loop); every run's fit and predict wall-clock, peak device memory and
    launch counts (batched launches > 0 where samples carry their own
    inputs, no plain-route Gram, no ``gram_eval`` on the card); one
    profiled ``predict`` of each model, device time by operator.
@@ -125,7 +126,17 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    :func:`phase_configs`) at n = 2000, p = 4, sparse and dense, in
    float32 on the card (finite, the analyser's terms, no ``gram_eval``),
    and at n = 96 in float64 against the CPU (rtol 1e-6).
-12. Small-input agreement: a float64 fit_predict (p=3, n=100, sparse with
+12. The serving layer (``[serve]`` lines, :func:`phase_serve`): the
+   posterior-factor cache at full width, cached against uncached (the
+   same bits, 2p Grams fewer per sparse call and p per dense call): the
+   ``[main]`` model's and the ``[ancestral]`` model's predicts and the
+   posterior score of the 2000-row dataset, the dense model at n = 2000,
+   and the dense bench model, whose stack is over the limit (nothing
+   cached); ``warmup`` and the first request after it (no capture, the
+   ``10k`` gates); a checkpoint's save and load (the same bits); CUDA
+   tensors that require grad as inputs; and the graph cache under a
+   one-step byte budget (one step kept, reserved memory printed).
+13. Small-input agreement: a float64 fit_predict (p=3, n=100, sparse with
    8 inducing points and dense, ``replace`` True and False) through the
    scan path on the card (graphed) against the same run on the CPU (eager;
    the CPU route is held against the JAX package by the test suite), rtol
@@ -136,14 +147,16 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    all on the card, from the same normals (rtol 1e-6); and the greedy
    search at n = 64, p = 4, sparse and dense, on the card against the CPU
    (the same order, NLLs to rtol 1e-6).
-13. Summary: ``[main]``, ``[dense]``, ``[ancestral]``, ``[logpdf]``,
-   ``[free]``, ``[restarts]``, ``[batched]``, ``[greedy]`` and
-   ``[configs]`` JSON lines, a ``kernels``
+14. Summary: ``[main]``, ``[dense]``, ``[ancestral]``, ``[logpdf]``,
+   ``[free]``, ``[restarts]``, ``[batched]``, ``[greedy]``, ``[configs]``
+   and ``[serve]`` JSON lines, a ``kernels``
    JSON line (launches of the sparse and the dense graphed cold runs, the
    scan-route scores' cold runs and the sparse joint fit; the sample-axis
    route's from the ``[ancestral]`` sparse cold and dense requests; the
    per-element-parameter forward and the batched backward from the
-   ``[restarts]``, ``[batched]`` and ``[greedy]`` runs), the card line, and last
+   ``[restarts]``, ``[batched]`` and ``[greedy]`` runs; the ``[serve]``
+   phase's first cached calls and its request after warmup), the card
+   line, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` additionally traces one warm (graphed) fit_predict of each
@@ -1021,7 +1034,7 @@ def phase_ancestral(device, replace_true_reg):
     profiled(dense, "dense")
     graphs.clear_cache()
     res["sparse_cold_warm_identical"] = same
-    return res
+    return res, reg
 
 
 def check_quality(P, tag, out, rep, f_test, gates=True):
@@ -2132,6 +2145,266 @@ def phase_configs(device):
     return res
 
 
+def timed_calls(tag, fn, reps):
+    """``reps`` calls of ``fn`` through :func:`launches_checked` (no backward
+    launches): the results, and each call's wall-clock and Gram launches
+    (counted from 0 for each call)."""
+    outs, walls, launches = [], [], []
+    for _ in range(reps):
+        out, wall, _, c = launches_checked(tag, fn, backward=False)
+        outs.append(out)
+        walls.append(wall)
+        launches.append(c["gram_kernel_launches"])
+    return outs, walls, launches
+
+
+def same_bits(a, b):
+    """Two results of a predict (tuples of arrays) or a score: equal bits."""
+    if isinstance(a, tuple):
+        return all(np.array_equal(u, v) for u, v in zip(a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def cached_against_uncached(P, tag, reg, fn, saved, reps=3):
+    """``fn()`` ``reps`` times from the cached posterior factors and
+    ``reps`` times with ``config.posterior_cache = False``, each call's
+    wall-clock and Gram launches printed: the results must be the same bits
+    and every cached call must launch ``saved`` Grams fewer (the
+    factorisation's Grams).  Returns the numbers."""
+    import gpar_torch
+
+    cached = timed_calls(f"{tag} cached", fn, reps)
+    gpar_torch.config.posterior_cache = False
+    try:
+        plain = timed_calls(f"{tag} uncached", fn, reps)
+    finally:
+        gpar_torch.config.posterior_cache = True
+    same = all(same_bits(o, cached[0][0]) for o in cached[0] + plain[0])
+    print(f"{P} {tag}: cached {[round(w, 4) for w in cached[1]]} s, gram kernel launches "
+          f"{cached[2]}; uncached {[round(w, 4) for w in plain[1]]} s, launches {plain[2]}; the same "
+          f"bits: {same}")
+    if not same:
+        raise AssertionError(f"{tag}: cached and uncached results differ")
+    if any(c != u - saved for c in cached[2] for u in plain[2]):
+        raise AssertionError(f"{tag}: cached launches {cached[2]} are not the uncached {plain[2]} "
+                             f"less {saved}")
+    return dict(cached_s=cached[1], uncached_s=plain[1], cached_launches=cached[2][0],
+                uncached_launches=plain[2][0])
+
+
+def phase_serve(device, main_res, sparse_reg, replace_false_reg, dense_reg):
+    """The serving layer (``[serve]`` lines): the posterior-factor cache,
+    ``precompute``, ``warmup``, the checkpoint, tensor inputs and the graph
+    cache's byte budget, at the bench model's full width.
+
+    - The sparse ``[main]`` model (``replace=True``) and the ``[ancestral]``
+      model (``replace=False``): ``precompute()`` is True; three predicts of
+      100 samples at the 1024 test rows from the cached factors and three
+      with the cache off, from the same normals: the same bits, 2p Grams
+      fewer per cached call (no Kmm, no Kmn); the same for the posterior
+      score of the serve's 2000-row dataset.
+    - The dense model at n = 2000 (bucket 2432), fitted here: the same with
+      p Grams fewer (no K); the dense bench model (11 840 rows): its stack of
+      8.37 GiB is over the 1 GiB limit, so ``precompute()`` is False and a
+      predict computes no stacked factors.
+    - ``warmup(10 000, 16, n_test=1024, iters=10)`` of a fresh estimator
+      after ``graphs.clear_cache()``, then a fresh estimator's request on
+      the bench data: no capture (``capture_s`` 0), the ``10k`` gates, its
+      wall-clock beside ``[main]``'s cold and warm.
+    - ``save`` / ``load`` of the ``[main]`` model: the load starts with no
+      factors and predicts the same bits.
+    - CUDA tensors that require grad through ``condition``, ``predict`` and
+      ``logpdf`` (a 0-d CUDA tensor), as the NumPy inputs.
+    - The graph cache under a budget just above one dense n = 2000 step's
+      measured bytes: two fits that differ only in ``iters`` leave one step
+      cached; reserved memory before, between and after them, and after
+      ``graphs.clear_cache()``.
+    """
+    import tempfile
+
+    import torch
+
+    import gpar_torch
+    from gpar_torch import GPARRegressor
+    from gpar_torch.config import bucket_rows
+    from gpar_torch.models import fused, graphs
+    from gpar_torch.ops import gram_kernel as GK
+    from gpar_torch.utils import checkpoint
+
+    P = "[serve]"
+    gpar_torch.config.epsilon = 1e-6
+    n, p, n_test, num_samples, iters = 10_000, 16, 1024, 100, 10
+    x, y, f = make_data(n, p)
+    test_idx = np.arange(n)[:: n // n_test][:n_test]
+    x_test, f_test = x[test_idx], f[test_idx]
+    xs, ys, _ = make_data(2000, p, seed=500)
+    gen = torch.Generator(device).manual_seed(7)
+    normals = torch.randn((p, num_samples, n_test), generator=gen, device=device)
+    res = {"launches": 0}
+
+    def predict(reg):
+        return lambda: reg.predict(x_test, num_samples=num_samples, credible_bounds=True,
+                                   normals=normals, noise_normals=normals)
+
+    def score(reg, x_, y_):
+        return lambda: reg.logpdf(x_, y_, posterior=True)
+
+    def precomputed(tag, reg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = reg.precompute()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"{P} {tag}: precompute() {ok} in {wall:.4f} s")
+        return ok, wall
+
+    for tag, reg in (("sparse replace=True", sparse_reg), ("sparse replace=False", replace_false_reg)):
+        ok, wall = precomputed(tag, reg)
+        if not ok:
+            raise AssertionError(f"{tag}: precompute() is False")
+        res[tag] = dict(precompute_s=wall, predict=cached_against_uncached(P, f"{tag} predict", reg,
+                                                                        predict(reg), 2 * p))
+        res["launches"] += res[tag]["predict"]["cached_launches"]
+    tag = "sparse posterior logpdf"
+    res[tag] = cached_against_uncached(P, tag, sparse_reg, score(sparse_reg, xs, ys), 2 * p)
+    res["launches"] += res[tag]["cached_launches"]
+
+    # The dense model at n = 2000: its graphed fit also measures one step's
+    # pinned bytes for the graph-cache check below.
+    graphs.clear_cache()
+    x2, y2, _ = make_data(2000, p, seed=3)
+    kw_dense = dict(model_kwargs(x), x_ind=None)
+    dense2 = GPARRegressor(**kw_dense, device=device)
+    dense2.fit(x2, y2, iters=iters)
+    one_step = graphs.cached_bytes()
+    ok, wall = precomputed("dense n=2000", dense2)
+    if not ok:
+        raise AssertionError("dense n=2000: precompute() is False")
+    res["dense n=2000"] = dict(
+        precompute_s=wall, predict=cached_against_uncached(P, "dense n=2000 predict", dense2,
+                                                           predict(dense2), p),
+        logpdf=cached_against_uncached(P, "dense n=2000 posterior logpdf", dense2,
+                                       score(dense2, xs, ys), p))
+    res["launches"] += (res["dense n=2000"]["predict"]["cached_launches"]
+                        + res["dense n=2000"]["logpdf"]["cached_launches"])
+    del dense2
+
+    # The dense bench model: over the limit, no stack is built.
+    stacks = []
+    real = fused.make_scan_posterior_factors
+    fused.make_scan_posterior_factors = lambda *a, **k: stacks.append(1) or real(*a, **k)
+    try:
+        ok = dense_reg.precompute()
+        _, wall, _, c = launches_checked("dense bench predict", predict(dense_reg), backward=False)
+    finally:
+        fused.make_scan_posterior_factors = real
+    plan = dense_reg._scan_fit_plan(dense_reg.vs.select(None))
+    n_b = bucket_rows(plan.n)
+    stack_gib = plan.p * n_b * (n_b + plan.W + 1) * 4 / 2**30
+    print(f"{P} dense bench (rows {n_b}): stack {stack_gib:.2f} GiB against the limit "
+          f"{gpar_torch.config.posterior_cache_max_bytes / 2**30:.2f} GiB; precompute() {ok}; a predict "
+          f"{wall:.3f} s, {c['gram_kernel_launches']} Gram launches, stacked factor computations "
+          f"{len(stacks)}")
+    if ok or stacks or dense_reg._factor_cache is not None:
+        raise AssertionError("dense bench: the over-limit stack was cached")
+    res["dense bench"] = dict(precompute=ok, stack_gib=stack_gib, predict_s=wall)
+
+    # warmup, then a fresh estimator's first request of the bucket.
+    graphs.clear_cache()
+    kw = model_kwargs(x)
+    t0 = time.perf_counter()
+    rep = GPARRegressor(**kw, device=device).warmup(n, p, n_test=n_test, iters=iters)
+    warm_s = time.perf_counter() - t0
+    print(f"{P} warmup(10 000, 16, n_test=1024, iters=10): {warm_s:.3f} s; buckets {rep['buckets']}; "
+          f"seconds by path " + json.dumps({k: round(v, 4) for k, v in rep["seconds"].items()}))
+    fresh = GPARRegressor(**kw, device=device)
+
+    def request():
+        return fresh.fit_predict(x, y, x_test, iters=iters, num_samples=num_samples,
+                                 credible_bounds=True, generator=torch.Generator(device).manual_seed(0))
+
+    out, wall, peak, c = launches_checked("request after warmup", request, backward=True)
+    fit_rep = fresh.last_fit_report
+    q = check_quality(P, "request after warmup", out, fit_rep, f_test)
+    print(f"{P} request after warmup: fit_predict {wall:.3f} s (fit {fit_rep['wall_clock_s']:.3f} s), "
+          f"capture {fit_rep['capture_s']:.3f} s; [main] cold {main_res['cold_s']:.3f} s, warm "
+          f"{main_res['warm_s']:.3f} s; gram kernel launches {c['gram_kernel_launches']}, backward "
+          f"{c['gram_bwd_kernel_launches']}")
+    if fit_rep["capture_s"] != 0.0:
+        raise AssertionError(f"request after warmup captured graphs ({fit_rep['capture_s']} s)")
+    res["warmup"] = dict(warmup_s=warm_s, seconds=rep["seconds"], buckets=rep["buckets"],
+                         request_s=wall, fit_s=fit_rep["wall_clock_s"], capture_s=fit_rep["capture_s"],
+                         main_cold_s=main_res["cold_s"], main_warm_s=main_res["warm_s"],
+                         launches=c["gram_kernel_launches"], bwd_launches=c["gram_bwd_kernel_launches"],
+                         peak_gib=peak, **q)
+    del fresh
+
+    # Checkpoint of the [main] model.
+    want = predict(sparse_reg)()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "main.pkl")
+        t0 = time.perf_counter()
+        checkpoint.save(sparse_reg, path)
+        back = checkpoint.load(path)
+        load_s = time.perf_counter() - t0
+    empty = back._factor_cache is None
+    got = predict(back)()
+    same = same_bits(got, want)
+    print(f"{P} checkpoint save + load {load_s:.3f} s; the loaded cache empty: {empty}; predicts the "
+          f"same bits: {same}")
+    if not (empty and same):
+        raise AssertionError("checkpoint: the loaded estimator differs")
+    res["checkpoint"] = dict(save_load_s=load_s, same_bits=same)
+
+    # CUDA tensors that require grad.
+    xt, yt = (torch.tensor(a, device=device, requires_grad=True) for a in (x, y))
+    tens = GPARRegressor(**kw, device=device)
+    tens.condition(xt, yt)
+    tens.load_latents(sparse_reg.vs.snapshot())
+    got = tens.predict(torch.tensor(x_test, device=device, requires_grad=True), num_samples=num_samples,
+                       credible_bounds=True, normals=normals)
+    lp = tens.logpdf(xt, yt, posterior=True)
+    ref = GPARRegressor(**kw, device=device)
+    ref.condition(x, y)
+    ref.load_latents(sparse_reg.vs.snapshot())
+    same = same_bits(got, ref.predict(x_test, num_samples=num_samples, credible_bounds=True,
+                                      normals=normals))
+    ok = (isinstance(lp, torch.Tensor) and lp.ndim == 0 and lp.device.type == torch.device(device).type
+          and not lp.requires_grad and float(lp) == ref.logpdf(x, y, posterior=True))
+    print(f"{P} CUDA tensors that require grad: predict the same bits as NumPy inputs {same}; logpdf a "
+          f"0-d {lp.dtype} tensor on {lp.device}, {float(lp)!r}, equal to the float: {ok}")
+    if not (same and ok):
+        raise AssertionError("tensor inputs differ from NumPy inputs")
+    del tens, ref
+
+    # The graph cache's byte budget: room for one dense n = 2000 step.
+    graphs.clear_cache()
+    budget = gpar_torch.config.graph_cache_max_bytes
+    gpar_torch.config.graph_cache_max_bytes = one_step + one_step // 4
+    try:
+        reserved = [reserved_bytes()]
+        for it in (iters, iters + 1):
+            GPARRegressor(**kw_dense, device=device).fit(x2, y2, iters=it)
+            reserved.append(reserved_bytes())
+        keys = [k[5] for k in graphs._CACHE]
+        sizes = [e[2] for e in graphs._CACHE.values()]
+    finally:
+        gpar_torch.config.graph_cache_max_bytes = budget
+    graphs.clear_cache()
+    reserved.append(reserved_bytes())
+    gib = 2**30
+    print(f"{P} graph cache: one dense n=2000 step pins {one_step / gib:.4f} GiB; budget "
+          f"{(one_step + one_step // 4) / gib:.4f} GiB; after fits with iters {iters} and {iters + 1} the "
+          f"cached keys (iters) {keys}, pinning {[round(s / gib, 4) for s in sizes]} GiB; reserved before, "
+          f"after the first fit, after the second and after clear_cache(): "
+          f"{[round(r / gib, 4) for r in reserved]} GiB")
+    if len(keys) != 1:
+        raise AssertionError(f"graph cache: {len(keys)} steps cached under a one-step budget")
+    res["graph cache"] = dict(one_step_gib=one_step / gib, keys=keys, pinned_gib=[s / gib for s in sizes],
+                              reserved_gib=[r / gib for r in reserved])
+    return res
+
+
 def phase_profile(state, out_dir, tag="main"):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2227,13 +2500,14 @@ def main(argv):
     main_res, state = phase_main_path("cuda")
     dense_res, dense_state = phase_main_path("cuda", dense=True)
     dense_res["evaluation"] = phase_dense_evaluation(dense_state[0], "cuda")
-    anc_res = phase_ancestral("cuda", state[0])
+    anc_res, anc_reg = phase_ancestral("cuda", state[0])
     logpdf_res = phase_logpdf("cuda", state[0], dense_state[0])
     free_res = phase_free("cuda")
     restarts_res = phase_restarts("cuda", main_res, dense_res, free_res)
     batched_res = phase_batched_fit("cuda", dense_res)
     greedy_res = phase_greedy("cuda")
     configs_res = phase_configs("cuda")
+    serve_res = phase_serve("cuda", main_res, state[0], anc_reg, dense_state[0])
     phase_small_agreement()
     phase_small_greedy()
     if "--profile" in argv:
@@ -2250,9 +2524,11 @@ def main(argv):
                      "within 1e-5 (f32) / 1e-10 (f64) of the float64 recursion's"),
     }
     by_path = {"gram": {"logpdf": logpdf_res["launches"], "free": free_res["sparse"]["launches"],
-                        "configs": sum(r["launches"] for r in configs_res.values())},
+                        "configs": sum(r["launches"] for r in configs_res.values()),
+                        "serve": serve_res["launches"], "warmup": serve_res["warmup"]["launches"]},
                "gram_bwd": {"free": free_res["sparse"]["bwd_launches"],
-                            "configs": sum(r["bwd_launches"] for r in configs_res.values())}}
+                            "configs": sum(r["bwd_launches"] for r in configs_res.values()),
+                            "warmup": serve_res["warmup"]["bwd_launches"]}}
     kernels = {"kernels": []}
     for name, (source, replaces, count, check) in sources.items():
         big = next(r for r in rows[name] if r["tree"] == "gated" and (r["n"], r["m"]) == SCAN_SHAPES[0])
@@ -2262,8 +2538,10 @@ def main(argv):
             "source": source,
             "replaces": replaces,
             # The sparse and the dense main paths' graphed cold runs, the
-            # scan-route scores' cold runs (forward only) and the sparse
-            # full-width free fit, each counted from 0.
+            # scan-route scores' cold runs (forward only), the sparse
+            # full-width free fit, the configurations, the [serve] phase's
+            # first cached predicts and scores (forward only) and its
+            # request after warmup, each counted from 0.
             "launches": main_res[count] + dense_res[count] + sum(by_path[name].values()),
             "launches_by_path": {"sparse": main_res[count], "dense": dense_res[count], **by_path[name]},
             "check": check,
@@ -2350,6 +2628,7 @@ def main(argv):
     print("[batched] " + json.dumps(batched_res))
     print("[greedy] " + json.dumps(greedy_res))
     print("[configs] " + json.dumps(configs_res))
+    print("[serve] " + json.dumps(serve_res))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,8 +3,9 @@
 The counterpart of ``gpar_tpu/config.py``: one mutable ``config`` object
 holding the Cholesky jitter policy (the ``lab.B.epsilon`` analogue and its
 float32 floor), the escalating retry ladder, the default dtype and the
-default device, and the per-sample tails' memory knobs
-(``gpar_tpu/config.py:205-234``); and the row buckets of the scan-fused path
+default device, the per-sample tails' memory knobs and the posterior-factor
+cache (``gpar_tpu/config.py:205-234``), the byte budget of the CUDA-graph
+cache; and the row buckets of the scan-fused path
 (:func:`bucket_rows`, the JAX package's default ``bucket_ratio`` and
 ``bucket_floor``, ``gpar_tpu/config.py:162-173,324-334``).  On the card
 a bucket is the unit a captured CUDA graph serves: every dataset whose
@@ -71,6 +72,21 @@ class _Config:
         self.predict_sample_chunk = "auto"
         #: Bytes the ``"auto"`` sample chunk sizes its buffers for.
         self.predict_memory_budget = 2 << 30
+        #: Keep each estimator's per-layer posterior factors across
+        #: ``predict`` / ``sample`` / posterior ``logpdf`` calls (one slot,
+        #: keyed on the latents, the row bucket, the width, dtype and
+        #: device); False conditions anew on every call, the reference's
+        #: behaviour (``gpar/regression.py:547``).  This and the byte limit
+        #: mirror ``gpar_tpu/config.py:214-217``.
+        self.posterior_cache = True
+        #: Largest dense factor stack, p * rows * (rows + W + 1) elements at
+        #: the row bucket, that is cached; a sparse stack (p M^2) always is.
+        self.posterior_cache_max_bytes = 1 << 30
+        #: Byte budget of the CUDA-graph cache of the scan step
+        #: (``models/graphs.py``): least recently used steps are evicted
+        #: until what the cached steps pin fits it; None is half of the
+        #: card's memory.
+        self.graph_cache_max_bytes = None
 
 
 config = _Config()

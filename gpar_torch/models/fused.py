@@ -1109,6 +1109,14 @@ def _serving_inputs(plan, z_all, x, xs_rows, rows_traced):
     return xs, torch.cat([z_all, z_all.new_zeros(1)])
 
 
+def _layer_kernels(plan, z_ext, xs):
+    """Every layer's plan slice, kernel and noise at the latents ``z_ext``:
+    yields ``(lin, kernel, noise)``, nothing conditioned."""
+    for pi in range(plan.p):
+        lin = {k: v[pi] for k, v in xs.items()}
+        yield (lin, *_layer_kernel(plan, lin, z_ext))
+
+
 def _condition_layers(plan, x_ind, z_ext, x, xs):
     """The training chain of the serving tails, one layer at a time: the
     layer's posterior factors on its masked training rows at the final
@@ -1120,9 +1128,7 @@ def _condition_layers(plan, x_ind, z_ext, x, xs):
     dtype, device = x.dtype, x.device
     x_aug, zi_aug = _widen(x, plan.W), _widen(_inducing(x_ind, plan.m, dtype, device), plan.W)
     eps = resolve_epsilon(dtype)
-    for pi in range(plan.p):
-        lin = {k: v[pi] for k, v in xs.items()}
-        kernel, noise = _layer_kernel(plan, lin, z_ext)
+    for lin, kernel, noise in _layer_kernels(plan, z_ext, xs):
         noise_w = floor_noise(noise / lin["w_col"])
         omask, r = lin["obs_mask"], lin["y_col"]
         if plan.sparse:
@@ -1141,6 +1147,14 @@ def _condition_layers(plan, x_ind, z_ext, x, xs):
             del K
         yield lin, kernel, noise, fac
         _augment_cols(plan, lin, _next_column(plan, lin, est_rows), est_ind, x_aug, zi_aug)
+
+
+def factor_slices(stack):
+    """The layers of a stacked factor dict (:func:`make_scan_posterior_factors`)
+    one at a time, as :func:`posterior_factor_layers` yields them: the
+    form every tail that takes factors consumes."""
+    p = next(iter(stack.values())).shape[0]
+    return ({k: v[pi] for k, v in stack.items()} for pi in range(p))
 
 
 def posterior_factor_layers(plan, x_ind, rows_traced=False):
@@ -1169,9 +1183,20 @@ def make_scan_posterior_factors(plan, x_ind, rows_traced=False):
     def factors(z_all, x, xs_rows=None):
         with torch.no_grad(), _cusolver(x.device):
             out = list(layers(z_all, x, xs_rows))
-            return {k: torch.stack([f[k] for f in out]) for k in out[0]}
+            return {k: _stack_layout(*[f[k] for f in out]) for k in out[0]}
 
     return factors
+
+
+def _stack_layout(*ts):
+    """``torch.stack(ts)`` whose slices keep the layout of ``ts``: a
+    column-major matrix (a Cholesky factor) stays column-major, so the
+    solves against a slice take the same library path, and give the same
+    bits, as against the factor itself."""
+    t = ts[0]
+    if t.ndim == 2 and t.shape[0] > 1 and t.stride() == (1, t.shape[0]):
+        return torch.stack([a.mT for a in ts]).mT
+    return torch.stack(ts)
 
 
 def make_scan_logpdf_body(plan, x_ind, rows_traced=False):
@@ -1322,20 +1347,54 @@ def make_scan_predict_tail(plan, x_ind, latent, rows_traced=False):
     def tail(z_all, x, x_test, w_test_T, normals, xs_rows=None, mt=None):
         with torch.no_grad(), _cusolver(x.device):
             xs, z_ext = _serving_inputs(plan, z_all, x, xs_rows, rows_traced)
-            xt_aug = _widen(x_test, plan.W)
-            ys, means = [], []
             layers = _condition_layers(plan, x_ind, z_ext, x, xs)
-            for pi, (lin, kernel, noise, fac) in enumerate(layers):
-                mean_t, cov_t = _test_posterior(plan, kernel, lin, fac, xt_aug, mt)
-                if not latent:
-                    cov_t = cov_t + torch.diag(floor_noise(noise / w_test_T[pi]))
-                F = psd_sample_factor(cov_t)
-                ys.append(mean_t[None, :] + normals[pi] @ F.T)  # (S, n_test)
-                means.append(mean_t)
-                xt_aug.index_copy_(1, (plan.m + lin["col"]).reshape(1), mean_t[:, None])
-            return torch.stack(ys, dim=-1), torch.stack(means, dim=-1)
+            return _predict_chain(plan, latent, layers, x_test, w_test_T, normals, mt)
 
     return tail
+
+
+def make_scan_cached_tail(plan, latent, rows_traced=False):
+    """The ``replace=True`` predictive from cached factors
+    (``gpar_tpu/models/fused.py:1953-2040``): the test-point half of
+    :func:`make_scan_predict_tail`.  Each call rebuilds the layer kernels
+    from the latent vector; only the conditioning factors are reused, so
+    given the same normals the draws are the same operations, and on one
+    device the same bits, as that tail's.
+
+    Returns ``tail(z_all, factors, x_test, w_test_T, normals, xs_rows=None,
+    mt=None) -> (batch, mean_chain)``: ``factors`` the stacked dict of
+    :func:`make_scan_posterior_factors`, ``xs_rows`` the training data's
+    bucketed row arrays (a dense layer masks its cross-covariance by their
+    ``obs_mask``); the rest as in :func:`make_scan_predict_tail`."""
+    if not plan.replace:
+        raise ValueError("make_scan_cached_tail requires replace=True chains.")
+
+    def tail(z_all, factors, x_test, w_test_T, normals, xs_rows=None, mt=None):
+        with torch.no_grad(), _cusolver(x_test.device):
+            xs, z_ext = _serving_inputs(plan, z_all, x_test, xs_rows, rows_traced)
+            layers = ((*layer, fac) for layer, fac in zip(_layer_kernels(plan, z_ext, xs),
+                                                          factor_slices(factors)))
+            return _predict_chain(plan, latent, layers, x_test, w_test_T, normals, mt)
+
+    return tail
+
+
+def _predict_chain(plan, latent, layers, x_test, w_test_T, normals, mt):
+    """The ``replace=True`` draws of both predict tails: per layer of
+    ``layers`` (``(lin, kernel, noise, factors)``) the posterior at the
+    test rows, one sampling factor, all draws as one matmul, and the
+    posterior mean fed forward to the test inputs."""
+    xt_aug = _widen(x_test, plan.W)
+    ys, means = [], []
+    for pi, (lin, kernel, noise, fac) in enumerate(layers):
+        mean_t, cov_t = _test_posterior(plan, kernel, lin, fac, xt_aug, mt)
+        if not latent:
+            cov_t = cov_t + torch.diag(floor_noise(noise / w_test_T[pi]))
+        F = psd_sample_factor(cov_t)
+        ys.append(mean_t[None, :] + normals[pi] @ F.T)  # (S, n_test)
+        means.append(mean_t)
+        xt_aug.index_copy_(1, (plan.m + lin["col"]).reshape(1), mean_t[:, None])
+    return torch.stack(ys, dim=-1), torch.stack(means, dim=-1)
 
 
 def resolve_sample_chunk(sample_chunk, num_samples, n_test, dtype, budget):

@@ -5,7 +5,8 @@ rebuild of the reference ``gpar/regression.py:200-597``): the constructor,
 the per-layer kernel generator with its variable-naming contract verbatim,
 ``condition``, ``fit`` (``fix`` True and False, ``greedy``), ``predict`` /
 ``fit_predict`` (both ``replace`` modes), posterior and prior ``sample``,
-``logpdf``, and ``get_variables`` / ``load_latents``.
+``logpdf``, ``precompute``, ``warmup``, and ``get_variables`` /
+``load_latents``.
 
 Design, in PyTorch terms:
 
@@ -38,10 +39,16 @@ Design, in PyTorch terms:
   ``fused.make_scan_prior_tail``): every sample carries its own augmented
   test inputs, so per chunk of samples each layer takes Grams with a
   sample axis (one kernel launch each), a batched posterior covariance
-  and one batched sampling factor.  Each layer's posterior factors are
-  computed inside the tail's loop (``fused.posterior_factor_layers``), so
-  no (p, n, n) stack is held; the factor cache that would reuse a stack
-  across calls is not ported.
+  and one batched sampling factor.
+- The posterior-factor cache (:meth:`GPARRegressor.precompute`): the
+  per-layer posterior factors of the conditioned data are computed once
+  per latents and kept in one slot, so later ``predict`` / ``sample`` /
+  posterior ``logpdf`` calls run only the test-point work
+  (``fused.make_scan_cached_tail``; the per-sample tail and the score take
+  the stack one layer at a time).  A dense stack over
+  ``config.posterior_cache_max_bytes``, or ``config.posterior_cache =
+  False``, conditions anew in every call, each layer's factors inside the
+  tail's loop (``fused.posterior_factor_layers``), so no stack is held.
 - Entry points run on ``device`` (default ``"cuda"``; raises without a
   card unless ``device="cpu"``).  Randomness comes from a
   ``torch.Generator`` or from caller-supplied standard normals.
@@ -70,11 +77,17 @@ Design, in PyTorch terms:
   batched launch.  Layer ``pi`` then models output ``order[pi]``; every
   entry point takes and returns the outputs in their original columns.
 
+- :meth:`GPARRegressor.warmup` runs the entry points of a scratch
+  estimator on synthetic data of a shape, so that the row bucket's graphed
+  steps are captured (and the kernels built) before real data arrives;
+  ``gpar_torch.utils.checkpoint`` saves and loads the estimator in the JAX
+  package's format.  Every entry point takes ``torch.Tensor`` inputs as
+  data (detached, read on the host).
+
 Both the sparse model (``x_ind`` given) and the dense one (``x_ind=None``,
 the exact marginal likelihood over the data rows) run through every entry
-point above.  Not ported yet: ``fused="unroll"``, the posterior-factor
-cache, ``warmup`` / ``precompute``, checkpointing and the mesh (the
-greedy scorer's candidate axis sharded over devices included).
+point above.  Not ported yet: ``fused="unroll"`` and the mesh (the greedy
+scorer's candidate axis sharded over devices included).
 """
 
 import time
@@ -134,8 +147,17 @@ def _determine_indices(m, pi, markov):
     return m_inds, p_inds, p_num
 
 
+def _host(a):
+    """``a`` as the port's host code takes it: a ``torch.Tensor`` (on any
+    device, requiring grad or not) detached and brought to the host as
+    NumPy; anything else unchanged."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return a
+
+
 def _uprank_np(x, dtype):
-    x = np.asarray(x, dtype=dtype)
+    x = np.asarray(_host(x), dtype=dtype)
     if x.ndim == 0:
         return x[None, None]
     if x.ndim == 1:
@@ -337,6 +359,9 @@ class GPARRegressor:
         self._vars_ready = None
         self._y_cache = None
         self._plan_cache = self._bucket_cache = None  # scan plan, bucketed inputs
+        #: The posterior-factor slot, ``(key, stacked factors)`` or None
+        #: (:meth:`_posterior_factors`).
+        self._factor_cache = None
         self.x = None  # conditioned inputs (device)
         self._x_np = self._y_np = self._w_np = None
         self.n = self.m = self.p = None
@@ -381,6 +406,8 @@ class GPARRegressor:
         return a[..., np.argsort(np.asarray(self.order))]
 
     def _upload(self, a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().to(device=self.device, dtype=self.dtype)
         return torch.as_tensor(np.asarray(a, dtype=self._np_dtype), device=self.device)
 
     def _ensure_vars(self, p, m=None):
@@ -412,6 +439,7 @@ class GPARRegressor:
         self._reorder(order)
         self._ensure_vars(self.p)
         load_latents(self.vs, latents)
+        self._factor_cache = None
 
     def _reorder(self, order):
         """Rebind the conditioned data's columns to layers under ``order``:
@@ -433,12 +461,12 @@ class GPARRegressor:
     def _set_outputs(self, y_np, w_np):
         """The conditioned outputs and weights (host copies, layer order),
         the ``per_output`` plan of both ``keep`` modes, and no cached scan
-        plan or bucketed inputs."""
+        plan, bucketed inputs or posterior factors."""
         self._y_np, self._w_np = y_np, w_np
         self._y_cache = {
             keep: list(per_output(y_np, w_np, keep=keep)) for keep in (False, True)
         }
-        self._plan_cache = self._bucket_cache = None
+        self._plan_cache = self._bucket_cache = self._factor_cache = None
 
     def condition(self, x, y, w=None):
         """Condition the model on data without training
@@ -824,8 +852,9 @@ class GPARRegressor:
         the noise that a latent draw feeds forward (``replace=False``); each
         defaults to draws from ``generator``."""
         from .fused import (
-            build_scan_prior_plan, make_scan_ancestral_tail, make_scan_predict_tail,
-            make_scan_prior_tail, posterior_factor_layers, resolve_sample_chunk,
+            build_scan_prior_plan, factor_slices, make_scan_ancestral_tail, make_scan_cached_tail,
+            make_scan_predict_tail, make_scan_prior_tail, posterior_factor_layers,
+            resolve_sample_chunk,
         )
 
         posterior = p_prior is None
@@ -865,10 +894,18 @@ class GPARRegressor:
         plan = self._scan_fit_plan(names)
         x_pad, rows = self._bucket_fit_inputs(plan)
         z = self.vs.latent_vector(names)
+        cached = self._factor_cache_eligible(plan)
         if self.replace:
+            if cached:
+                tail = make_scan_cached_tail(plan, latent, rows_traced=True)
+                factors = self._posterior_factors(plan, z)
+                return tail(z, factors, x_t, w_t, normals, rows, mt)[0][:, :nt]
             tail = make_scan_predict_tail(plan, self.x_ind, latent, rows_traced=True)
             return tail(z, x_pad, x_t, w_t, normals, rows, mt)[0][:, :nt]
-        factors = posterior_factor_layers(plan, self.x_ind, rows_traced=True)(z, x_pad, rows)
+        if cached:
+            factors = factor_slices(self._posterior_factors(plan, z))
+        else:
+            factors = posterior_factor_layers(plan, self.x_ind, rows_traced=True)(z, x_pad, rows)
         tail = make_scan_ancestral_tail(plan, latent, chunk, rows_traced=True)
         return tail(z, factors, x_t, w_t, normals, noise_normals, rows, mt)[:, :nt]
 
@@ -947,9 +984,13 @@ class GPARRegressor:
 
     def logpdf(self, x, y, w=None, sample_missing=False, posterior=False, normals=None,
                generator=None):
-        """Log-density of observations (``gpar/regression.py:461-506``), a
-        Python float: under the prior, or with ``posterior`` under the
-        posterior given the conditioned data.  ``y`` may hold NaNs
+        """Log-density of observations (``gpar/regression.py:461-506``):
+        under the prior, or with ``posterior`` under the posterior given the
+        conditioned data.  A Python float, or a detached 0-d tensor in the
+        estimator's dtype on its device when ``x`` or ``y`` is a tensor (as
+        the JAX package returns a device scalar for JAX inputs).  Tensor
+        inputs, on any device and requiring grad or not, are read as
+        data.  ``y`` may hold NaNs
         (missing outputs) and ``w`` weights the noise (default ones); both
         are in the original column order and, under a greedy ordering,
         must have the fitted width.
@@ -976,12 +1017,17 @@ class GPARRegressor:
                 "Cannot evaluate the posterior logpdf: no data has been "
                 "conditioned on yet (call fit() or condition() first)."
             )
+        tensors = isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor)
         x_np, y_np, w_np = self._score_data(x, y, w, posterior)
+        value = None
         if not sample_missing and x_np.shape[0] > 0:
             value = self._logpdf_scan(x_np, y_np, w_np, posterior)
-            if value is not None:
-                return float(value)
-        return self._logpdf_core(x_np, y_np, w_np, posterior, sample_missing, normals, generator)
+        if value is None:
+            value = self._logpdf_core(x_np, y_np, w_np, posterior, sample_missing, normals,
+                                      generator)
+        if tensors:
+            return torch.as_tensor(value, dtype=self.dtype, device=self.device).detach()
+        return float(value)
 
     def _score_data(self, x, y, w, posterior):
         """Scored data on the host in layer order, ``y`` transformed and
@@ -1033,8 +1079,8 @@ class GPARRegressor:
         bucketed, or None where the posterior's scored width differs from
         the conditioned one (its factors are the conditioned chain's)."""
         from .fused import (
-            build_scan_data_plan, make_scan_logpdf_body, make_scan_posterior_logpdf_tail,
-            posterior_factor_layers,
+            build_scan_data_plan, factor_slices, make_scan_logpdf_body,
+            make_scan_posterior_logpdf_tail, posterior_factor_layers,
         )
 
         names = self.vs.select(None)
@@ -1047,9 +1093,182 @@ class GPARRegressor:
             return make_scan_logpdf_body(plan, self.x_ind, rows_traced=True)(z, x_pad, rows)
         plan_tr = self._scan_fit_plan(names)
         x_tr, rows_tr = self._bucket_fit_inputs(plan_tr)
-        factors = posterior_factor_layers(plan_tr, self.x_ind, rows_traced=True)(z, x_tr, rows_tr)
+        if self._factor_cache_eligible(plan_tr):
+            factors = factor_slices(self._posterior_factors(plan_tr, z))
+        else:
+            factors = posterior_factor_layers(plan_tr, self.x_ind, rows_traced=True)(z, x_tr,
+                                                                                     rows_tr)
         tail = make_scan_posterior_logpdf_tail(plan, self.x_ind, rows_traced=True)
         return tail(z, factors, x_pad, rows, None if plan.sparse else rows_tr["obs_mask"])
+
+    def _factor_stack_fits(self, plan):
+        """Whether the stacked posterior factors are small enough to keep
+        (``gpar_tpu/models/regressor.py:2922-2936``), reckoned at the row
+        bucket the factors are computed at: a sparse stack (p M^2) always
+        is; a dense one holds p * rows * (rows + W + 1) elements and must
+        fit ``config.posterior_cache_max_bytes``."""
+        if plan.sparse:
+            return True
+        n_b = bucket_rows(plan.n)
+        nbytes = plan.p * n_b * (n_b + plan.W + 1) * self.dtype.itemsize
+        return nbytes <= config.posterior_cache_max_bytes
+
+    def _factor_cache_eligible(self, plan):
+        """Whether the posterior-factor cache engages
+        (``gpar_tpu/models/regressor.py:2906-2920``): on with
+        ``config.posterior_cache`` and a stack that fits."""
+        return config.posterior_cache and self._factor_stack_fits(plan)
+
+    def _posterior_factors(self, plan, z):
+        """The conditioned data's per-layer posterior factors at the latents
+        ``z``, stacked (``fused.make_scan_posterior_factors`` at the row
+        bucket), computed at most once per (latents, data): one slot keyed
+        on the row bucket, the width, dtype, device, the latents' bytes and
+        the jitter settings the factorisations used
+        (``gpar_tpu/models/regressor.py:2938-2991``, whose key lacks the
+        bucket).  :meth:`condition` (and so :meth:`fit`),
+        :meth:`load_latents`, a reordering and a checkpoint load drop the
+        slot."""
+        from .fused import make_scan_posterior_factors
+
+        key = (bucket_rows(plan.n), self.p, str(self.dtype), str(self.device),
+               z.detach().cpu().numpy().tobytes(), config.epsilon, config.epsilon_f32,
+               tuple(config.cholesky_retry_factors))
+        if self._factor_cache is not None and self._factor_cache[0] == key:
+            return self._factor_cache[1]
+        self._factor_cache = None  # the old stack goes before the new one is made
+        x_pad, rows = self._bucket_fit_inputs(plan)
+        factors = make_scan_posterior_factors(plan, self.x_ind, rows_traced=True)(z, x_pad, rows)
+        self._factor_cache = (key, factors)
+        return factors
+
+    def precompute(self):
+        """Compute and keep the per-layer posterior factors of the current
+        latents and conditioned data, so that the next ``predict``,
+        ``sample(posterior=True)`` and posterior ``logpdf`` run only the
+        test-point work (``gpar_tpu/models/regressor.py:2993-3025``; the
+        reference conditions anew in every call, ``gpar/regression.py:
+        547``).  Both ``replace`` modes consume the factors.  Returns True
+        when the factors are cached (computed now or before), False where
+        the cache does not engage: ``config.posterior_cache`` off, or a
+        dense stack over ``config.posterior_cache_max_bytes`` at the row
+        bucket."""
+        if not self.is_conditioned:
+            raise RuntimeError(
+                "Cannot precompute posterior factors: no data has been "
+                "conditioned on yet (call fit() or condition() first)."
+            )
+        self._ensure_vars(self.p)
+        names = self.vs.select(None)
+        plan = self._scan_fit_plan(names)
+        if not self._factor_cache_eligible(plan):
+            return False
+        self._posterior_factors(plan, self.vs.latent_vector(names))
+        return True
+
+    def warmup(self, n, p, m=1, n_test=None, num_samples=100, latent=False, credible_bounds=False,
+               paths=None, **fit_kwargs):
+        """Prepare the card for requests of a shape before real data
+        arrives (``gpar_tpu/models/regressor.py:3066-3249``): on a CUDA
+        device load the Gram kernels (building ``csrc/gram.cu`` on first
+        use, ``ops/_build.py``), then run the real ``fit`` / ``logpdf`` /
+        ``predict`` / ``fit_predict`` of a scratch estimator with this
+        one's configuration (the same transform objects) on synthetic,
+        fully observed data of ``n`` rows, ``m`` inputs and ``p`` outputs.
+        The scan step's CUDA graphs of the row bucket enter the shared
+        cache of ``models/graphs.py``, so a later fit whose rows fall in
+        the same bucket, with the same optimiser options, captures nothing.
+        This estimator is left untouched.
+
+        ``paths`` is a subset of ``("fit", "predict", "fit_predict",
+        "logpdf")``, by default ``("fit", "logpdf")`` without ``n_test``
+        and all four with it; ``fit_kwargs`` are the production fit's
+        options (``iters=``, ``gtol=``, ``memory_size=``, ``restarts=``,
+        ``restart_scale=``, ``fused=``, ``fix=``, ``cuda_graphs=``), part of
+        the graph cache's key.  A greedy fit cannot be warmed: its order is
+        data-dependent.
+
+        Returns ``{"buckets": {"rows": ..., "test_rows": ...}, "seconds":
+        {path: wall-clock}}``.  Unlike the JAX package's, there is no
+        ``samples`` bucket (the port's tails run at the caller's sample
+        count) and no ``shape_buckets`` switch (rows are always
+        bucketed)."""
+        if fit_kwargs.pop("greedy", False):
+            raise ValueError(
+                "warmup() cannot pre-compile a greedy fit: the output "
+                "ordering is data-dependent and is baked into the "
+                "programs' gather maps."
+            )
+        fix = fit_kwargs.pop("fix", True)
+        if paths is None:
+            paths = ("fit", "logpdf") if n_test is None else (
+                "fit", "predict", "fit_predict", "logpdf")
+        unknown = set(paths) - {"fit", "predict", "fit_predict", "logpdf"}
+        if unknown:
+            raise ValueError(f"Unknown warmup() paths: {sorted(unknown)}")
+        if ("predict" in paths or "fit_predict" in paths) and n_test is None:
+            raise ValueError("Warming the serving programs needs n_test=.")
+
+        if self.device.type == "cuda":
+            from ..ops._build import load_library
+
+            load_library()
+        scratch = GPARRegressor(
+            replace=self.replace, impute=self.impute, x_ind=self.x_ind,
+            normalise_y=self.normalise_y, transform_y=(self._transform_y, self._untransform_y),
+            compat=self.compat, device=self.device, dtype=self.dtype, **self.model_config,
+        )
+        # Synthetic fully observed data, through the inverse transform so
+        # that condition()'s forward transform recovers a well-conditioned
+        # standard-normal model-space dataset (JAX's, number for number).
+        rng = np.random.default_rng(20)
+        x_d = rng.uniform(size=(n, m))
+        z = 0.5 * rng.standard_normal((n, p))
+        y_d = np.asarray(_host(self._untransform_y(torch.as_tensor(z))), dtype=float)
+        if not np.isfinite(y_d).all():
+            raise ValueError(
+                "warmup()'s synthetic data is non-finite through this "
+                "estimator's inverse transform_y; run a dummy fit with "
+                "representative data instead."
+            )
+        x_t = rng.uniform(size=(n_test, m)) if n_test is not None else None
+
+        fp_keys = ("iters", "gtol", "memory_size", "restarts", "restart_scale", "fused",
+                   "cuda_graphs")
+        fp_kwargs = {k: v for k, v in fit_kwargs.items() if k in fp_keys}
+        seconds = {}
+        if "fit" in paths or "predict" in paths:
+            t0 = time.perf_counter()
+            scratch.fit(x_d, y_d, fix=fix, **fit_kwargs)
+            seconds["fit"] = time.perf_counter() - t0
+        if "logpdf" in paths:
+            if not scratch.is_conditioned:
+                scratch.condition(x_d, y_d)
+            t0 = time.perf_counter()
+            scratch.logpdf(x_d, y_d)
+            if n_test is not None:
+                z_t = 0.5 * rng.standard_normal((n_test, p))
+                y_t = np.asarray(_host(self._untransform_y(torch.as_tensor(z_t))), dtype=float)
+                scratch.logpdf(x_t, y_t)
+                scratch.logpdf(x_t, y_t, posterior=True)
+            else:
+                scratch.logpdf(x_d, y_d, posterior=True)
+            seconds["logpdf"] = time.perf_counter() - t0
+        if "predict" in paths:
+            t0 = time.perf_counter()
+            scratch.predict(x_t, num_samples=num_samples, latent=latent,
+                            credible_bounds=credible_bounds)
+            seconds["predict"] = time.perf_counter() - t0
+        if "fit_predict" in paths:
+            t0 = time.perf_counter()
+            scratch.fit_predict(x_d, y_d, x_test=x_t, num_samples=num_samples, latent=latent,
+                                credible_bounds=credible_bounds, **fp_kwargs)
+            seconds["fit_predict"] = time.perf_counter() - t0
+
+        buckets = {"rows": bucket_rows(n)}
+        if n_test is not None:
+            buckets["test_rows"] = bucket_rows(n_test)
+        return {"buckets": buckets, "seconds": seconds}
 
     def fit_predict(
         self,

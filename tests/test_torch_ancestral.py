@@ -45,6 +45,7 @@ import gpar_torch.models.fused as TF  # noqa: E402
 import gpar_torch.ops.kernels as TK  # noqa: E402
 import gpar_torch.ops.linalg as TL  # noqa: E402
 from gpar_torch import GPARRegressor as TReg  # noqa: E402
+from gpar_torch.config import config as tconfig  # noqa: E402
 
 P, N, NT, S, ITERS = 3, 60, 12, 8, 2
 TOL = 1e-8
@@ -269,9 +270,10 @@ def test_fit_predict_matches_jax(fits, model):
 
 def test_dense_route_without_the_stack_matches_jax_unrolled_route(fits, monkeypatch):
     # A stack "too large" for a few bytes: JAX falls back to its unrolled
-    # per-sample chain; the port never stacks, it computes each layer's
-    # factors in the tail.
+    # per-sample chain; the port, under the same limit, does not stack, it
+    # computes each layer's factors in the tail.
     monkeypatch.setattr(gpar_tpu.config, "posterior_cache_max_bytes", 8)
+    monkeypatch.setattr(tconfig, "posterior_cache_max_bytes", 8)
 
     def no_stack(*a, **k):
         raise AssertionError("the stacked factors were built")

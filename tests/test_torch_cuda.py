@@ -311,3 +311,114 @@ def test_cuda_greedy_scorer_matches_cpu(dense):
     np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         np.testing.assert_allclose(a, b, rtol=1e-6)
+
+
+def _served(dense, replace=True):
+    """A small float64 model on the card, fitted, and its test inputs."""
+    x, y, x_test = chain_data(n=60, p=3, seed=2, n_test=12)
+    kw = dict(bench_kwargs(n_ind=8), replace=replace)
+    if dense:
+        kw["x_ind"] = None
+    reg = GPARRegressor(**kw, device="cuda", dtype=torch.float64)
+    reg.fit(x, y, iters=3)
+    return reg, x, y, x_test
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("replace", [True, False])
+def test_cuda_cached_serving_equals_uncached(dense, replace):
+    # The same bits from the cached factors, and fewer Grams: no Kmm and Kmn
+    # (sparse) or K (dense) per layer.
+    from gpar_torch.config import config
+
+    _need_cuda()
+    reg, x, y, x_test = _served(dense, replace)
+    normals = np.random.default_rng(3).standard_normal((reg.p, 5, len(x_test)))
+    assert reg.precompute()
+    runs = {}
+    for cached in (True, False):
+        config.posterior_cache = cached
+        try:
+            GK.reset_counters()
+            pred = reg.predict(x_test, num_samples=5, credible_bounds=True, normals=normals)
+            launches = GK.counters()["gram_kernel_launches"]
+            score = reg.logpdf(x[:20], y[:20], posterior=True)
+        finally:
+            config.posterior_cache = True
+        runs[cached] = (pred, launches, score)
+    for a, b in zip(runs[True][0], runs[False][0]):
+        np.testing.assert_array_equal(a, b)
+    assert runs[True][2] == runs[False][2]
+    saved = reg.p * (1 if dense else 2)
+    if replace:
+        assert runs[True][1] == runs[False][1] - saved
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_inputs_that_require_grad():
+    _need_cuda()
+    reg, x, y, x_test = _served(False)
+    xt, yt = (torch.tensor(a, device="cuda", requires_grad=True) for a in (x, y))
+    reg.condition(xt, yt)
+    normals = np.zeros((reg.p, 2, len(x_test)))
+    got = reg.predict(torch.tensor(x_test, device="cuda", requires_grad=True), num_samples=2,
+                      normals=torch.tensor(normals, device="cuda", requires_grad=True))
+    want = reg.predict(x_test, num_samples=2, normals=normals)
+    np.testing.assert_array_equal(got, want)
+    score = reg.logpdf(xt, yt, posterior=True)
+    assert score.ndim == 0 and score.device.type == "cuda" and not score.requires_grad
+    assert float(score) == reg.logpdf(x, y, posterior=True)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_round_trip_predicts_the_same_bits(tmp_path):
+    from gpar_torch.utils import checkpoint
+
+    _need_cuda()
+    reg, x, y, x_test = _served(False)
+    normals = np.random.default_rng(4).standard_normal((reg.p, 4, len(x_test)))
+    want = reg.predict(x_test, num_samples=4, normals=normals)
+    checkpoint.save(reg, str(tmp_path / "reg.pkl"))
+    back = checkpoint.load(str(tmp_path / "reg.pkl"))
+    assert back.device.type == "cuda" and back._factor_cache is None
+    np.testing.assert_array_equal(back.predict(x_test, num_samples=4, normals=normals), want)
+
+
+@pytest.mark.cuda
+def test_cuda_warmup_then_fit_captures_nothing():
+    from gpar_torch.models import graphs
+
+    _need_cuda()
+    graphs.clear_cache()
+    x, y, x_test = chain_data(n=60, p=3, seed=2, n_test=12)
+    kw = bench_kwargs(n_ind=8)
+    rep = GPARRegressor(**kw, device="cuda", dtype=torch.float64).warmup(50, 3, n_test=10, iters=2)
+    assert set(rep["seconds"]) == {"fit", "predict", "fit_predict", "logpdf"}
+    reg = GPARRegressor(**kw, device="cuda", dtype=torch.float64)
+    reg.fit_predict(x, y, x_test, iters=2, num_samples=3)
+    assert reg.last_fit_report["capture_s"] == 0.0 and reg.last_fit_report["graph_replays"] > 0
+    graphs.clear_cache()
+
+
+@pytest.mark.cuda
+def test_cuda_graph_cache_keeps_what_the_byte_budget_holds():
+    from gpar_torch.config import config
+    from gpar_torch.models import graphs
+
+    _need_cuda()
+    graphs.clear_cache()
+    x, y, _ = chain_data(n=60, p=3, seed=2)
+    reg = GPARRegressor(**dict(bench_kwargs(), x_ind=None), device="cuda", dtype=torch.float64)
+    reg.fit(x, y, iters=2)
+    one = graphs.cached_bytes()
+    assert one > 0 and len(graphs._CACHE) == 1
+    old = config.graph_cache_max_bytes
+    config.graph_cache_max_bytes = one + one // 2
+    try:
+        reg.fit(x, y, iters=3)
+        assert len(graphs._CACHE) == 1 and [k[5] for k in graphs._CACHE] == [3]
+        assert graphs.cached_bytes() <= config.graph_cache_max_bytes
+    finally:
+        config.graph_cache_max_bytes = old
+        graphs.clear_cache()
