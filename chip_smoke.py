@@ -136,7 +136,25 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    ``10k`` gates); a checkpoint's save and load (the same bits); CUDA
    tensors that require grad as inputs; and the graph cache under a
    one-step byte budget (one step kept, reserved memory printed).
-13. Small-input agreement: a float64 fit_predict (p=3, n=100, sparse with
+13. The unrolled oracle (``[unroll]`` lines, :func:`phase_unroll`):
+   ``fit(fused="unroll")`` of the bench's sparse model at full width, cold
+   and warm from phase 3's initial latents (the same bits; wall-clock,
+   host reads, launches; the sum of layer NLLs beside the graphed scan
+   fit's), and ``predict`` / posterior ``sample`` with
+   ``config.scan_predict = False`` from the scan-fitted latents and the
+   normals the scan tail drew (max |d| of the draws and the mean; the
+   ``10k`` gates); the dense model at n = 2000 the same way; and float64 at
+   n = 2000, p = 4, sparse and dense: the unrolled fit, predict, sample and
+   posterior score against the scan routes, 1e-8 relative.  Every run
+   through the kernels (no plain-route Gram, no ``gram_eval``).
+14. The examples' own workloads (``[examples]`` lines,
+   :func:`phase_examples`): eeg, exchange, jura and air_temp at sizes 0
+   and 2 on the synthetic stand-ins of ``gpar_torch.utils.data`` at the
+   data's sizes, each with its script's constructor arguments, in float64:
+   at the ``--quick`` counts the script's ``check_metric`` gate (a
+   ``SystemExit`` fails the run), at the full counts timed, the metric
+   printed.
+15. Small-input agreement: a float64 fit_predict (p=3, n=100, sparse with
    8 inducing points and dense, ``replace`` True and False) through the
    scan path on the card (graphed) against the same run on the CPU (eager;
    the CPU route is held against the JAX package by the test suite), rtol
@@ -147,16 +165,17 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    all on the card, from the same normals (rtol 1e-6); and the greedy
    search at n = 64, p = 4, sparse and dense, on the card against the CPU
    (the same order, NLLs to rtol 1e-6).
-14. Summary: ``[main]``, ``[dense]``, ``[ancestral]``, ``[logpdf]``,
-   ``[free]``, ``[restarts]``, ``[batched]``, ``[greedy]``, ``[configs]``
-   and ``[serve]`` JSON lines, a ``kernels``
+16. Summary: ``[main]``, ``[dense]``, ``[ancestral]``, ``[logpdf]``,
+   ``[free]``, ``[restarts]``, ``[batched]``, ``[greedy]``, ``[configs]``,
+   ``[serve]``, ``[unroll]`` and ``[examples]`` JSON lines, a ``kernels``
    JSON line (launches of the sparse and the dense graphed cold runs, the
    scan-route scores' cold runs and the sparse joint fit; the sample-axis
-   route's from the ``[ancestral]`` sparse cold and dense requests; the
-   per-element-parameter forward and the batched backward from the
-   ``[restarts]``, ``[batched]`` and ``[greedy]`` runs; the ``[serve]``
-   phase's first cached calls and its request after warmup), the card
-   line, and last
+   route's from the ``[ancestral]`` sparse cold and dense requests and the
+   ``[examples]`` runs; the per-element-parameter forward and the batched
+   backward from the ``[restarts]``, ``[batched]`` and ``[greedy]`` runs;
+   the ``[serve]`` phase's first cached calls and its request after
+   warmup; the ``[unroll]`` phase's cold fits and predicts; the
+   ``[examples]`` phase's ``--quick`` runs), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` additionally traces one warm (graphed) fit_predict of each
@@ -2071,7 +2090,8 @@ def phase_configs(device):
     results, every Gram through the kernels (the analyser's terms printed;
     no ``gram_eval`` and no plain-route Gram); then each at n = 96 in
     float64 on the card against the CPU, rtol 1e-6: the fit's layer NLLs,
-    then predictions and scores at the CPU's fitted latents."""
+    then predictions and scores at the CPU's fitted latents.  The
+    examples' own sizes and data run in :func:`phase_examples`."""
     import torch
 
     import gpar_torch
@@ -2405,6 +2425,289 @@ def phase_serve(device, main_res, sparse_reg, replace_false_reg, dense_reg):
     return res
 
 
+def rel_diff(a, b):
+    """max |a - b| / max |b| over arrays (or tuples of them)."""
+    if isinstance(a, tuple):
+        return max(rel_diff(u, v) for u, v in zip(a, b))
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.max(np.abs(a - b)) / max(float(np.max(np.abs(b))), 1e-300))
+
+
+#: The float64 unrolled routes against the scan routes (``[unroll]``).
+UNROLL_TOL_F64 = 1e-8
+
+
+def phase_unroll(device):
+    """The unrolled oracle at full width (``[unroll]`` lines): the JAX
+    package's ``fit(fused="unroll")`` and its serving routes under
+    ``config.scan_predict = False``, both eager through ``GPAR.logpdf`` and
+    ``GPAR.sample_batch`` on the GP core, the Gram kernel pair beneath.
+
+    - The bench's sparse model (n = 10 000, p = 16, 256 inducing points, 10
+      iterations, float32): the graphed scan fit from phase 3's initial
+      latents, then ``fit(fused="unroll")`` from the same latents twice
+      (cold and warm: the same bits), their wall-clock, L-BFGS host reads
+      and launches, the sum of layer NLLs beside the scan's.  From the
+      scan-fitted latents ``predict`` (100 samples at the 1024 test rows,
+      ``replace=True``) and posterior ``sample`` on both routes, from the
+      normals the scan tail drew in phase 3: max |d| of the draws and of
+      the mean, and the ``10k`` gates on the unrolled predict.
+    - The dense model at n = 2000 (p = 16; its eager fit at 10 000 rows
+      takes tens of seconds): the same fits and predict, printed.
+    - float64 at n = 2000, p = 4, sparse (64 inducing points) and dense:
+      the unrolled fit against the scan fit from the same latents (layer
+      NLLs), ``predict``, ``sample`` and the posterior ``logpdf`` against
+      the scan routes, each to :data:`UNROLL_TOL_F64` relative.
+    """
+    import torch
+
+    import gpar_torch
+    from gpar_torch import GPARRegressor
+
+    P = "[unroll]"
+    cfg = gpar_torch.config
+    cfg.epsilon = 1e-6
+    res, prev = {}, cfg.scan_predict
+
+    def unrolled(fn):
+        """``fn()`` with ``config.scan_predict`` off, restored whatever
+        happens."""
+        cfg.scan_predict = False
+        try:
+            return fn()
+        finally:
+            cfg.scan_predict = prev
+
+    for model, n, n_test in (("sparse", 10_000, 1024), ("dense", 2000, 200)):
+        x, y, f = make_data(n, 16)
+        test_idx = np.arange(n)[:: n // n_test][:n_test]
+        x_test, f_test = x[test_idx], f[test_idx]
+        kw = model_kwargs(x)
+        if model == "dense":
+            kw["x_ind"] = None
+        reg = GPARRegressor(**kw, device=device)
+        reg.condition(x, y)
+        reg._ensure_vars(reg.p)
+        z_init = reg.vs.snapshot()
+        reg.fit(x, y, iters=10)
+        scan_rep, z_scan = reg.last_fit_report, reg.vs.snapshot()
+        fits = []
+        for tag in ("cold", "warm"):
+            reg.vs.restore(z_init)
+            _, wall, peak, c = launches_checked(f"{model} unroll fit {tag}",
+                                                lambda: reg.fit(x, y, iters=10, fused="unroll"),
+                                                backward=True)
+            rep = reg.last_fit_report
+            fits.append((rep, reg.vs.snapshot(), wall, c))
+            print(f"{P} {model} n={n} p=16 float32: fit(fused='unroll', iters=10) {tag} {wall:.3f} s; "
+                  f"peak device memory {peak:.2f} GiB; L-BFGS host reads {rep['host_syncs']} "
+                  f"(iterations {int(np.sum(rep['layer_iters']))}, backtracking trials "
+                  f"{rep['linesearch_trials']}); gram kernel launches {c['gram_kernel_launches']}, "
+                  f"backward launches {c['gram_bwd_kernel_launches']} for {c['gram_autograd_calls']} "
+                  f"Grams under autograd; sum of layer NLLs {float(np.sum(rep['layer_nll'])):.3f} "
+                  f"against the graphed scan fit's {float(np.sum(scan_rep['layer_nll'])):.3f} "
+                  f"({scan_rep['wall_clock_s']:.3f} s)")
+            if rep["fused"] != "unroll" or rep["graph_replays"]:
+                raise AssertionError(f"{model}: fused='unroll' did not run the unrolled fit: {rep}")
+        (cold, z_cold, cold_s, cold_c), (warm, z_warm, warm_s, _) = fits
+        same = (np.array_equal(cold["layer_nll"], warm["layer_nll"])
+                and all(np.array_equal(z_cold[k], z_warm[k]) for k in z_cold))
+        print(f"{P} {model}: cold and warm unrolled fits identical: {same}")
+        if not same:
+            raise AssertionError(f"{model}: the unrolled fit is not deterministic")
+        # From the scan-fitted latents, the normals the scan tail drew in
+        # phase 3 (a generator seeded 0, nothing drawn before them).
+        reg.load_latents(z_scan)
+        normals = torch.randn((16, 100, n_test), generator=torch.Generator(device).manual_seed(0),
+                              dtype=reg.dtype, device=device)
+        scan_pred = reg.predict(x_test, num_samples=100, credible_bounds=True, normals=normals)
+        pred, pred_s, _, pc = launches_checked(f"{model} unrolled predict", lambda: unrolled(
+            lambda: reg.predict(x_test, num_samples=100, credible_bounds=True, normals=normals)),
+            backward=False)
+        draws, sample_s, _, _ = launches_checked(f"{model} unrolled sample", lambda: unrolled(
+            lambda: np.stack(reg.sample(x_test, posterior=True, num_samples=100, normals=normals))),
+            backward=False)
+        scan_draws = np.stack(reg.sample(x_test, posterior=True, num_samples=100, normals=normals))
+        d_draw = float(np.max(np.abs(draws - scan_draws)))
+        d_mean = float(np.max(np.abs(pred[0] - scan_pred[0])))
+        q = check_quality(P, f"{model} unrolled predict", pred, scan_rep, f_test, gates=model == "sparse")
+        print(f"{P} {model}: unrolled predict (100 samples, {n_test} test rows) {pred_s:.3f} s, "
+              f"sample {sample_s:.3f} s; gram kernel launches {pc['gram_kernel_launches']}; against "
+              f"the scan tail from the same normals: max |d draw| {d_draw:.3e} (of max |draw| "
+              f"{float(np.max(np.abs(scan_draws))):.3e}), max |d mean| {d_mean:.3e}")
+        res[model] = dict(
+            n=n, fit_cold_s=cold_s, fit_warm_s=warm_s, scan_fit_s=scan_rep["wall_clock_s"],
+            host_syncs=cold["host_syncs"], linesearch_trials=cold["linesearch_trials"],
+            nll_sum=float(np.sum(cold["layer_nll"])), scan_nll_sum=float(np.sum(scan_rep["layer_nll"])),
+            launches=cold_c["gram_kernel_launches"] + pc["gram_kernel_launches"],
+            bwd_launches=cold_c["gram_bwd_kernel_launches"], predict_s=pred_s, sample_s=sample_s,
+            max_abs_d_draw=d_draw, max_abs_d_mean=d_mean, mean_smse=q["mean_smse"],
+            worst_smse=q["worst_smse"])
+
+    x, y, _ = make_data(2000, 4, seed=3)
+    x, y = x.astype(np.float64), y.astype(np.float64)
+    xs, ys, _ = make_data(500, 4, seed=8)
+    x_test = np.linspace(0.1, 9.9, 200)
+    normals = np.random.default_rng(6).standard_normal((4, 50, len(x_test)))
+    for model in ("sparse", "dense"):
+        kw = model_kwargs(x, n_ind=64)
+        if model == "dense":
+            kw["x_ind"] = None
+        runs = {}
+        for fused in (True, "unroll"):
+            reg = GPARRegressor(**kw, device=device, dtype=torch.float64)
+            reg.fit(x, y, iters=10, fused=fused)
+            runs[fused] = reg
+        scan, unroll = runs[True], runs["unroll"]
+        gaps = {"layer NLL": rel_diff(unroll.last_fit_report["layer_nll"], scan.last_fit_report["layer_nll"])}
+        for what, call in (
+            ("predict", lambda: scan.predict(x_test, num_samples=50, credible_bounds=True, normals=normals)),
+            ("sample", lambda: np.stack(scan.sample(x_test, posterior=True, num_samples=50,
+                                                    normals=normals))),
+            ("posterior logpdf", lambda: scan.logpdf(xs.astype(np.float64), ys.astype(np.float64),
+                                                     posterior=True)),
+        ):
+            gaps[what] = rel_diff(unrolled(call), call())
+        print(f"{P} float64 {model} n=2000 p=4: unrolled routes against the scan routes, relative "
+              + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()) + f" (limit {UNROLL_TOL_F64:g})")
+        if max(gaps.values()) > UNROLL_TOL_F64:
+            raise AssertionError(f"float64 {model}: the unrolled routes differ from the scan routes: {gaps}")
+        res[f"float64 {model}"] = gaps
+    return res
+
+
+#: The examples' workloads (``examples/*.py``): the loader's call, the
+#: script's constructor arguments verbatim, its fit and predict keywords, its
+#: metric with the ``check_metric`` name and bound, its jitter, and the
+#: (iterations, samples) of ``--quick`` and of a full run.
+def example_specs():
+    from gpar_torch import log_transform
+    from gpar_torch.utils import data, metrics
+
+    def eeg():
+        x, y_train, y_test, _ = data.load_eeg()
+        return x, y_train, [(x, y_test)]
+
+    def exchange():
+        x, y_train, y_test, _ = data.load_exchange()
+        return x, y_train, [(x, y_test)]
+
+    def jura():
+        x_train, y_train, x_test, y_test, _ = data.load_jura()
+        return x_train, y_train, [(x_test, y_test)]
+
+    def air_temp(size):
+        def load():
+            _, x_train, y_train, tests = data.load_air_temp(size=size)
+            return x_train, y_train, tests
+        return load
+
+    def air_ind(size):
+        x_all = data.load_air_temp(size=size)[0]
+        return np.linspace(x_all.min(), x_all.max(), [10 * 10 + 1, 10 * 15 + 1, 10 * 31 + 1][size])
+
+    def chunk_smse(preds, tests, y_train):
+        return float(np.nanmean([np.nanmean(metrics.smse(p, y)) for p, (_, y) in zip(preds, tests)]))
+
+    def exchange_smse(preds, tests, y_train):
+        return float(np.nanmean(metrics.smse_train_mean(preds[0], tests[0][1], np.nanmean(y_train, axis=0))))
+
+    def jura_mae(preds, tests, y_train):
+        return float(metrics.mae(preds[0], tests[0][1])[2])  # Cd
+
+    specs = {
+        "eeg": dict(load=eeg, kw=dict(scale=0.02, linear=False, nonlinear=True, nonlinear_scale=1.0,
+                                      noise=0.01, impute=True, replace=False, normalise_y=True,
+                                      compat=True),
+                    fit={}, predict=dict(credible_bounds=True, latent=True), metric=chunk_smse,
+                    title="eeg mean SMSE", bound=0.30, epsilon=1e-12, quick=(20, 50), full=(200, 200)),
+        "exchange": dict(load=exchange, kw=dict(scale=0.1, linear=True, linear_scale=10.0, nonlinear=True,
+                                                nonlinear_scale=1.0, rq=True, noise=0.01, impute=True,
+                                                replace=False, normalise_y=True),
+                         fit={}, predict=dict(credible_bounds=True, latent=False), metric=exchange_smse,
+                         title="exchange mean SMSE", bound=0.15, epsilon=1e-12, quick=(20, 50),
+                         full=(200, 200)),
+        "jura": dict(load=jura, kw=dict(scale=10.0, linear=False, nonlinear=True, nonlinear_scale=1.0,
+                                        noise=0.1, impute=True, replace=True, normalise_y=True,
+                                        transform_y=log_transform),
+                     fit=dict(fix=False), predict=dict(latent=True), metric=jura_mae, title="jura Cd MAE",
+                     bound=0.3, epsilon=1e-12, quick=(10, 50), full=(100, 200)),
+    }
+    for size in (0, 2):
+        specs[f"air_temp{size}"] = dict(
+            load=air_temp(size), kw=dict(scale=0.2, linear=True, linear_scale=10.0, nonlinear=True,
+                                         nonlinear_scale=1.0, noise=0.1, impute=True, replace=True,
+                                         normalise_y=True, x_ind=air_ind(size)),
+            fit={}, predict=dict(credible_bounds=True, latent=False), metric=chunk_smse,
+            title=f"air_temp mean SMSE (size {size})", bound=0.15, epsilon=1e-6, quick=(10, 20),
+            full=(100, 50))
+    return specs
+
+
+def run_example(spec, device, iters, num_samples):
+    """One example's workload in float64 on ``device``: load, fit,
+    predict every test chunk; returns ``(metric, (rows, p), fit report)``."""
+    import torch
+
+    from gpar_torch import GPARRegressor
+
+    x, y_train, tests = spec["load"]()
+    model = GPARRegressor(**spec["kw"], device=device, dtype=torch.float64)
+    model.fit(x, y_train, iters=iters, **spec["fit"])
+    gen = torch.Generator(device).manual_seed(0)
+    preds = []
+    for x_t, _ in tests:
+        out = model.predict(x_t, num_samples=num_samples, generator=gen, **spec["predict"])
+        preds.append(out[0] if isinstance(out, tuple) else out)
+    if not all(np.isfinite(p).all() for p in preds):
+        raise AssertionError("non-finite predictions")
+    return spec["metric"](preds, tests, y_train), y_train.shape, model.last_fit_report
+
+
+def phase_examples(device):
+    """The examples' own workloads on the card (``[examples]`` lines): eeg
+    (n = 256, p = 7), exchange (251, 13), jura (359, 3, ``fit(fix=False)``,
+    ``log_transform``) and air_temp at sizes 0 (1440 rows, 101 inducing
+    points) and 2 (4464 rows, 311), on the loaders' seeded synthetic
+    stand-ins (``gpar_torch.utils.data``), each with its script's
+    constructor arguments, in float64, through the default routes (the
+    graphed scan fit, the joint fit for jura).  At the ``--quick`` counts
+    each metric goes through ``check_metric`` against the script's bound
+    (a ``SystemExit`` fails the run), every Gram through the kernels; at
+    the full counts each is timed and its metric printed.  ``config.epsilon``
+    is each script's (1e-6 for air_temp) and restored after."""
+    import gpar_torch
+    from gpar_torch.utils.experiment import check_metric
+
+    P = "[examples]"
+    cfg = gpar_torch.config
+    prev, res = cfg.epsilon, {}
+    try:
+        for name, spec in example_specs().items():
+            title, bound, quick, full = spec["title"], spec["bound"], spec["quick"], spec["full"]
+            cfg.epsilon = spec["epsilon"]
+            (value, shape, rep), wall, peak, c = launches_checked(
+                f"{name} --quick", lambda: run_example(spec, device, *quick), backward=True)
+            print(f"{P} {name} n={shape[0]} p={shape[1]} float64 --quick (iters {quick[0]}, samples "
+                  f"{quick[1]}): fit + predict {wall:.3f} s (fit {rep['wall_clock_s']:.3f} s); peak device "
+                  f"memory {peak:.2f} GiB; gram kernel launches {c['gram_kernel_launches']} (with a sample "
+                  f"axis {c['gram_batched_kernel_launches']}), backward {c['gram_bwd_kernel_launches']}")
+            check_metric(title, value, bound)
+            t0 = time.perf_counter()
+            value_full, _, rep_full = run_example(spec, device, *full)
+            wall_full = time.perf_counter() - t0
+            print(f"{P} {name} full (iters {full[0]}, samples {full[1]}): {title} {value_full:.6g}; fit + "
+                  f"predict {wall_full:.3f} s (fit {rep_full['wall_clock_s']:.3f} s)")
+            res[name] = dict(n=shape[0], p=shape[1], quick_metric=value, bound=bound, quick_s=wall,
+                             full_metric=value_full, full_s=wall_full,
+                             launches=c["gram_kernel_launches"],
+                             batched_launches=c["gram_batched_kernel_launches"],
+                             bwd_launches=c["gram_bwd_kernel_launches"])
+    finally:
+        cfg.epsilon = prev
+    return res
+
+
 def phase_profile(state, out_dir, tag="main"):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2489,27 +2792,38 @@ def main(argv):
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
 
-    rows, worst = phase_kernel_check("cuda")
-    rows["gram_batched"], worst["gram_batched"] = phase_batched_kernel_check("cuda")
-    pb_rows, pb_worst = phase_param_batched_kernel_check("cuda")
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its wall-clock kept under ``name``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    rows, worst = timed("kernel", phase_kernel_check, "cuda")
+    rows["gram_batched"], worst["gram_batched"] = timed("kernel batched", phase_batched_kernel_check, "cuda")
+    pb_rows, pb_worst = timed("kernel param-batched", phase_param_batched_kernel_check, "cuda")
     rows["gram_param_batched"], worst["gram_param_batched"] = pb_rows["gram"], pb_worst["gram"]
     rows["gram_bwd_batched"], worst["gram_bwd_batched"] = pb_rows["gram_bwd"], pb_worst["gram_bwd"]
     if "--kernels-only" in argv:
         print("[kernel] " + json.dumps(rows))
         return 0
-    main_res, state = phase_main_path("cuda")
-    dense_res, dense_state = phase_main_path("cuda", dense=True)
-    dense_res["evaluation"] = phase_dense_evaluation(dense_state[0], "cuda")
-    anc_res, anc_reg = phase_ancestral("cuda", state[0])
-    logpdf_res = phase_logpdf("cuda", state[0], dense_state[0])
-    free_res = phase_free("cuda")
-    restarts_res = phase_restarts("cuda", main_res, dense_res, free_res)
-    batched_res = phase_batched_fit("cuda", dense_res)
-    greedy_res = phase_greedy("cuda")
-    configs_res = phase_configs("cuda")
-    serve_res = phase_serve("cuda", main_res, state[0], anc_reg, dense_state[0])
-    phase_small_agreement()
-    phase_small_greedy()
+    main_res, state = timed("main", phase_main_path, "cuda")
+    dense_res, dense_state = timed("dense", phase_main_path, "cuda", True)
+    dense_res["evaluation"] = timed("dense evaluation", phase_dense_evaluation, dense_state[0], "cuda")
+    anc_res, anc_reg = timed("ancestral", phase_ancestral, "cuda", state[0])
+    logpdf_res = timed("logpdf", phase_logpdf, "cuda", state[0], dense_state[0])
+    free_res = timed("free", phase_free, "cuda")
+    restarts_res = timed("restarts", phase_restarts, "cuda", main_res, dense_res, free_res)
+    batched_res = timed("batched", phase_batched_fit, "cuda", dense_res)
+    greedy_res = timed("greedy", phase_greedy, "cuda")
+    configs_res = timed("configs", phase_configs, "cuda")
+    serve_res = timed("serve", phase_serve, "cuda", main_res, state[0], anc_reg, dense_state[0])
+    unroll_res = timed("unroll", phase_unroll, "cuda")
+    examples_res = timed("examples", phase_examples, "cuda")
+    timed("small", phase_small_agreement)
+    timed("small greedy", phase_small_greedy)
     if "--profile" in argv:
         out_dir = argv[argv.index("--profile") + 1]
         phase_profile(state, out_dir, "main")
@@ -2523,12 +2837,17 @@ def main(argv):
                      "max|err|/max|plain| <= 1e-4 at f32 and 1e-10 at f64; fused-Gram gradient "
                      "within 1e-5 (f32) / 1e-10 (f64) of the float64 recursion's"),
     }
+    unroll_runs = [unroll_res["sparse"], unroll_res["dense"]]
     by_path = {"gram": {"logpdf": logpdf_res["launches"], "free": free_res["sparse"]["launches"],
                         "configs": sum(r["launches"] for r in configs_res.values()),
-                        "serve": serve_res["launches"], "warmup": serve_res["warmup"]["launches"]},
+                        "serve": serve_res["launches"], "warmup": serve_res["warmup"]["launches"],
+                        "unroll": sum(r["launches"] for r in unroll_runs),
+                        "examples": sum(r["launches"] for r in examples_res.values())},
                "gram_bwd": {"free": free_res["sparse"]["bwd_launches"],
                             "configs": sum(r["bwd_launches"] for r in configs_res.values()),
-                            "warmup": serve_res["warmup"]["bwd_launches"]}}
+                            "warmup": serve_res["warmup"]["bwd_launches"],
+                            "unroll": sum(r["bwd_launches"] for r in unroll_runs),
+                            "examples": sum(r["bwd_launches"] for r in examples_res.values())}}
     kernels = {"kernels": []}
     for name, (source, replaces, count, check) in sources.items():
         big = next(r for r in rows[name] if r["tree"] == "gated" and (r["n"], r["m"]) == SCAN_SHAPES[0])
@@ -2541,7 +2860,10 @@ def main(argv):
             # scan-route scores' cold runs (forward only), the sparse
             # full-width free fit, the configurations, the [serve] phase's
             # first cached predicts and scores (forward only) and its
-            # request after warmup, each counted from 0.
+            # request after warmup, the [unroll] phase's cold unrolled fits
+            # and unrolled predicts (sparse at full width, dense at
+            # n = 2000) and the [examples] phase's --quick runs, each
+            # counted from 0.
             "launches": main_res[count] + dense_res[count] + sum(by_path[name].values()),
             "launches_by_path": {"sparse": main_res[count], "dense": dense_res[count], **by_path[name]},
             "check": check,
@@ -2558,15 +2880,18 @@ def main(argv):
         })
     # The Gram with a sample axis: the same kernel, launched once for S Grams
     # by the per-sample tails; its launches from the [ancestral] phase's
-    # sparse cold request and its dense request, each counted from 0.
+    # sparse cold request and its dense request and the [examples] phase's
+    # --quick runs (eeg and exchange predict with replace=False), each
+    # counted from 0.
     big = rows["gram_batched"][0]
-    anc = {"sparse": anc_res["sparse cold"]["batched_launches"], "dense": anc_res["dense"]["batched_launches"]}
+    anc = {"sparse": anc_res["sparse cold"]["batched_launches"], "dense": anc_res["dense"]["batched_launches"],
+           "examples": sum(r["batched_launches"] for r in examples_res.values())}
     kernels["kernels"].append({
         "name": "gram_batched",
         "route": "cuda",
         "source": "gpar_torch/csrc/gram.cu",
         "replaces": "gpar_tpu/ops/pallas_gram.py:215",
-        "launches": anc["sparse"] + anc["dense"],
+        "launches": sum(anc.values()),
         "launches_by_path": anc,
         "check": "kernel == plain at f32 rtol/atol 1e-5 and f64 1e-12 at every batched shape",
         "max_abs_err": worst["gram_batched"][torch.float32],
@@ -2629,6 +2954,9 @@ def main(argv):
     print("[greedy] " + json.dumps(greedy_res))
     print("[configs] " + json.dumps(configs_res))
     print("[serve] " + json.dumps(serve_res))
+    print("[unroll] " + json.dumps(unroll_res))
+    print("[examples] " + json.dumps(examples_res))
+    print("[phases] wall-clock s " + json.dumps(phase_s))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,17 +3,20 @@
 The counterpart of ``gpar_tpu/config.py``: one mutable ``config`` object
 holding the Cholesky jitter policy (the ``lab.B.epsilon`` analogue and its
 float32 floor), the escalating retry ladder, the default dtype and the
-default device, the per-sample tails' memory knobs and the posterior-factor
-cache (``gpar_tpu/config.py:205-234``), the byte budget of the CUDA-graph
-cache; and the row buckets of the scan-fused path
+default device, the scan-fused serving switch ``scan_predict``, the
+per-sample tails' memory knobs and the posterior-factor cache
+(``gpar_tpu/config.py:190-234``), the byte budget of the CUDA-graph cache;
+and the row buckets of the scan-fused path
 (:func:`bucket_rows`, the JAX package's default ``bucket_ratio`` and
 ``bucket_floor``, ``gpar_tpu/config.py:162-173,324-334``).  On the card
 a bucket is the unit a captured CUDA graph serves: every dataset whose
 row count falls in one bucket replays the same graphs.  The JAX
 package's ``shape_buckets`` switch and sample buckets are not carried
-over: the port always buckets rows, and its predict tail runs eagerly at
-the caller's sample count.  The XLA-only knobs (compile cache, Pallas
-toggle, blocked Cholesky, mesh) have no counterpart here either.
+over: the port's scan routes always bucket rows, and its predict tails
+run eagerly at the caller's sample count.  The XLA-only knobs (compile cache, Pallas
+toggle, blocked Cholesky) and the mesh settings (``mesh``, ``shard_axis``,
+``shard_min_rows``, ``dense_shard_block``: the port runs on one device)
+have no counterpart here either.
 
 Precision: every float32 Gram, solve and matmul runs in full IEEE float32.
 PyTorch's CUDA matmuls and cuDNN convolutions may otherwise use TF32
@@ -62,6 +65,15 @@ class _Config:
         #: Default device of the entry points.  ``"cuda"`` raises when no
         #: card is present; pass ``device="cpu"`` to run on the host.
         self.device = "cuda"
+        #: Scan-fused serving (``models/fused.py``): posterior ``predict`` /
+        #: ``fit_predict`` / ``sample`` in both ``replace`` modes, prior
+        #: ``sample`` and ``logpdf`` run the scan tails and chains on rows
+        #: padded to their bucket.  False forces the unrolled oracle
+        #: everywhere: the conditioned GPAR (``GPAR | data``) and
+        #: ``GPAR.sample_batch`` at the exact test rows, ``logpdf`` through
+        #: the GP core, and no posterior-factor cache.  Mirrors
+        #: ``gpar_tpu/config.py:190-205``.
+        self.scan_predict = True
         #: Sample-axis chunk of the per-sample tails (``replace=False``
         #: prediction, ``sample``): ``"auto"`` sizes it so that about four
         #: (chunk, n_test, n_test) buffers fit ``predict_memory_budget``;

@@ -189,19 +189,27 @@ class GPAR:
         """One ancestral sample at inputs ``x`` (``gpar/model.py:245-277``)
         from caller-supplied standard normals ``normals`` of shape
         (p, n) (and ``noise_normals`` for ``latent=True``)."""
+        noise_normals = None if noise_normals is None else noise_normals[:, None]
+        return self.sample_batch(x, w, normals[:, None], latent, noise_normals)[0]
+
+    def sample_batch(self, x, w, normals, latent=False, noise_normals=None):
+        """``S`` ancestral samples at inputs ``x`` (n, m) with weights ``w``
+        (n, p), one :func:`_sample_chain` per sample
+        (``gpar_tpu/models/gpar.py:323-350``, which ``vmap``s the chain
+        over keys; the reference loops per sample in Python,
+        ``gpar/regression.py:558-563``).  ``normals`` (p, S, n) are the
+        draws' standard normals and ``noise_normals`` (same shape) those of
+        the noise a latent draw feeds forward (needed only with ``latent``
+        and without ``replace``).  Returns (S, n, p)."""
         models = [m() for m in self.layers]
-        return _sample_chain(
-            tuple(f for f, _ in models),
-            tuple(n for _, n in models),
-            x,
-            w,
-            self.x_ind,
-            normals,
-            latent=latent,
-            replace=self.replace,
-            sparse=self.sparse,
-            noise_normals=noise_normals,
-        )
+        fs = tuple(f for f, _ in models)
+        noises = tuple(n for _, n in models)
+        return torch.stack([
+            _sample_chain(fs, noises, x, w, self.x_ind, normals[:, s], latent=latent,
+                          replace=self.replace, sparse=self.sparse,
+                          noise_normals=None if noise_normals is None else noise_normals[:, s])
+            for s in range(normals.shape[1])
+        ])
 
     def _obs(self, x, x_ind, y, w, f, noise):
         """Sparse or exact observations with NaN rows dropped
@@ -243,15 +251,18 @@ def _sample_chain(
     """One ancestral pass through the layer chain (``gpar/model.py:245-277``)
     from standard normals ``normals`` (p, n); with ``latent`` the noisy
     sample feeds forward (from ``noise_normals`` (p, n)) and the noiseless
-    one is returned.  Returns (n, p)."""
+    one is returned; the noise is drawn only where the noisy sample feeds
+    forward (``replace`` off, every layer but the last).  Returns (n, p)."""
     p = len(fs)
     cols = []
     for i, f in enumerate(fs):
         noise = noises[i]
         if latent:
             f_sample = f(x).sample(normals[i])
-            y_sample = f_sample + torch.sqrt(noise / w[:, i : i + 1]) * noise_normals[i][:, None]
             cols.append(f_sample)
+            if not replace and i < p - 1:
+                noise_std = torch.sqrt(noise / w[:, i : i + 1])
+                y_sample = f_sample + noise_std * noise_normals[i][:, None]
         else:
             y_sample = f(x, noise / w[:, i]).sample(normals[i])
             cols.append(y_sample)

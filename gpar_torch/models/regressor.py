@@ -3,10 +3,10 @@
 Port of the main-path slice of ``gpar_tpu/models/regressor.py`` (itself a
 rebuild of the reference ``gpar/regression.py:200-597``): the constructor,
 the per-layer kernel generator with its variable-naming contract verbatim,
-``condition``, ``fit`` (``fix`` True and False, ``greedy``), ``predict`` /
-``fit_predict`` (both ``replace`` modes), posterior and prior ``sample``,
-``logpdf``, ``precompute``, ``warmup``, and ``get_variables`` /
-``load_latents``.
+``condition``, ``fit`` (``fix`` True and False, ``greedy``, every ``fused``
+route), ``predict`` / ``fit_predict`` (both ``replace`` modes), posterior
+and prior ``sample``, ``logpdf``, ``precompute``, ``warmup``, and
+``get_variables`` / ``load_latents``.
 
 Design, in PyTorch terms:
 
@@ -21,10 +21,21 @@ Design, in PyTorch terms:
   as CUDA graphs and replayed for every layer and iteration
   (``models/graphs.py``); ``cuda_graphs=False`` runs them eagerly, as a
   CPU tensor always does.  ``fused=False`` is the per-layer driver, the
-  oracle: one L-BFGS per layer through ``GPAR.logpdf``; once layer ``pi``
-  is fitted its posterior is computed once and its means at the data rows
-  and at the inducing inputs are appended for layer ``pi + 1`` (the rule
-  of the JAX package's ``_augment_cols``).
+  oracle: one L-BFGS per layer through ``GPAR.logpdf`` at the data's
+  exact rows; once layer ``pi`` is fitted its posterior is computed once
+  and its means at the data rows and at the inducing inputs are appended
+  for layer ``pi + 1`` (the rule of the JAX package's ``_augment_cols``),
+  under the reference's progress line.  ``fused="unroll"`` is the JAX
+  package's unrolled body (``_build_fused_fit_body`` /
+  ``_build_free_fused_fit_body``), which in eager PyTorch is the same
+  computation without the progress line: the latents of ``{pi}/*`` (or
+  ``{0..pi}/*``) are the span of the flat latent vector that body
+  gathers, and both run ``params.lbfgs.lbfgs_minimize`` on it.
+- ``config.scan_predict = False`` forces the unrolled serving oracle of
+  the JAX package: ``predict`` / ``sample`` condition the GPAR on the data
+  (``GPAR | (x, y)``) and run ``GPAR.sample_batch`` at the exact test rows,
+  ``logpdf`` takes the GP core and ``precompute()`` caches nothing.  The
+  scan routes below are the default.
 - ``predict`` with ``replace=True`` is the scan predict tail
   (``fused.make_scan_predict_tail``): the test rows are bucketed and
   masked, every layer is conditioned once, and all Monte-Carlo samples of
@@ -86,8 +97,9 @@ Design, in PyTorch terms:
 
 Both the sparse model (``x_ind`` given) and the dense one (``x_ind=None``,
 the exact marginal likelihood over the data rows) run through every entry
-point above.  Not ported yet: ``fused="unroll"`` and the mesh (the greedy
-scorer's candidate axis sharded over devices included).
+point above.  Not ported: the mesh (``mesh=``, the greedy scorer's
+candidate axis sharded over devices included), ``trace=`` and
+``profile_dir=``.
 """
 
 import time
@@ -102,6 +114,7 @@ from ..ops.linalg import floor_noise, resolve_epsilon, titsias_factors
 from ..params.lbfgs import lbfgs_minimize, lbfgs_minimize_batched, new_stats
 from ..params.optim import minimise_l_bfgs_b, restart_normals
 from ..params.store import Vars, load_latents
+from ..utils.experiment import Counter
 from ..utils.rng import default_generator
 from .gpar import GPAR, per_output
 
@@ -348,9 +361,10 @@ class GPARRegressor:
         self.vs = Vars(dtype=self.dtype, device=self.device)
         self.is_conditioned = False
         #: The most recent fit: per-layer initial and final NLL, L-BFGS
-        #: iterations, wall-clock; on the scan path also the CUDA graph
-        #: replays, host reads, backtracking trials and the Cholesky
-        #: factorisations that escalated past the first jitter rung.
+        #: iterations, wall-clock, the optimiser's host reads and
+        #: backtracking trials; on the scan path also the CUDA graph replays
+        #: and the Cholesky factorisations that escalated past the first
+        #: jitter rung.
         self.last_fit_report = None
         self.compat = compat
         self.normalise_y = normalise_y
@@ -517,10 +531,14 @@ class GPARRegressor:
         ``fused=True`` (default): the scan-fused fit (``models/fused.py``);
         with ``fix=True`` its layer step is captured as CUDA graphs on a
         CUDA device unless ``cuda_graphs=False``, with ``fix=False`` it runs
-        eagerly.  ``fused=False``: the per-layer driver.  ``"batched"``
-        (``fix=True`` only): every layer's L-BFGS as one batch, for a dense,
-        fully observed, ``replace=False`` model without ``scale_tie``
-        (``fused.make_batched_fit_body``); ``"unroll"`` is not ported.
+        eagerly.  ``fused=False``: the per-layer driver, which prints the
+        reference's ``Training conditionals`` progress line.  ``"unroll"``:
+        the JAX package's unrolled fit, the same layer loop without the
+        progress line (``last_fit_report["fused"] == "unroll"``); both run
+        eagerly at the data's exact rows.  ``"batched"`` (``fix=True``
+        only): every layer's L-BFGS as one batch, for a dense, fully
+        observed, ``replace=False`` model without ``scale_tie``
+        (``fused.make_batched_fit_body``).
 
         ``restarts > 1``: each position's L-BFGS also starts from
         ``restarts - 1`` perturbations of the latents, ``restart_scale``
@@ -531,8 +549,8 @@ class GPARRegressor:
         s_max), the layer's padded latent span, for the scan and
         ``"batched"``; (restarts - 1, n_z), the prefix span, for the joint
         fit; (restarts - 1, d_pi), the optimised latents, for the per-layer
-        driver.  Otherwise they come from ``generator`` (default: the
-        device's generator of ``utils.rng``).
+        driver and ``"unroll"``.  Otherwise they come from ``generator``
+        (default: the device's generator of ``utils.rng``).
 
         ``iters`` is the most L-BFGS iterations per optimisation; None
         means 1000 for the fit and 100 for the greedy search, the JAX
@@ -549,8 +567,8 @@ class GPARRegressor:
         if fused == "batched" and not fix:
             raise ValueError("fused='batched' requires independent layer fits; fit(fix=False) "
                              "optimises layers jointly: use fused=True or fused=False.")
-        if fused not in (True, False, "batched"):
-            raise NotImplementedError(f"gpar_torch: fit(fused={fused!r}) is not ported yet")
+        if fused not in (True, False, "batched", "unroll"):
+            raise ValueError(f"fused must be True, False, 'batched' or 'unroll'; got {fused!r}")
         if int(restarts) != restarts or restarts < 1:
             raise ValueError(f"restarts must be a positive integer, got {restarts!r}")
         restarts = int(restarts)
@@ -567,12 +585,16 @@ class GPARRegressor:
         t0 = time.perf_counter()
         starts = dict(restarts=restarts, restart_scale=restart_scale, generator=generator,
                       normals=restart_normals)
-        if fused:
+        if fused in (True, "batched"):
             report = self._fit_scan(iters, gtol, memory_size, cuda_graphs, fix, fused, **starts)
         else:
-            nll0, nll, its = self._fit_per_layer_loop(iters, gtol, memory_size, fix, **starts)
+            stats = new_stats()
+            nll0, nll, its = self._fit_per_layer_loop(iters, gtol, memory_size, fix,
+                                                      progress=fused is False, stats=stats,
+                                                      **starts)
             report = {"layer_nll0": np.asarray(nll0), "layer_nll": np.asarray(nll),
-                      "layer_iters": np.asarray(its), "fused": False, "graph_replays": 0}
+                      "layer_iters": np.asarray(its), "fused": fused, "graph_replays": 0,
+                      **stats}
         report["restarts"] = restarts
         report["wall_clock_s"] = time.perf_counter() - t0
         if greedy:
@@ -776,58 +798,70 @@ class GPARRegressor:
         self.vs.set_latent_vector(names, z)
         return {"layer_nll0": nll0, "layer_nll": nll, "layer_iters": its, "fused": True, **stats}
 
-    def _fit_per_layer_loop(self, iters, gtol, memory_size, fix=True, restarts=1,
-                            restart_scale=1.0, generator=None, normals=None):
+    def _fit_per_layer_loop(self, iters, gtol, memory_size, fix=True, progress=True, stats=None,
+                            restarts=1, restart_scale=1.0, generator=None, normals=None):
+        """One L-BFGS per position through ``GPAR.logpdf``: the per-layer
+        driver (``gpar_tpu/models/regressor.py:1146-1272``), and with
+        ``progress`` off the unrolled fit (``_build_fused_fit_body`` and
+        ``_build_free_fused_fit_body``, 1523-1679).  With ``progress`` the
+        reference's ``Counter(name="Training conditionals", total=p)``
+        counts the positions (``gpar/regression.py:417``).  ``stats``
+        (``new_stats()``) receives the optimiser's host reads and
+        backtracking counts.  Returns the initial and final NLLs and the
+        iterations per position."""
         if normals is not None and len(normals) != self.p:
             raise ValueError(f"restart_normals has {len(normals)} layers; expected {self.p}")
         y_cached = self._y_cache
         x_pi, x_ind_pi = self.x, self.x_ind
         nll0, nll, its = [], [], []
-        for pi in range(self.p):
+        with Counter(name="Training conditionals", total=self.p, verbose=progress) as counter:
+            for pi in range(self.p):
+                counter.count()
 
-            def objective(vs, pi=pi, x_pi=x_pi, x_ind_pi=x_ind_pi):
-                gpar = _construct_gpar(self, vs, self.m, pi + 1)
-                if not fix:
-                    # The whole chain of layers 0..pi from the raw inputs.
-                    return -gpar.logpdf(self.x, y_cached, None)
-                return -gpar.logpdf(
-                    x_pi,
-                    y_cached,
-                    None,
-                    only_last_layer=True,
-                    outputs=[pi],
-                    x_ind=x_ind_pi,
-                )
-
-            f0, f, it = minimise_l_bfgs_b(
-                objective,
-                self.vs,
-                names=[f"{pi}/*"] if fix else [f"{i}/*" for i in range(pi + 1)],
-                iters=iters,
-                gtol=gtol,
-                memory_size=memory_size,
-                restarts=restarts,
-                restart_scale=restart_scale,
-                generator=generator,
-                normals=None if normals is None else normals[pi],
-            )
-            nll0.append(f0)
-            nll.append(f)
-            its.append(it)
-            if fix and pi < self.p - 1:
-                # Layer pi is fixed from here on: append its posterior means
-                # (data rows and inducing inputs) for layer pi + 1.
-                with torch.no_grad():
-                    gpar = _construct_gpar(self, self.vs, self.m, pi + 2)
-                    x_pi, x_ind_pi = gpar.logpdf(
+                def objective(vs, pi=pi, x_pi=x_pi, x_ind_pi=x_ind_pi):
+                    gpar = _construct_gpar(self, vs, self.m, pi + 1)
+                    if not fix:
+                        # The whole chain of layers 0..pi from the raw inputs.
+                        return -gpar.logpdf(self.x, y_cached, None)
+                    return -gpar.logpdf(
                         x_pi,
                         y_cached,
                         None,
                         only_last_layer=True,
                         outputs=[pi],
                         x_ind=x_ind_pi,
-                        return_inputs=True,
                     )
+
+                f0, f, it = minimise_l_bfgs_b(
+                    objective,
+                    self.vs,
+                    names=[f"{pi}/*"] if fix else [f"{i}/*" for i in range(pi + 1)],
+                    iters=iters,
+                    gtol=gtol,
+                    memory_size=memory_size,
+                    restarts=restarts,
+                    restart_scale=restart_scale,
+                    generator=generator,
+                    normals=None if normals is None else normals[pi],
+                    stats=stats,
+                )
+                nll0.append(f0)
+                nll.append(f)
+                its.append(it)
+                if fix and pi < self.p - 1:
+                    # Layer pi is fixed from here on: append its posterior means
+                    # (data rows and inducing inputs) for layer pi + 1.
+                    with torch.no_grad():
+                        gpar = _construct_gpar(self, self.vs, self.m, pi + 2)
+                        x_pi, x_ind_pi = gpar.logpdf(
+                            x_pi,
+                            y_cached,
+                            None,
+                            only_last_layer=True,
+                            outputs=[pi],
+                            x_ind=x_ind_pi,
+                            return_inputs=True,
+                        )
         return nll0, nll, its
 
     def _normals(self, normals, shape, generator, what):
@@ -845,12 +879,15 @@ class GPARRegressor:
     def _sample_batch(self, x, w, num_samples, latent, normals, noise_normals, generator,
                       p_prior=None):
         """Model-space draws (num_samples, n, p) at the inputs ``x``: from the
-        posterior, or with ``p_prior`` outputs from the prior.  The test rows
-        are padded to their bucket and masked out of every covariance; the
-        padded draws are sliced off.  ``normals`` (p, num_samples, n) are the
-        draws' standard normals and ``noise_normals`` (same shape) those of
-        the noise that a latent draw feeds forward (``replace=False``); each
-        defaults to draws from ``generator``."""
+        posterior, or with ``p_prior`` outputs from the prior.  On the scan
+        routes the test rows are padded to their bucket and masked out of
+        every covariance, and the padded draws are sliced off; with
+        ``config.scan_predict`` off the unrolled chain
+        (:meth:`_sample_unrolled`) draws at the exact rows.  ``normals`` (p,
+        num_samples, n) are the draws' standard normals and
+        ``noise_normals`` (same shape) those of the noise that a latent
+        draw feeds forward (``replace=False``); each defaults to draws from
+        ``generator``."""
         from .fused import (
             build_scan_prior_plan, factor_slices, make_scan_ancestral_tail, make_scan_cached_tail,
             make_scan_predict_tail, make_scan_prior_tail, posterior_factor_layers,
@@ -871,6 +908,8 @@ class GPARRegressor:
             noise_normals = self._normals(noise_normals, shape, generator, "noise_normals")
         else:
             noise_normals = None  # the noise of a draw that feeds forward: none here
+        if not config.scan_predict:
+            return self._sample_unrolled(x_np, w_np, p, posterior, latent, normals, noise_normals)
         pad = bucket_rows(nt) - nt
         x_t = self._upload(np.pad(x_np, ((0, pad), (0, 0))))
         w_t = self._upload(np.pad(w_np, ((0, pad), (0, 0)), constant_values=1.0).T)
@@ -908,6 +947,20 @@ class GPARRegressor:
             factors = posterior_factor_layers(plan, self.x_ind, rows_traced=True)(z, x_pad, rows)
         tail = make_scan_ancestral_tail(plan, latent, chunk, rows_traced=True)
         return tail(z, factors, x_t, w_t, normals, noise_normals, rows, mt)[:, :nt]
+
+    def _sample_unrolled(self, x_np, w_np, p, posterior, latent, normals, noise_normals):
+        """The unrolled serving oracle (``config.scan_predict = False``;
+        ``gpar_tpu/models/regressor.py:1973-2010, 2426-2440``): the GPAR of
+        ``p`` layers, conditioned on the data for a posterior draw
+        (``GPAR | (x, y)``, every layer's posterior built once), then one
+        ancestral chain per sample at the exact test rows
+        (:meth:`GPAR.sample_batch`).  A prior draw runs the zero-mean
+        chain."""
+        gpar = _construct_gpar(self, self.vs, x_np.shape[1], p)
+        if posterior:
+            gpar = gpar | (self.x, self._y_cache, None)
+        return gpar.sample_batch(self._upload(x_np), self._upload(w_np), normals, latent,
+                                 noise_normals)
 
     def predict(
         self,
@@ -1005,8 +1058,9 @@ class GPARRegressor:
         The prior scores through the scan-fused chain
         (``fused.make_scan_logpdf_body``) on rows padded to their bucket,
         and the posterior through ``fused.make_scan_posterior_logpdf_tail``
-        when the scored width equals the conditioned one.  Otherwise, and
-        with ``sample_missing``, the GP core scores: the conditioned GPAR
+        when the scored width equals the conditioned one.  Otherwise, with
+        ``sample_missing`` and with ``config.scan_predict`` off, the GP core
+        scores: the conditioned GPAR
         ``GPAR | (x, y, w)`` and ``GPAR.logpdf``.  ``sample_missing`` fills
         the missing outputs that feed later layers with one posterior draw
         per layer; ``normals`` gives those draws' standard normals, one
@@ -1020,7 +1074,7 @@ class GPARRegressor:
         tensors = isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor)
         x_np, y_np, w_np = self._score_data(x, y, w, posterior)
         value = None
-        if not sample_missing and x_np.shape[0] > 0:
+        if not sample_missing and x_np.shape[0] > 0 and config.scan_predict:
             value = self._logpdf_scan(x_np, y_np, w_np, posterior)
         if value is None:
             value = self._logpdf_core(x_np, y_np, w_np, posterior, sample_missing, normals,
@@ -1150,14 +1204,16 @@ class GPARRegressor:
         reference conditions anew in every call, ``gpar/regression.py:
         547``).  Both ``replace`` modes consume the factors.  Returns True
         when the factors are cached (computed now or before), False where
-        the cache does not engage: ``config.posterior_cache`` off, or a
-        dense stack over ``config.posterior_cache_max_bytes`` at the row
-        bucket."""
+        the cache does not engage: ``config.scan_predict`` or
+        ``config.posterior_cache`` off, or a dense stack over
+        ``config.posterior_cache_max_bytes`` at the row bucket."""
         if not self.is_conditioned:
             raise RuntimeError(
                 "Cannot precompute posterior factors: no data has been "
                 "conditioned on yet (call fit() or condition() first)."
             )
+        if not config.scan_predict:
+            return False
         self._ensure_vars(self.p)
         names = self.vs.select(None)
         plan = self._scan_fit_plan(names)

@@ -42,7 +42,7 @@ def restart_normals(normals, shape, dtype, device, generator=None):
 
 def minimise_l_bfgs_b(
     objective, vs, names=None, iters=1000, gtol=1e-9, memory_size=10, restarts=1,
-    restart_scale=1.0, generator=None, normals=None,
+    restart_scale=1.0, generator=None, normals=None, stats=None,
 ):
     """Minimise ``objective(vs)`` over the latents of the name-matched
     variables; ``vs`` is updated in place with the optimum.
@@ -51,6 +51,9 @@ def minimise_l_bfgs_b(
     perturbed by ``restart_scale`` times standard normals in the latent
     space (``normals`` (restarts - 1, d), else drawn from ``generator``),
     run one after the other; the best finite optimum is kept.
+
+    ``stats`` (``lbfgs.new_stats()``) receives every start's host reads
+    and backtracking counts.
 
     Returns ``(f0, f, iterations)``: the objective at the (unperturbed)
     initial and the final latents (floats) and the number of L-BFGS
@@ -74,7 +77,8 @@ def minimise_l_bfgs_b(
         noise = restart_normals(normals, (restarts - 1, z0.shape[0]), z0.dtype, z0.device,
                                 generator)
         starts += list(z0[None] + restart_scale * noise)
-    runs = [lbfgs_minimize(fun, s, iters=iters, gtol=gtol, memory=memory_size) for s in starts]
+    runs = [lbfgs_minimize(fun, s, iters=iters, gtol=gtol, memory=memory_size, stats=stats)
+            for s in starts]
     best = int(best_of(torch.stack([f for _, f, _, _ in runs]))) if restarts > 1 else 0
     z, f, it, _ = runs[best]
     vs.set_latent_vector(sel, z)

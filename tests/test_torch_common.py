@@ -100,15 +100,17 @@ def jax_restart_normals(key, route, p, restarts, width, dtype=jnp.float64):
       split, ``width`` the prefix span ``n_z``;
     - ``"layer"`` (``fused=False``): layer ``pi`` takes ``fold_in(key, pi)``
       (``regressor.py:1262-1269``), ``width`` a list of the optimised
-      latents' counts per layer."""
-    if route in ("scan", "batched", "joint"):
+      latents' counts per layer;
+    - ``"unroll"`` (``fused="unroll"``): layer ``pi`` takes
+      ``split(key, p)[pi]`` (``regressor.py:1455-1460``), ``width`` a list
+      of the optimised latents' counts per position."""
+    if route in ("scan", "batched", "joint", "unroll"):
         keys = list(jax.random.split(key, p))
-        widths = [width] * p
     elif route == "layer":
         keys = [jax.random.fold_in(key, pi) for pi in range(p)]
-        widths = list(width)
     else:
         raise ValueError(route)
+    widths = list(width) if route in ("layer", "unroll") else [width] * p
     return [np.asarray(jax.random.normal(k, (restarts - 1, w), dtype=dtype))
             for k, w in zip(keys, widths)]
 

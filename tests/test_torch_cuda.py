@@ -274,6 +274,29 @@ def test_cuda_graphed_fit_equals_eager_fit():
         np.testing.assert_array_equal(graphed[1][k], v)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("fix", [True, False])
+def test_cuda_unroll_fit_launches_both_kernels(dense, fix):
+    # fit(fused="unroll") evaluates GPAR.logpdf eagerly through the GP core:
+    # every Gram through the forward kernel, every Gram under autograd back
+    # through the backward kernel, no plain-route Gram, no gram_eval.
+    _need_cuda()
+    x, y, _ = chain_data(n=100, p=3, seed=0)
+    y[::7, 2] = np.nan
+    kw = dict(bench_kwargs(n_ind=8), **({"x_ind": None} if dense else {}))
+    reg = GPARRegressor(**kw, device="cuda", dtype=torch.float64)
+    GK.reset_counters()
+    reg.fit(x, y, iters=3, fix=fix, fused="unroll")
+    torch.cuda.synchronize()
+    c = GK.counters()
+    assert reg.last_fit_report["fused"] == "unroll"
+    assert np.all(np.isfinite(reg.last_fit_report["layer_nll"]))
+    assert c["gram_kernel_launches"] > 0 and c["gram_plain_cuda_calls"] == 0
+    assert c["gram_eval_cuda_calls"] == 0
+    assert c["gram_bwd_kernel_launches"] == c["gram_autograd_calls"] > 0
+
+
 def _greedy_chain(n=48, seed=5):
     """A chain whose greedy order is [2, 0, 1], with missing outputs."""
     rng = np.random.default_rng(seed)

@@ -350,12 +350,19 @@ def test_escalating_ladder_in_the_scan_fit_equals_the_driver(fits, monkeypatch):
 
 
 def test_unported_fit_options_raise(fits):
-    # fused="unroll" is not ported; fused="batched" and restarts are
-    # (tests/test_torch_batched_fit.py, tests/test_torch_restarts.py), and
+    # fused="unroll", "batched" and restarts are ported
+    # (tests/test_torch_unroll.py, tests/test_torch_batched_fit.py,
+    # tests/test_torch_restarts.py): the unrolled fit is the per-layer
+    # driver's computation, reported as "unroll"; an unknown route raises;
     # "batched" refuses this sparse model with JAX's message.
-    rt = TReg(**fits["kw"], device="cpu")
-    with pytest.raises(NotImplementedError):
-        rt.fit(fits["x"], fits["y"], iters=1, fused="unroll")
+    rt, driver = TReg(**fits["kw"], device="cpu"), TReg(**fits["kw"], device="cpu")
+    rt.fit(fits["x"], fits["y"], iters=1, fused="unroll")
+    driver.fit(fits["x"], fits["y"], iters=1, fused=False)
+    assert rt.last_fit_report["fused"] == "unroll"
+    np.testing.assert_array_equal(rt.last_fit_report["layer_nll"],
+                                  driver.last_fit_report["layer_nll"])
+    with pytest.raises(ValueError, match="fused"):
+        rt.fit(fits["x"], fits["y"], iters=1, fused="scan")
     with pytest.raises(ValueError, match="dense"):
         rt.fit(fits["x"], fits["y"], iters=1, fused="batched")
     # The dense path (x_ind=None) is ported: it fits, as JAX's does.

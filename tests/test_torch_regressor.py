@@ -124,12 +124,15 @@ def test_condition_normalisation_matches_jax():
 
 
 def test_unported_options_raise(runs):
-    # Restarts and greedy ordering are ported (tests/test_torch_restarts.py,
-    # tests/test_torch_greedy.py); under compat=True, the default, greedy
-    # raises as the reference does.  fused="unroll" is not ported.
+    # Restarts, greedy ordering and fused="unroll" are ported
+    # (tests/test_torch_restarts.py, tests/test_torch_greedy.py,
+    # tests/test_torch_unroll.py); under compat=True, the default, greedy
+    # raises as the reference does.  The unrolled fit is the computation of
+    # the JAX package's per-layer loop (the fixture's), reported as "unroll".
     rt = TReg(**runs["kw"], device="cpu")
-    with pytest.raises(NotImplementedError):
-        rt.fit(runs["x"], runs["y"], fused="unroll")
+    rt.fit(runs["x"], runs["y"], iters=ITERS, fused="unroll")
+    assert rt.last_fit_report["fused"] == "unroll"
+    close(rt.last_fit_report["layer_nll"], runs["rj"].last_fit_report["layer_nll"], rtol=1e-6)
     with pytest.raises(NotImplementedError):
         rt.fit(runs["x"], runs["y"], greedy=True)
     with pytest.raises(ValueError, match="restarts"):
