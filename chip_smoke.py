@@ -20,8 +20,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    backward's lane maps (rbf 2, rq 15, lin 17, rq 33, rbf 64 features) at
    (37, 23), (300, 133) and (256, 11840); and the dense path's (no inducing
    points) shapes of the gated kernel, K (11840, 11840) and the test
-   cross-covariance (11840, 1216), held against the plain versions run in
-   1024-row blocks in float64 (the plain Gram builds an (n, m, d)
+   cross-covariance (11840, 1216), and the ``[mesh]`` phase's per-shard
+   shapes, Kmn (256, 2960) and the dense rows (768, 3072), all held
+   against the plain versions (the dense ones run in
+   1024-row blocks in float64: the plain Gram builds an (n, m, d)
    difference tensor).  Forward: rtol/atol 1e-5 in float32, 1e-12 in
    float64.  Backward: max |err| / max |plain| at most 1e-4 in float32 (its
    10 000-long sums run in another order) and 1e-10 in float64; two
@@ -79,7 +81,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    then one evaluation of the dense layer objective under
    ``torch.profiler``, with the scan step's on-device Cholesky ladder and
    with the per-layer driver's host ladder: the factorisations (cuSOLVER
-   ``potrf``) each runs and their device time.
+   ``potrf``) each runs and their device time.  The dense eager step and
+   per-layer driver run at n = 4000 (bucket 4800), held to a graphed run
+   at that size (the same bits; the driver's sum of layer NLLs within
+   1e-3), not to the ``10k`` gates.
 5. Per-sample ancestral sampling at full width (``[ancestral]`` lines): the
    benchmark's request with ``replace=False`` (sparse, cold and warm, held
    to the ``10k`` gates; then ``latent=True``), posterior ``sample`` of it
@@ -154,7 +159,14 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    at the ``--quick`` counts the script's ``check_metric`` gate (a
    ``SystemExit`` fails the run), at the full counts timed, the metric
    printed.
-15. Small-input agreement: a float64 fit_predict (p=3, n=100, sparse with
+15. The device mesh (``[mesh]`` lines, :func:`phase_mesh`) on a virtual
+   mesh of the card four times over: the bench's sparse request under
+   ``mesh=`` (graphed, cold and warm: the ``10k`` gates, the same bits,
+   the sum of layer NLLs within 1e-3 relative of phase 3's, host reads and
+   launch checks; the split predictive and both scores against one
+   device), the dense model at n = 2000 through the distributed Cholesky,
+   and float64 at n = 2000, p = 4 against one device (1e-8).
+16. Small-input agreement: a float64 fit_predict (p=3, n=100, sparse with
    8 inducing points and dense, ``replace`` True and False) through the
    scan path on the card (graphed) against the same run on the CPU (eager;
    the CPU route is held against the JAX package by the test suite), rtol
@@ -165,9 +177,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    all on the card, from the same normals (rtol 1e-6); and the greedy
    search at n = 64, p = 4, sparse and dense, on the card against the CPU
    (the same order, NLLs to rtol 1e-6).
-16. Summary: ``[main]``, ``[dense]``, ``[ancestral]``, ``[logpdf]``,
+17. Summary: ``[main]``, ``[dense]``, ``[ancestral]``, ``[logpdf]``,
    ``[free]``, ``[restarts]``, ``[batched]``, ``[greedy]``, ``[configs]``,
-   ``[serve]``, ``[unroll]`` and ``[examples]`` JSON lines, a ``kernels``
+   ``[serve]``, ``[unroll]``, ``[examples]`` and ``[mesh]`` JSON lines, a ``kernels``
    JSON line (launches of the sparse and the dense graphed cold runs, the
    scan-route scores' cold runs and the sparse joint fit; the sample-axis
    route's from the ``[ancestral]`` sparse cold and dense requests and the
@@ -175,7 +187,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    backward from the ``[restarts]``, ``[batched]`` and ``[greedy]`` runs;
    the ``[serve]`` phase's first cached calls and its request after
    warmup; the ``[unroll]`` phase's cold fits and predicts; the
-   ``[examples]`` phase's ``--quick`` runs), the card line, and last
+   ``[examples]`` phase's ``--quick`` runs; the ``[mesh]`` phase's sparse
+   cold and dense mesh requests, ``launches_by_path["mesh"]``, with the
+   per-shard shapes' rows), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` additionally traces one warm (graphed) fit_predict of each
@@ -207,6 +221,10 @@ GATES = dict(mean_smse=5e-4, worst_smse=2e-3, nll_decrease=5e4)
 #: bucketed 10 000 -> 11 840), Kmt and the test covariance of the predict
 #: tail (test rows 1024 -> 1216).
 SCAN_SHAPES = [(256, 11_840), (256, 256), (256, 1216), (1216, 1216)]
+#: The per-shard Grams of the ``[mesh]`` phase's 4-shard virtual mesh: the
+#: sparse fit's Kmn of one shard (11 840 rows / 4) and the dense fit's rows
+#: of one shard at n = 2000 (bucket 2432, padded to 4 x 768 = 3072 rows).
+MESH_SHAPES = [(256, 2960), (768, 3072)]
 #: The dense path's (no inducing points) Grams beyond those: K of the fit
 #: and the tail, and the tail's test cross-covariance (the test covariance is
 #: SCAN_SHAPES[3]).  Their plain versions are run in row blocks.
@@ -488,7 +506,7 @@ def phase_kernel_check(device):
         cases.append(("gated", gated_tree(dtype, device), 17))
         cases.append(("wide", wide_tree(dtype, device), 120))
         cases.append(("edges", edge_tree(dtype, device), 64))
-        only = {"gated": SCAN_SHAPES + DENSE_SHAPES, "wide": [(37, 23), (256, 1024)],
+        only = {"gated": SCAN_SHAPES + DENSE_SHAPES + MESH_SHAPES, "wide": [(37, 23), (256, 1024)],
                 "edges": [(37, 23), (300, 133), SCAN_SHAPES[0]]}
         for name, tree, d in cases:
             for n, m in only.get(name, shapes + [(37, 23)]):
@@ -1096,6 +1114,8 @@ def phase_main_path(device, dense=False):
     from gpar_torch import GPARRegressor
     from gpar_torch.ops import gram_kernel as GK
 
+    from gpar_torch.config import bucket_rows
+
     P = "[dense]" if dense else "[main]"
     gpar_torch.config.epsilon = 1e-6  # float32 jitter floor, as bench.py
     n, p, n_test, num_samples, iters = 10_000, 16, 1024, 100, 10
@@ -1182,6 +1202,31 @@ def phase_main_path(device, dense=False):
     if not identical:
         raise AssertionError("cold and warm runs differ: the main path is not deterministic")
 
+    fixed = dict(cold=cold, warm=warm, state=(reg, x, y, x_test, z_init))
+    if dense:
+        # The eager step and the per-layer driver at n = 4000 (bucket 4800),
+        # not 11 840 rows, to keep the script inside its time limit
+        # (PERF.md §4).  The 10k gates are for 10 000 rows (at 4000 the
+        # graphed fit's mean SMSE is 5.5e-4, PERF.md §6, PR 13), so the
+        # eager step is held to a graphed run's bits at that size and the
+        # driver to its sum of layer NLLs within 1e-3 relative.
+        x, y, f = make_data(4000, p)
+        test_idx = np.arange(4000)[:: 4000 // n_test][:n_test]
+        x_test, f_test = x[test_idx], f[test_idx]
+        reg = GPARRegressor(**kw, device=device)
+        reg.condition(x, y)
+        reg._ensure_vars(reg.p)
+        z_init = reg.vs.snapshot()
+        warm = run()
+        print(timing("graphed at n = 4000", warm[1], warm[2]))
+
+        def quality(tag, out, rep):
+            q = check_quality(P, tag, out, rep, f_test, gates=False)
+            if q["nll_decrease"] <= 0:
+                raise AssertionError(f"{tag} at n = 4000: the fit did not lower the NLL: {q}")
+            return q
+
+        res["graphed n=4000"] = quality("graphed at n = 4000", warm[0], warm[2])
     eager = run(cuda_graphs=False)
     res["eager"] = quality("eager step", eager[0], eager[2])
     d_nll = float(np.max(np.abs(eager[2]["layer_nll"] - warm[2]["layer_nll"])))
@@ -1200,8 +1245,12 @@ def phase_main_path(device, dense=False):
     driver = run(fused=False)
     res["driver"] = quality("per-layer driver", driver[0], driver[2])
     dc = driver[3]
+    scan_q = res["graphed n=4000" if dense else "graphed warm"]
+    if dense and abs(res["driver"]["nll"] - scan_q["nll"]) > 1e-3 * abs(scan_q["nll"]):
+        raise AssertionError(f"the per-layer driver's sum of layer NLLs {res['driver']['nll']} is not within "
+                             f"1e-3 of the graphed scan's {scan_q['nll']} at n = 4000")
     print(timing("per-layer driver (fused=False)", driver[1], driver[2]) + f"; sum of layer NLLs "
-          f"{res['driver']['nll']:.1f} against the scan path's {res['graphed warm']['nll']:.1f}; gram "
+          f"{res['driver']['nll']:.1f} against the scan path's {scan_q['nll']:.1f}; gram "
           f"kernel launches {dc['gram_kernel_launches']}, backward kernel launches "
           f"{dc['gram_bwd_kernel_launches']} for {dc['gram_autograd_calls']} Grams under autograd, "
           f"plain-route CUDA Grams {dc['gram_plain_cuda_calls']}, gram_eval on CUDA "
@@ -1210,6 +1259,7 @@ def phase_main_path(device, dense=False):
         raise AssertionError("fused=False did not run the per-layer driver")
     check_counts("per-layer driver", dc)
 
+    cold, warm = fixed["cold"], fixed["warm"]
     rep, counts = cold[2], cold[3]
     return dict(
         launches=counts["gram_kernel_launches"], bwd_launches=counts["gram_bwd_kernel_launches"],
@@ -1220,12 +1270,13 @@ def phase_main_path(device, dense=False):
         ladder_escalations=warm[2]["ladder_escalations"], linesearch_trials=warm[2]["linesearch_trials"],
         linesearch_episodes=warm[2]["linesearch_episodes"],
         layer_iters=int(np.sum(warm[2]["layer_iters"])), eager_s=eager[1], driver_s=driver[1],
+        eager_rows=bucket_rows(len(x)),  # the bucket of the eager step's and the driver's rows
         driver_fit_s=driver[2]["wall_clock_s"], peak_gib_cold=cold[2]["peak_bytes"] / 2**30,
         peak_gib_warm=warm[2]["peak_bytes"] / 2**30, peak_gib_eager=eager[2]["peak_bytes"] / 2**30,
         peak_gib_driver=driver[2]["peak_bytes"] / 2**30, pinned_gib=pinned / 2**30,
         **{f"{k}_{q}": v for k, qs in (("scan", res["graphed warm"]), ("driver", res["driver"]))
            for q, v in qs.items()},
-    ), (reg, x, y, x_test, z_init)
+    ), fixed["state"]
 
 
 def phase_dense_evaluation(reg, device):
@@ -1722,7 +1773,8 @@ def phase_batched_fit(device, dense_res):
     ``replace=False`` on fully observed data, p = 16, every layer's L-BFGS as
     one batch of 16, against the scan fit (``fused=True``, graphed) on the
     same data, at the largest bucket whose peak, reckoned from phase 4's
-    measured eager-step peak at 11 840 rows times 16 (n_b / 11 840)^2,
+    measured eager-step peak at its bucket b_e (4800 rows) times
+    16 (n_b / b_e)^2,
     stays under 24 GiB: at ``iters=0`` the layer NLLs at the initial
     latents agree to 1e-5 of their largest (the same objective in
     float32); after 10 iterations the gap is printed, not held: float32
@@ -1740,7 +1792,7 @@ def phase_batched_fit(device, dense_res):
     P = "[batched]"
     gpar_torch.config.epsilon = 1e-6
     p, iters = 16, 10
-    per_n2 = dense_res["peak_gib_eager"] / 11_840**2
+    per_n2 = dense_res["peak_gib_eager"] / dense_res["eager_rows"]**2
     n_b, reckoned = largest_bucket(lambda b: p * per_n2 * b * b)
     n = rows_for_bucket(n_b)
     x, y, _ = make_data(n, p, seed=4)
@@ -1794,6 +1846,205 @@ def phase_batched_fit(device, dense_res):
             raise AssertionError(f"fused='batched' without {what} did not raise")
     print(f"{P} fused='batched' raises JAX's ValueError for each of: {', '.join(broken)}")
     return res
+
+
+def phase_mesh(device, main_res):
+    """The device mesh (``[mesh]`` lines) on a virtual mesh of the card four
+    times over, ``make_mesh(4, devices=[cuda] * 4)``: every sharded route
+    runs its per-shard algebra at full width, each shard's Grams through the
+    forward kernel and their gradients through the backward kernel.
+
+    - The bench's sparse request (phase 3's model and data, float32) under
+      ``mesh=``: ``fit_predict`` cold and warm, graphed (one shard's Kmn is
+      256 x 2960), held to the ``10k`` gates, the same bits twice, the sum
+      of layer NLLs within 1e-3 relative of phase 3's single-device scan
+      fit, the launch checks and the host reads; then, at the fitted
+      latents, the predictive mean from the same normals with and without
+      the mesh (the samples split over the shards), and the prior and
+      posterior scores of ``make_data(2000, 16, seed=500)`` with and without
+      it (1e-4 relative where the float32 score is a rounding of the
+      float64 one; otherwise printed, ``UNHELD_GAP``).
+    - The dense model at n = 2000 (cut from 10 000: each evaluation's
+      backward forms all of ``L^-1``), fit, predict and scores through the
+      distributed blocked Cholesky and its backward, against the
+      single-device route (sum of layer NLLs within 1e-3 relative; the
+      float32 scores printed, ``UNHELD_GAP``); the share of one layer
+      evaluation's device time spent in the
+      distributed factorisation and its backward.
+    - float64 at n = 2000, p = 4, sparse and dense: fit (5 iterations),
+      predict and both scores under the mesh against the single-device
+      route on the card, 1e-8 relative."""
+    import torch
+
+    from gpar_torch import GPARRegressor
+    from gpar_torch.models import fused as TF
+    from gpar_torch.ops import gram_kernel as GK
+    from gpar_torch.parallel import make_mesh
+
+    P = "[mesh]"
+    mesh = make_mesh(4, devices=[torch.device(device)] * 4)
+    out = {}
+    n, p, n_test, num_samples, iters = 10_000, 16, 1024, 100, 10
+    x, y, f = make_data(n, p)
+    test_idx = np.arange(n)[:: n // n_test][:n_test]
+    x_test, f_test = x[test_idx], f[test_idx]
+    xs, ys, _ = make_data(2000, p, seed=500)
+
+    def request(reg, z0, x, y, x_test, **kw):
+        reg.vs.restore(z0)
+        gen = torch.Generator(device).manual_seed(0)
+        return launches_checked("mesh request", lambda: reg.fit_predict(
+            x, y, x_test, iters=iters, num_samples=num_samples, credible_bounds=True, generator=gen,
+            **kw), backward=True)
+
+    # The sparse bench request.
+    reg = GPARRegressor(**model_kwargs(x), device=device)
+    reg.condition(x, y)
+    reg._ensure_vars(p)
+    z_init = reg.vs.snapshot()
+    runs = {}
+    for tag in ("cold", "warm"):
+        res, wall, peak, c = request(reg, z_init, x, y, x_test, mesh=mesh)
+        rep = reg.last_fit_report
+        q = check_quality(P, f"sparse {tag}", res, rep, f_test)
+        bound = int(np.sum(rep["layer_iters"])) + rep["linesearch_trials"] + rep["linesearch_episodes"] + 1
+        rel = abs(q["nll"] - main_res["scan_nll"]) / abs(main_res["scan_nll"])
+        print(f"{P} sparse {tag}: fit_predict {wall:.3f} s (fit {rep['wall_clock_s']:.3f} s; phase 3's "
+              f"single-device warm {main_res['warm_s']:.3f} s, fit {main_res['warm_fit_s']:.3f} s); capture "
+              f"{rep['capture_s']:.3f} s; graph replays {rep['graph_replays']}; host reads "
+              f"{rep['host_syncs']} (bound {bound}); peak {peak:.2f} GiB; gram kernel launches "
+              f"{c['gram_kernel_launches']}, backward {c['gram_bwd_kernel_launches']} for "
+              f"{c['gram_autograd_calls']} Grams under autograd, gram_eval on CUDA "
+              f"{c['gram_eval_cuda_calls']}; sum of layer NLLs {q['nll']:.3f} against the single-device "
+              f"{main_res['scan_nll']:.3f} (relative {rel:.2e})")
+        if rep["graph_replays"] <= 0 or rep["host_syncs"] > bound:
+            raise AssertionError(f"sparse {tag}: replays {rep['graph_replays']}, host reads "
+                                 f"{rep['host_syncs']} (bound {bound})")
+        if rel > 1e-3:
+            raise AssertionError(f"sparse {tag}: sum of layer NLLs {rel:.2e} from the single-device fit")
+        runs[tag] = (res, rep, wall, c)
+    same = (np.array_equal(runs["cold"][1]["layer_nll"], runs["warm"][1]["layer_nll"])
+            and all(np.array_equal(a, b) for a, b in zip(runs["cold"][0], runs["warm"][0])))
+    print(f"{P} sparse cold and warm identical: {same}")
+    if not same:
+        raise AssertionError("the mesh request is not deterministic")
+    normals = torch.randn((p, num_samples, n_test), generator=torch.Generator(device).manual_seed(1),
+                          device=device)
+    m_mesh = reg.predict(x_test, num_samples=num_samples, normals=normals, mesh=mesh)
+    m_one = reg.predict(x_test, num_samples=num_samples, normals=normals)
+    d_mean = float(np.max(np.abs(m_mesh - m_one)))
+    print(f"{P} sparse predictive mean from the same normals, samples split over 4 shards against one "
+          f"device: max |d| {d_mean:.3e} (max |mean| {float(np.max(np.abs(m_one))):.3e})")
+    if d_mean > 1e-4 * max(1.0, float(np.max(np.abs(m_one)))):
+        raise AssertionError(f"the split predictive differs from the single-device tail by {d_mean:.3e}")
+    scores = {}
+    for post in (False, True):
+        (s_mesh, wall, _, c) = launches_checked("mesh score", lambda: reg.logpdf(
+            xs, ys, posterior=post, mesh=mesh), backward=False)
+        s_one = reg.logpdf(xs, ys, posterior=post)
+        rel = abs(s_mesh - s_one) / abs(s_one)
+        scores["posterior" if post else "prior"] = dict(mesh=s_mesh, single=s_one, s=wall,
+                                                        launches=c["gram_kernel_launches"])
+        why = UNHELD_GAP.get(("sparse", post, reg.compat))
+        print(f"{P} sparse {'posterior' if post else 'prior'} score of 2000 rows: {s_mesh:.3f} under the "
+              f"mesh ({wall:.3f} s, {c['gram_kernel_launches']} Gram launches), {s_one:.3f} on one device "
+              f"(relative {rel:.2e}; " + (f"printed, not held: {why})" if why else "held to 1e-4)"))
+        if not np.isfinite(s_mesh) or (why is None and rel > 1e-4):
+            raise AssertionError(f"sparse score under the mesh {rel:.2e} from one device's")
+    c_cold = runs["cold"][3]
+    out["sparse"] = dict(cold_s=runs["cold"][2], warm_s=runs["warm"][2],
+                         warm_fit_s=runs["warm"][1]["wall_clock_s"], nll=float(np.sum(runs["warm"][1]["layer_nll"])),
+                         host_syncs=runs["warm"][1]["host_syncs"], launches=c_cold["gram_kernel_launches"],
+                         bwd_launches=c_cold["gram_bwd_kernel_launches"], predict_max_d=d_mean, scores=scores)
+    del reg
+
+    # The dense model at n = 2000.
+    xd, yd, fd = make_data(2000, p, seed=3)
+    td = np.arange(2000)[:: 2000 // 256][:256]
+    kw = dict(model_kwargs(xd), x_ind=None)
+    dense = {}
+    for name, ctx in (("single", {}), ("mesh", {"mesh": mesh})):
+        dreg = GPARRegressor(**kw, device=device)
+        dreg.condition(xd, yd)
+        dreg._ensure_vars(p)
+        res, wall, peak, c = request(dreg, dreg.vs.snapshot(), xd, yd, xd[td], **ctx)
+        q = check_quality(P, f"dense n=2000 {name}", res, dreg.last_fit_report, fd[td], gates=False)
+        s = [dreg.logpdf(xs, ys, posterior=post, **ctx) for post in (False, True)]
+        dense[name] = dict(q=q, wall=wall, fit_s=dreg.last_fit_report["wall_clock_s"], peak=peak,
+                           launches=c["gram_kernel_launches"], bwd_launches=c["gram_bwd_kernel_launches"],
+                           scores=s, reg=dreg)
+        print(f"{P} dense n=2000 {name}: fit_predict {wall:.3f} s (fit {dense[name]['fit_s']:.3f} s); "
+              f"peak {peak:.2f} GiB; gram launches {c['gram_kernel_launches']}, backward "
+              f"{c['gram_bwd_kernel_launches']}; scores prior {s[0]:.3f}, posterior {s[1]:.3f}")
+    rel = abs(dense["mesh"]["q"]["nll"] - dense["single"]["q"]["nll"]) / abs(dense["single"]["q"]["nll"])
+    srel = max(abs(a - b) / abs(b) for a, b in zip(dense["mesh"]["scores"], dense["single"]["scores"]))
+    print(f"{P} dense n=2000: sum of layer NLLs {dense['mesh']['q']['nll']:.3f} under the mesh against "
+          f"{dense['single']['q']['nll']:.3f} (relative {rel:.2e}, held to 1e-3); scores relative "
+          f"{srel:.2e} (printed, not held: {UNHELD_GAP[('dense', False, True)]})")
+    if rel > 1e-3 or not np.all(np.isfinite(dense["mesh"]["scores"])):
+        raise AssertionError(f"dense under the mesh: NLL {rel:.2e} from one device, scores "
+                             f"{dense['mesh']['scores']}")
+
+    # One evaluation (value and gradient) of the dense layer objective at
+    # the mesh fit's latents, layer 0, and the distributed factorisation
+    # with its backward alone on that evaluation's covariance shards.
+    dreg = dense["mesh"]["reg"]
+    names = dreg.vs.select(None)
+    plan = dreg._scan_fit_plan(names)
+    x_pad, rows = dreg._bucket_fit_inputs(plan)
+    xs_all = TF.plan_tensors(plan, x_pad.dtype, x_pad.device, rows=rows)
+    x_parts, xs_parts, block = TF._mesh_split(plan, x_pad, xs_all, mesh)
+    x_aug = [TF._widen(a, plan.W) for a in x_parts]
+    lins = [{k: v[0] for k, v in part.items()} for part in xs_parts]
+    z_ext = torch.cat([dreg.vs.latent_vector(names), x_pad.new_zeros(1)])
+    zi = x_pad.new_zeros((0, plan.W))
+    seen = []
+    real = TF.chol_logpdf
+    TF.chol_logpdf = lambda A, r, m, b: (seen.append((A, r, m, b)), real(A, r, m, b))[1]
+    try:
+        def evaluation():
+            z = z_ext.detach().requires_grad_(True)
+            TF._mesh_layer_nll_factors(plan, lins, z, x_aug, zi, block)[0].backward()
+
+        evaluation()
+    finally:
+        TF.chol_logpdf = real
+    A, r, m, b = seen[0]
+    A = [a.detach().requires_grad_(True) for a in A]
+    eval_ms = device_ms(evaluation, 5)
+    chol_ms = device_ms(lambda: real(A, r, m, b)[0].backward(), 5)
+    print(f"{P} dense n=2000 one layer evaluation (value and gradient, rows 2432 padded to 4 x "
+          f"{x_parts[0].shape[0]}, panel {block}): {eval_ms:.3f} ms device; the distributed Cholesky, "
+          f"solves and backward alone {chol_ms:.3f} ms ({100 * chol_ms / eval_ms:.1f} %)")
+    out["dense"] = dict({k: dict(nll=v["q"]["nll"], s=v["wall"], fit_s=v["fit_s"], peak_gib=v["peak"],
+                                 launches=v["launches"], bwd_launches=v["bwd_launches"], scores=v["scores"])
+                         for k, v in dense.items()}, eval_ms=eval_ms, chol_ms=chol_ms)
+    del dense, dreg, seen, A
+
+    # float64 at n = 2000, p = 4: under the mesh against one device.
+    x4, y4, _ = make_data(2000, 4, seed=9)
+    x4, y4 = x4.astype(np.float64), y4.astype(np.float64)
+    y4[::13, 2] = np.nan
+    xt4 = np.linspace(0.2, 9.8, 200)
+    nrm = np.random.default_rng(2).standard_normal((4, 16, 200))
+    for model in ("sparse", "dense"):
+        kw = model_kwargs(x4) if model == "sparse" else dict(model_kwargs(x4), x_ind=None)
+        got = {}
+        for name, ctx in (("single", {}), ("mesh", {"mesh": mesh})):
+            r64 = GPARRegressor(**kw, device=device, dtype=torch.float64)
+            r64.fit(x4, y4, iters=5, **ctx)
+            got[name] = [r64.last_fit_report["layer_nll"],
+                         r64.predict(xt4, num_samples=16, normals=nrm, **ctx),
+                         np.asarray([r64.logpdf(xs[:, None].astype(np.float64), ys[:, :4].astype(np.float64),
+                                                posterior=post, **ctx) for post in (False, True)])]
+        worst = 0.0
+        for a, b in zip(got["mesh"], got["single"]):
+            np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-8 * float(np.max(np.abs(b))))
+            worst = max(worst, float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300))))
+        print(f"{P} float64 {model} n=2000 p=4: fit (5 iterations), predict and both scores under the mesh "
+              f"== one device on the card (rtol 1e-8; largest relative difference {worst:.2e})")
+        out[f"float64 {model}"] = worst
+    return out
 
 
 def phase_small_agreement():
@@ -2822,6 +3073,7 @@ def main(argv):
     serve_res = timed("serve", phase_serve, "cuda", main_res, state[0], anc_reg, dense_state[0])
     unroll_res = timed("unroll", phase_unroll, "cuda")
     examples_res = timed("examples", phase_examples, "cuda")
+    mesh_res = timed("mesh", phase_mesh, "cuda", main_res)
     timed("small", phase_small_agreement)
     timed("small greedy", phase_small_greedy)
     if "--profile" in argv:
@@ -2842,12 +3094,15 @@ def main(argv):
                         "configs": sum(r["launches"] for r in configs_res.values()),
                         "serve": serve_res["launches"], "warmup": serve_res["warmup"]["launches"],
                         "unroll": sum(r["launches"] for r in unroll_runs),
-                        "examples": sum(r["launches"] for r in examples_res.values())},
+                        "examples": sum(r["launches"] for r in examples_res.values()),
+                        "mesh": mesh_res["sparse"]["launches"] + mesh_res["dense"]["mesh"]["launches"]},
                "gram_bwd": {"free": free_res["sparse"]["bwd_launches"],
                             "configs": sum(r["bwd_launches"] for r in configs_res.values()),
                             "warmup": serve_res["warmup"]["bwd_launches"],
                             "unroll": sum(r["bwd_launches"] for r in unroll_runs),
-                            "examples": sum(r["bwd_launches"] for r in examples_res.values())}}
+                            "examples": sum(r["bwd_launches"] for r in examples_res.values()),
+                            "mesh": (mesh_res["sparse"]["bwd_launches"]
+                                     + mesh_res["dense"]["mesh"]["bwd_launches"])}}
     kernels = {"kernels": []}
     for name, (source, replaces, count, check) in sources.items():
         big = next(r for r in rows[name] if r["tree"] == "gated" and (r["n"], r["m"]) == SCAN_SHAPES[0])
@@ -2862,8 +3117,9 @@ def main(argv):
             # first cached predicts and scores (forward only) and its
             # request after warmup, the [unroll] phase's cold unrolled fits
             # and unrolled predicts (sparse at full width, dense at
-            # n = 2000) and the [examples] phase's --quick runs, each
-            # counted from 0.
+            # n = 2000), the [examples] phase's --quick runs and the [mesh]
+            # phase's sparse cold request and dense n = 2000 request on the
+            # 4-shard virtual mesh, each counted from 0.
             "launches": main_res[count] + dense_res[count] + sum(by_path[name].values()),
             "launches_by_path": {"sparse": main_res[count], "dense": dense_res[count], **by_path[name]},
             "check": check,
@@ -2877,6 +3133,8 @@ def main(argv):
             "shape": [big["n"], big["m"], big["d"]],
             "dtype": "float32",
             "per_shape": rows[name],
+            "mesh_shard_shapes": [r for r in rows[name]
+                                  if r["tree"] == "gated" and (r["n"], r["m"]) in MESH_SHAPES],
         })
     # The Gram with a sample axis: the same kernel, launched once for S Grams
     # by the per-sample tails; its launches from the [ancestral] phase's
@@ -2956,6 +3214,7 @@ def main(argv):
     print("[serve] " + json.dumps(serve_res))
     print("[unroll] " + json.dumps(unroll_res))
     print("[examples] " + json.dumps(examples_res))
+    print("[mesh] " + json.dumps(mesh_res))
     print("[phases] wall-clock s " + json.dumps(phase_s))
     print(json.dumps(kernels))
     print(card)

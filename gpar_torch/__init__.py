@@ -5,10 +5,12 @@ Hopper.
 A port of the JAX package ``gpar_tpu`` (the reference, kept beside it and
 unchanged), with the same layout and public names.  It imports neither JAX
 nor ``gpar_tpu``.  Entry points run on ``device="cuda"`` unless the caller
-passes ``device="cpu"``.
+passes ``device="cpu"``.  ``use_mesh`` (or ``mesh=`` on the entry points)
+shards the work over a device mesh of this process
+(``gpar_torch.parallel``).
 """
 
-from .config import config  # noqa: F401 — sets full-precision float32 matmuls
+from .config import config, use_mesh  # noqa: F401 — sets full-precision float32 matmuls
 from .models.gpar import GPAR  # noqa: F401
 from .models.regressor import (  # noqa: F401
     GPARRegressor,
@@ -26,4 +28,5 @@ __all__ = [
     "squishing_transform",
     "set_seed",
     "config",
+    "use_mesh",
 ]

@@ -14,9 +14,14 @@ row count falls in one bucket replays the same graphs.  The JAX
 package's ``shape_buckets`` switch and sample buckets are not carried
 over: the port's scan routes always bucket rows, and its predict tails
 run eagerly at the caller's sample count.  The XLA-only knobs (compile cache, Pallas
-toggle, blocked Cholesky) and the mesh settings (``mesh``, ``shard_axis``,
-``shard_min_rows``, ``dense_shard_block``: the port runs on one device)
-have no counterpart here either.
+toggle, blocked Cholesky) have no counterpart here either.
+
+The device mesh (``gpar_tpu/config.py:174-189,244-310``): ``mesh``,
+``shard_axis``, ``shard_min_rows`` and ``dense_shard_block``, set for a
+block of calls by :func:`use_mesh`, and :func:`mesh_descriptor`, the
+mesh's part of every cache key.  A mesh is a
+:class:`gpar_torch.parallel.Mesh`, a tuple of devices driven from this one
+process (``gpar_torch/parallel/``).
 
 Precision: every float32 Gram, solve and matmul runs in full IEEE float32.
 PyTorch's CUDA matmuls and cuDNN convolutions may otherwise use TF32
@@ -29,11 +34,13 @@ set ``GPAR_TORCH_NO_X64=1`` before import, or assign ``config.dtype``, for
 float32.
 """
 
+import contextlib
 import os
 
 import torch
 
-__all__ = ["config", "default_dtype", "resolve_device", "bucket_rows"]
+__all__ = ["config", "default_dtype", "resolve_device", "bucket_rows", "use_mesh",
+           "mesh_descriptor"]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -99,9 +106,94 @@ class _Config:
         #: until what the cached steps pin fits it; None is half of the
         #: card's memory.
         self.graph_cache_max_bytes = None
+        #: The device mesh of the sharded routes (a
+        #: :class:`gpar_torch.parallel.Mesh`), or None: set it through
+        #: :func:`use_mesh` or the entry points' ``mesh=``.  Under a mesh the
+        #: scan fits and scores shard their data rows over its devices (the
+        #: Titsias statistics summed across shards, the dense covariance
+        #: factored by the distributed blocked Cholesky), and sampling splits
+        #: its sample axis.
+        self.mesh = None
+        #: Name of the mesh axis rows and samples are split over.
+        self.shard_axis = "dp"
+        #: Fits and scores with fewer rows than this (or than the mesh has
+        #: devices) stay on one device.
+        self.shard_min_rows = 1024
+        #: Panel width of the distributed dense Cholesky
+        #: (``parallel/dense.py``), shrunk for small problems.
+        self.dense_shard_block = 256
 
 
 config = _Config()
+
+
+def _distributed_world_size():
+    """The ``torch.distributed`` world size, 1 when it is not initialised."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def check_single_process():
+    """Raise when this process is one rank of several: a mesh is driven
+    from one process, which must reach every device's shards (the JAX
+    package's ``process_count() > 1`` guard, ``gpar_tpu/config.py:266-271``)."""
+    if _distributed_world_size() > 1:
+        raise NotImplementedError(
+            "gpar_torch meshes are single-process: host-side placement of "
+            "plan/data arrays assumes all mesh devices are addressable from "
+            "this process."
+        )
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, min_rows=None, axis=None):
+    """Run the enclosed fits, scores and predictions sharded over ``mesh``
+    (``gpar_tpu/config.py:244-279``): the rows of the scan fits and scores
+    split over its devices, the sample axis of sampling too.  ``min_rows``
+    and ``axis`` set ``shard_min_rows`` and ``shard_axis`` for the block;
+    all three are restored on exit.  Raises ``NotImplementedError`` in one
+    rank of a multi-process ``torch.distributed`` group.
+
+    Example::
+
+        mesh = gpar_torch.parallel.make_mesh(4, devices=[torch.device("cuda")] * 4)
+        with gpar_torch.use_mesh(mesh):
+            reg.fit(x, y)
+            means = reg.predict(x_new)
+    """
+    check_single_process()
+    prev = (config.mesh, config.shard_min_rows, config.shard_axis)
+    config.mesh = mesh
+    if min_rows is not None:
+        config.shard_min_rows = min_rows
+    if axis is not None:
+        config.shard_axis = axis
+    try:
+        yield mesh
+    finally:
+        config.mesh, config.shard_min_rows, config.shard_axis = prev
+
+
+def mesh_context(mesh):
+    """``use_mesh(mesh)``, or no change for None: the entry points'
+    ``mesh=``, which an enclosing :func:`use_mesh` serves as well."""
+    return contextlib.nullcontext() if mesh is None else use_mesh(mesh)
+
+
+def mesh_descriptor():
+    """The active mesh's part of a cache key (``gpar_tpu/config.py:
+    282-310``): its axis, size and devices, ``shard_axis``,
+    ``shard_min_rows`` and the dense panel width; None without a mesh.  A
+    graphed step or a factor stack made under one mesh is never reused
+    under another, or without one."""
+    m = config.mesh
+    if m is None:
+        return None
+    return (tuple(m.axis_names), m.size, tuple(str(d) for d in m.devices), config.shard_axis,
+            config.shard_min_rows, config.dense_shard_block)
 
 
 def default_dtype():

@@ -13,7 +13,11 @@ surface the reference uses, ``gpar/model.py:5``):
   (``gpar/model.py:286-289``) and the posterior factors, from one pass;
 - ``f | obs``: the exact or the sparse posterior, with ``mean`` / ``cov``.
 
-The JAX package's row-sharded ``Obs`` (under a device mesh) is not ported.
+Under an active mesh (``gpar_torch.use_mesh``) with at least
+``max(shard_min_rows, mesh size)`` rows, ``Obs`` and ``PseudoObs`` of a
+zero-mean prior shard their rows over the mesh (``gpar_torch/parallel``),
+as in ``gpar_tpu/gp/core.py:335-405``: the same quantities, the dense
+factor from the distributed blocked Cholesky.
 """
 
 from dataclasses import dataclass
@@ -21,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from ..config import config
 from ..ops.kernels import Kernel, gram, kdiag
 from ..ops.linalg import (
     floor_noise,
@@ -219,6 +224,10 @@ class DenseObs:
     y: torch.Tensor  # (n,)
     L: torch.Tensor  # chol of cov + D
     residual: torch.Tensor  # y - mean
+    #: Set by the row-sharded path, which computes the log-density and
+    #: ``(K + D)^-1 r`` in the factorisation's pass.
+    logpdf_val: Optional[torch.Tensor] = None
+    alpha: Optional[torch.Tensor] = None
 
     @property
     def logpdf(self):
@@ -227,12 +236,33 @@ class DenseObs:
         rows."""
         if self.y.shape[0] == 0:
             return self.fdd.x.new_zeros(())
+        if self.logpdf_val is not None:
+            return self.logpdf_val
         return mvn_logpdf_chol(self.residual, torch.zeros_like(self.residual), self.L)
 
 
+def _mesh_for(f, n):
+    """The active mesh when ``n`` rows of the zero-mean prior ``f`` shard
+    over it, else None."""
+    mesh = config.mesh
+    if isinstance(f, GP) and mesh is not None and n >= max(config.shard_min_rows, mesh.size):
+        return mesh
+    return None
+
+
 def Obs(fdd, y):
-    """Exact observations ``Obs(f(x, noise), y)`` (``gpar/model.py:289``)."""
+    """Exact observations ``Obs(f(x, noise), y)`` (``gpar/model.py:289``);
+    under a mesh the rows of a zero-mean prior's covariance shard over it
+    (``parallel.dense.sharded_dense_factors``)."""
     y = _vec(y)
+    mesh = _mesh_for(fdd.f, fdd.x.shape[0])
+    if mesh is not None:
+        from ..parallel.dense import sharded_dense_factors
+
+        noise = fdd.noise if fdd.noise is not None else fdd.x.new_zeros(fdd.x.shape[0])
+        logpdf, L, alpha = sharded_dense_factors(fdd.f.kernel, fdd.x, y, noise, mesh,
+                                                 axis=config.shard_axis)
+        return DenseObs(fdd=fdd, y=y, L=L, residual=y, logpdf_val=logpdf, alpha=alpha)
     return DenseObs(fdd=fdd, y=y, L=fdd.chol(), residual=y - fdd.mean_vec())
 
 
@@ -264,6 +294,16 @@ def PseudoObs(fdd_ind, fdd, y):
     x, z = fdd.x, fdd_ind.x
     if fdd.noise is None:
         raise ValueError("PseudoObs requires observation noise.")
+    mesh = _mesh_for(f, x.shape[0])
+    if mesh is not None:
+        from ..parallel.sharded import pad_rows, sharded_titsias_factors
+
+        xp, mask = pad_rows(x, mesh.size)
+        yp, _ = pad_rows(y, mesh.size)
+        noisep, _ = pad_rows(fdd.noise, mesh.size, value=1.0)
+        elbo, Lm, LB, beta = sharded_titsias_factors(f.kernel, z, xp, yp, noisep, mask, mesh,
+                                                     axis=config.shard_axis)
+        return TitsiasObs(fdd_ind=fdd_ind, fdd=fdd, y=y, Lm=Lm, LB=LB, beta=beta, elbo=elbo)
     elbo, Lm, LB, beta = titsias_factors(
         f.cov(z), f.cov(z, x), f.cov_diag(x), y, f.mean_vec(x), fdd.noise
     )
@@ -292,8 +332,9 @@ def condition(f, obs):
     if noise_new is None:
         noise_new = x_new.new_zeros(x_new.shape[0])
     if isinstance(f, GP):
+        alpha = obs.alpha if obs.alpha is not None else solve_chol(obs.L, obs.residual)
         return PosteriorGP(kernel=f.kernel, x_data=x_new, y_data=y_new, noise_diag=noise_new,
-                           L=obs.L, alpha=solve_chol(obs.L, obs.residual))
+                           L=obs.L, alpha=alpha)
     if isinstance(f, PosteriorGP):
         return _condition_dense(
             f.kernel,

@@ -77,8 +77,17 @@ each position's prefix span; :func:`make_batched_fit_body` fits all p
 layers times R starts as one batch.  Unbatched latents take the same
 operations as before.
 
-Not ported: the posterior-factor cache (``make_scan_cached_tail``),
-``fused="unroll"``, and the mesh.
+Under a device mesh (``gpar_torch/parallel``) the data rows shard: the
+bucket's rows are padded to whole rows per shard (:func:`_mesh_pad_geometry`)
+and every layer evaluation is :func:`_mesh_layer_nll_factors`, the Titsias
+statistics of each shard summed across the shards (sparse) or the
+distributed blocked Cholesky of each shard's covariance rows (dense).  The
+fixed fit's step is :class:`MeshScanStep` (captured as CUDA graphs when
+every shard lies on one card, eager over distinct cards), the joint fit's
+and the prior score's chain :func:`_mesh_chain_nll`, the sparse posterior
+score :func:`_mesh_sparse_posterior_score`.  The serving tails stay as
+they are: the estimator computes the factors once and splits the sample
+axis over the shards.
 """
 
 import contextlib
@@ -88,7 +97,9 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..config import config
 from ..ops import gram_kernel as GK
 from ..ops.kernels import EQ, RQ, Const, Linear, gram, kdiag
 from ..ops.linalg import (
@@ -106,11 +117,16 @@ from ..ops.linalg import (
 from ..params.lbfgs import (
     MAX_LINESEARCH, BatchedDeviceLBFGS, DeviceLBFGS, best_of, iterate, new_stats,
 )
+from ..parallel.dense import _pad_geometry, chol_logpdf, masked_rows
+from ..parallel.mesh import all_gather, broadcast, devices_of, split_rows, to_device
+from ..parallel.sharded import sharded_titsias_panels
 from ..params.store import _Bounded, _Identity, _LowerBounded
 
 __all__ = [
     "ScanFitPlan",
     "ScanStep",
+    "MeshScanStep",
+    "new_step",
     "Eager",
     "build_scan_data_plan",
     "build_scan_fit_plan",
@@ -612,6 +628,120 @@ def _chain_nll(plan, z_ext, xs, x, zi, n_layers, escalations=None):
     return torch.stack(nlls).sum(0)
 
 
+# -- the mesh forms ------------------------------------------------------------
+
+
+def _mesh_pad_geometry(n_rows, n_dev, sparse):
+    """``(pad, panel width)`` that bring ``n_rows`` to whole rows per shard
+    on an ``n_dev``-shard mesh (``gpar_tpu/models/fused.py:203-217``):
+    sparse plans need divisibility only, dense plans whole panels of the
+    distributed Cholesky (``parallel.dense._pad_geometry``)."""
+    if sparse:
+        return (-n_rows) % n_dev, None
+    nloc, block = _pad_geometry(n_rows, n_dev, config.dense_shard_block)
+    return n_dev * nloc - n_rows, block
+
+
+def _mesh_split(plan, x, xs, mesh):
+    """The data rows ``x`` (rows, m) and the plan's arrays ``xs`` sharded over
+    ``mesh`` (``gpar_tpu/models/fused.py:792-823``): rows padded to the mesh
+    geometry (data and masks with 0, weights with 1, so a padded row is
+    masked out exactly) and split, the model-structure arrays on every
+    shard's device.  Returns ``(x_parts, xs_parts, block)``."""
+    pad, block = _mesh_pad_geometry(x.shape[0], mesh.size, plan.sparse)
+    x_parts = split_rows(F.pad(x, (0, 0, 0, pad)), mesh)
+    xs_parts = [{} for _ in mesh.devices]
+    for k, v in xs.items():
+        if k in _ROW_KEYS:
+            chunks = split_rows(F.pad(v, (0, pad), value=1.0 if k == "w_col" else 0.0), mesh, dim=-1)
+        else:
+            chunks = broadcast(v, mesh.devices)
+        for part, c in zip(xs_parts, chunks):
+            part[k] = c
+    return x_parts, xs_parts, block
+
+
+def _mesh_layer_nll_factors(plan, lins, z_full, x_parts, zi_aug, block, escalations=None):
+    """:func:`_layer_nll_factors` with the data rows sharded
+    (``gpar_tpu/models/fused.py:664-720``): ``lins`` and ``x_parts`` hold one
+    plan slice and one block of rows per shard, each on its device, and
+    ``zi_aug`` lies on shard 0's.
+
+    - sparse: per shard ``Kmn`` (M, rows / P) and ``kdiag`` through the Gram
+      kernel, the statistics summed over the shards
+      (``parallel.sharded.sharded_titsias_panels``); factors ``(Kmm, [Kmn],
+      beta)``.
+    - dense: per shard the masked covariance rows ``gram(kernel, x_local,
+      x_full)`` with the noise and the jitter on their diagonal, factored by
+      the distributed blocked Cholesky and differentiated by its backward
+      (``parallel.dense.chol_logpdf``); factors ``([K_local], alpha)``.
+
+    A batch of latents ``z_full`` (B, n_z + 1) is evaluated element by
+    element: (B,) NLLs and no factors."""
+    if z_full.ndim > 1:
+        return torch.stack([_mesh_layer_nll_factors(plan, lins, z, x_parts, zi_aug, block,
+                                                    escalations)[0] for z in z_full]), None
+    layer = [_layer_kernel(plan, lin, z_full.to(x.device)) for lin, x in zip(lins, x_parts)]
+    kernels = [k for k, _ in layer]
+    noise_w = [floor_noise(noise / lin["w_col"]) for (_, noise), lin in zip(layer, lins)]
+    masks, rs = [lin["obs_mask"] for lin in lins], [lin["y_col"] for lin in lins]
+    if plan.sparse:
+        Kmm = gram(kernels[0], zi_aug, zi_aug)
+        zis = broadcast(zi_aug, devices_of(x_parts))
+        Kmn = [gram(k, zi, x) for k, zi, x in zip(kernels, zis, x_parts)]
+        knn = [kdiag(k, x) for k, x in zip(kernels, x_parts)]
+        elbo, _, _, beta = sharded_titsias_panels(Kmm, Kmn, knn, rs, noise_w, masks, escalations)
+        return -elbo, (Kmm, Kmn, beta)
+    eps = resolve_epsilon(z_full.dtype)
+    x_full, mask_full = all_gather(x_parts), all_gather(masks)
+    K_local = [gram(k, x, xf) for k, x, xf in zip(kernels, x_parts, x_full)]
+    A = [masked_rows(K, mk, mf, mk * (nw + eps) + (1.0 - mk), s)
+         for s, (K, mk, mf, nw) in enumerate(zip(K_local, masks, mask_full, noise_w))]
+    logpdf, _, alpha = chol_logpdf(A, [r * mk for r, mk in zip(rs, masks)], masks, block)
+    return -logpdf, (K_local, alpha)
+
+
+def _mesh_est(plan, factors):
+    """:func:`_est_from_factors` of :func:`_mesh_layer_nll_factors`'s
+    factors: the estimates at each shard's rows, and, sparse, at the
+    inducing inputs."""
+    if not plan.sparse:
+        K_local, alpha = factors
+        return [_mv(K, alpha.to(K.device)) for K in K_local], None
+    Kmm, Kmn, beta = factors
+    return [_mv(k.mT, beta.to(k.device)) for k in Kmn], _mv(Kmm, beta)
+
+
+def _mesh_augmented(plan, lins, est_rows, est_ind, x_parts, zi_aug):
+    """:func:`_augmented` on every shard: new buffers, for autograd."""
+    col = (plan.m + lins[0]["col"]).reshape(1)
+    x_parts = [x.index_copy(-1, col.to(x.device), _next_column(plan, lin, est)[:, None])
+               for x, lin, est in zip(x_parts, lins, est_rows)]
+    if plan.sparse:
+        zi_aug = zi_aug.index_copy(-1, col, est_ind[:, None])
+    return x_parts, zi_aug
+
+
+def _mesh_chain_nll(plan, z_ext, xs_parts, x_parts, zi, n_layers, block, escalations=None):
+    """:func:`_chain_nll` with the rows sharded (``_mesh_split``'s
+    ``xs_parts`` and ``x_parts``): the chain of the prior score and of the
+    joint fit under a mesh (``gpar_tpu/models/fused.py:1293-1625``).  A batch
+    of latents is evaluated element by element."""
+    if z_ext.ndim > 1:
+        return torch.stack([_mesh_chain_nll(plan, z, xs_parts, x_parts, zi, n_layers, block,
+                                            escalations) for z in z_ext])
+    x_aug, zi_aug = [_widen(x, plan.W) for x in x_parts], _widen(zi, plan.W)
+    nlls = []
+    for pi in range(n_layers):
+        lins = [{k: v[pi] for k, v in xs.items()} for xs in xs_parts]
+        nll, factors = _mesh_layer_nll_factors(plan, lins, z_ext, x_aug, zi_aug, block, escalations)
+        nlls.append(nll)
+        if pi < n_layers - 1:
+            x_aug, zi_aug = _mesh_augmented(plan, lins, *_mesh_est(plan, factors), x_aug, zi_aug)
+        del factors
+    return torch.stack(nlls).sum(0)
+
+
 class ScanStep:
     """The layer step of the scan-fused fit at uniform shapes: fixed-shape
     buffers and the bodies that work on them.
@@ -757,12 +887,16 @@ class ScanStep:
         with torch.no_grad():
             # The output column written here is gated out of this layer's
             # kernel, so the estimates do not depend on it.
-            est_rows, est_ind = _est_from_factors(self.plan, self._nll_factors(self.z_ext)[1])
-        _augment_cols(self.plan, self.lin, _next_column(self.plan, self.lin, est_rows), est_ind,
-                      self.x_aug, self.zi_aug)
+            self._augment(self._nll_factors(self.z_ext)[1])
         res = torch.stack([f, f0, it.to(f.dtype)])
         self.out.index_copy_(1, self.layer, res[:, None])
         self.layer.add_(1)
+
+    def _augment(self, factors):
+        """One augmentation step from the layer's factors at its optimum."""
+        est_rows, est_ind = _est_from_factors(self.plan, factors)
+        _augment_cols(self.plan, self.lin, _next_column(self.plan, self.lin, est_rows), est_ind,
+                      self.x_aug, self.zi_aug)
 
     def results(self, stats):
         """``(z_all, layer_nll, layer_iters, layer_nll0)`` after the last
@@ -773,6 +907,91 @@ class ScanStep:
         out = torch.cat([self.out.reshape(-1), self.escalations.to(self.out.dtype).reshape(1)]).cpu()
         out, stats["ladder_escalations"] = out[:-1].numpy().reshape(3, -1), int(out[-1])
         return self.z_ext[:-1].clone(), out[0], out[2].astype(np.int64), out[1]
+
+
+class MeshScanStep(ScanStep):
+    """:class:`ScanStep` with the data rows sharded over ``mesh``: the mesh
+    form of the scan fit's layer step (``gpar_tpu/models/fused.py:
+    1052-1140``, whose whole scan runs inside one ``shard_map``).  The
+    bucket's rows are padded to the mesh geometry (:func:`_mesh_pad_geometry`)
+    and each shard holds its block of the augmented inputs and of the
+    plan's row arrays, and its own layer slice, on its device; the L-BFGS
+    state, the latents and the inducing inputs stay on shard 0's device.
+    The layer objective is :func:`_mesh_layer_nll_factors`; the bodies read
+    nothing back to the host, so on a mesh whose shards share one card they
+    are captured as CUDA graphs like the one-device step's."""
+
+    def __init__(self, plan, n_rows, n_ind, dtype, device, gtol=1e-9, memory_size=10,
+                 restarts=1, mesh=None):
+        super().__init__(plan, 0, n_ind, dtype, device, gtol, memory_size, restarts)
+        self.n_rows, self.mesh = n_rows, mesh
+        pad, self.block = _mesh_pad_geometry(n_rows, mesh.size, plan.sparse)
+        nloc = (n_rows + pad) // mesh.size
+        static = {k: v for k, v in self.xs.items() if k not in _ROW_KEYS}
+        self.x_parts, self.stacks = [], []
+        for d in mesh.devices:
+            self.x_parts.append(torch.zeros((nloc, plan.W), dtype=dtype, device=d))
+            rows = {k: torch.zeros((plan.p, nloc), dtype=dtype, device=d) for k in _ROW_KEYS}
+            self.stacks.append({**to_device(static, d), **rows})
+        self.xs = self.stacks[0]
+        self.lins = [{k: torch.zeros_like(v[0]) for k, v in st.items()} for st in self.stacks]
+        self.lin = self.lins[0]
+
+    def _buffers(self):
+        # Shard 0's rows and slice are ``self.xs`` and ``self.lin``, in the base's list.
+        rows = [st[k] for st in self.stacks[1:] for k in _ROW_KEYS]
+        lins = [v for lin in self.lins[1:] for v in lin.values()]
+        return [*super()._buffers(), *self.x_parts, *rows, *lins]
+
+    def clone(self):
+        other = MeshScanStep(self.plan, self.n_rows, self.n_ind, self.dtype, self.device, self.gtol,
+                             self.memory_size, self.restarts, self.mesh)
+        for dst, src in zip(other._buffers(), self._buffers()):
+            dst.copy_(src)
+        return other
+
+    def load(self, z_all, x, rows, x_ind, pert=None):
+        m = self.plan.m
+        self.z_ext.zero_()
+        self.z_ext[:-1].copy_(z_all)
+        self.zi_aug.zero_()
+        self.zi_aug[:, :m].copy_(x_ind)
+        x_parts, xs_parts, _ = _mesh_split(self.plan, x, rows, self.mesh)
+        for dst, src, st, rs in zip(self.x_parts, x_parts, self.stacks, xs_parts):
+            dst.zero_()
+            dst[:, :m].copy_(src)
+            for k in _ROW_KEYS:
+                st[k].copy_(rs[k])
+        if self.restarts > 1:
+            self.pert.copy_(pert)
+        self.layer.zero_()
+        self.escalations.zero_()
+
+    def _nll_factors(self, z_full):
+        return _mesh_layer_nll_factors(self.plan, self.lins, z_full, self.x_parts, self.zi_aug,
+                                       self.block, self.escalations)
+
+    def layer_init(self):
+        for lin, st in zip(self.lins[1:], self.stacks[1:]):
+            layer = self.layer.to(lin["col"].device)
+            for k, buf in lin.items():
+                buf.copy_(st[k].index_select(0, layer)[0])
+        super().layer_init()
+
+    def _augment(self, factors):
+        est_rows, est_ind = _mesh_est(self.plan, factors)
+        col = (self.plan.m + self.lin["col"]).reshape(1)
+        for lin, x, est in zip(self.lins, self.x_parts, est_rows):
+            x.index_copy_(1, col.to(x.device), _next_column(self.plan, lin, est)[:, None])
+        if self.plan.sparse:
+            self.zi_aug.index_copy_(1, col, est_ind[:, None])
+
+
+def new_step(plan, n_rows, n_ind, dtype, device, gtol, memory_size, restarts=1, mesh=None):
+    """A :class:`ScanStep`, or a :class:`MeshScanStep` over ``mesh``."""
+    if mesh is None:
+        return ScanStep(plan, n_rows, n_ind, dtype, device, gtol, memory_size, restarts)
+    return MeshScanStep(plan, n_rows, n_ind, dtype, device, gtol, memory_size, restarts, mesh)
 
 
 def _with_span(z_ext, gather, z):
@@ -885,11 +1104,14 @@ def _perturbations(normals, restarts, restart_scale, shape, like):
 
 
 def make_scan_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1, restart_scale=1.0,
-                       rows_traced=False, cuda_graphs=True):
+                       rows_traced=False, cuda_graphs=True, mesh=None):
     """The scan-fused whole-fit program ``(z_all, x, xs_rows=None,
     stats=None, normals=None) -> (z_final, layer_nll, layer_iters,
-    layer_nll0)`` (the contract of ``gpar_tpu/models/fused.py:909-1047``
-    without the mesh branch).  ``rows_traced``: ``x`` and ``xs_rows`` are
+    layer_nll0)`` (the contract of ``gpar_tpu/models/fused.py:909-1140``).
+    With ``mesh`` the step is a :class:`MeshScanStep`, the data rows
+    sharded over the mesh; it is captured as CUDA graphs only when every
+    shard lies on one card, and runs eagerly over distinct cards.
+    ``rows_traced``: ``x`` and ``xs_rows`` are
     bucket-padded (:func:`device_bucket_inputs`); otherwise ``x`` has the
     plan's exact rows.  ``restarts > 1``: each layer's L-BFGS runs from
     its latents and from ``restarts - 1`` perturbations of them,
@@ -910,14 +1132,14 @@ def make_scan_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1, restar
                               (plan.p, restarts - 1, plan.s_max), x)
         args = (z_all, x, rows, zi, pert)
         with _cusolver(device):
-            if device.type == "cuda" and cuda_graphs:
+            if device.type == "cuda" and cuda_graphs and (mesh is None or mesh.virtual):
                 from .graphs import graphed_step
 
                 step, run, capture_s = graphed_step(plan, x.shape[0], zi.shape[0], dtype, device,
-                                                    iters, gtol, memory_size, args, restarts)
+                                                    iters, gtol, memory_size, args, restarts, mesh)
             else:
-                step = ScanStep(plan, x.shape[0], zi.shape[0], dtype, device, gtol, memory_size,
-                                restarts)
+                step = new_step(plan, x.shape[0], zi.shape[0], dtype, device, gtol, memory_size,
+                                restarts, mesh)
                 step.load(*args)
                 run, capture_s = Eager(step), 0.0
             replays0, replayed0 = run.replays, dict(run.replayed)
@@ -946,9 +1168,10 @@ def _prefix_gather(plan):
 
 
 def make_scan_free_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1,
-                            restart_scale=1.0, rows_traced=False):
+                            restart_scale=1.0, rows_traced=False, mesh=None):
     """The whole-fit program of ``fit(fix=False)`` (the contract of
-    ``gpar_tpu/models/fused.py:1236-1390`` without the mesh branch):
+    ``gpar_tpu/models/fused.py:1236-1487``; with ``mesh`` the chain's rows
+    are sharded, :func:`_mesh_chain_nll`):
     ``program(z_all, x, xs_rows=None, stats=None, normals=None) ->
     (z_final, layer_nll, layer_iters, layer_nll0)``.
 
@@ -986,11 +1209,11 @@ def make_scan_free_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1,
                                   (plan.p, restarts - 1, plan.n_z), x)
             escalations = torch.zeros((), dtype=torch.int64, device=device)
             position = [0]
+            chain = _chain(plan, x, xs, zi, mesh)
 
             def nll(z_sub):
                 pi = position[0]
-                z_full = _with_span(z_ext, gathers[pi], z_sub)
-                return _chain_nll(plan, z_full, xs, x, zi, pi + 1, escalations)
+                return chain(_with_span(z_ext, gathers[pi], z_sub), pi + 1, escalations)
 
             def value(z):
                 with torch.no_grad():
@@ -1199,9 +1422,21 @@ def _stack_layout(*ts):
     return torch.stack(ts)
 
 
-def make_scan_logpdf_body(plan, x_ind, rows_traced=False):
+def _chain(plan, x, xs, zi, mesh):
+    """``chain(z_ext, n_layers, escalations=None)``: the NLL of the chain's
+    first layers (:func:`_chain_nll`), or with ``mesh`` of its sharded form
+    (:func:`_mesh_chain_nll`, the rows split once here)."""
+    if mesh is None:
+        return lambda z_ext, n_layers, escalations=None: _chain_nll(
+            plan, z_ext, xs, x, zi, n_layers, escalations)
+    x_parts, xs_parts, block = _mesh_split(plan, x, xs, mesh)
+    return lambda z_ext, n_layers, escalations=None: _mesh_chain_nll(
+        plan, z_ext, xs_parts, x_parts, zi, n_layers, block, escalations)
+
+
+def make_scan_logpdf_body(plan, x_ind, rows_traced=False, mesh=None):
     """The prior log-density of a dataset (``gpar_tpu/models/fused.py:
-    1489-1555``, single device): ``program(z_all, x, xs_rows=None) ->
+    1489-1625``; with ``mesh`` the rows sharded): ``program(z_all, x, xs_rows=None) ->
     scalar``, the chain accumulation of ``GPAR.logpdf``
     (``gpar/model.py:178-243``) at uniform shapes.  It is the fixed fit's
     chain without the L-BFGS: per layer the masked layer NLL at the given
@@ -1214,14 +1449,55 @@ def make_scan_logpdf_body(plan, x_ind, rows_traced=False):
         with torch.no_grad(), _cusolver(x.device):
             xs, z_ext = _serving_inputs(plan, z_all, x, xs_rows, rows_traced)
             zi = _inducing(x_ind, plan.m, x.dtype, x.device)
-            return -_chain_nll(plan, z_ext, xs, x, zi, plan.p)
+            return -_chain(plan, x, xs, zi, mesh)(z_ext, plan.p)
 
     return program
 
 
-def make_scan_posterior_logpdf_tail(plan, x_ind, rows_traced=False):
+def _mesh_sparse_posterior_score(plan, z_ext, xs, x, zi, factors, mesh):
+    """The sparse branch of :func:`make_scan_posterior_logpdf_tail` with the
+    scored rows sharded over ``mesh`` (``gpar_tpu/models/fused.py:
+    1682-1855``): the training factors replicated on every shard, the
+    posterior prior's cross-covariance ``Kmn_p`` (M, rows / P), its
+    diagonal and the residuals per shard, and the nested Titsias statistics
+    summed over the shards (``parallel.sharded.sharded_titsias_panels``)."""
+    x_parts, xs_parts, _ = _mesh_split(plan, x, xs, mesh)
+    x_aug, zi_aug = [_widen(a, plan.W) for a in x_parts], _widen(zi, plan.W)
+    nlls = []
+    for pi, fac in zip(range(plan.p), factors):
+        lins = [{k: v[pi] for k, v in xsp.items()} for xsp in xs_parts]
+        layer = [_layer_kernel(plan, lin, z_ext.to(d)) for lin, d in zip(lins, mesh.devices)]
+        kernel = layer[0][0]
+        Km_z = gram(kernel, fac["zi_aug"], zi_aug)
+        T1z = solve_lower(fac["Lm"], Km_z)
+        T2z = solve_lower(fac["LB"], T1z)
+        Kmm_p = gram(kernel, zi_aug, zi_aug) - T1z.T @ T1z + T2z.T @ T2z
+        Kmn_p, knn_p, res, mean_x, noise_w = [], [], [], [], []
+        for (k, noise), lin, xa, d in zip(layer, lins, x_aug, mesh.devices):
+            f, t1z, t2z, zi_d = to_device((fac, T1z, T2z, zi_aug), d)
+            Km_x = gram(k, f["zi_aug"], xa)
+            T1x = solve_lower(f["Lm"], Km_x)
+            T2x = solve_lower(f["LB"], T1x)
+            mean_x.append(Km_x.T @ f["beta"])
+            Kmn_p.append(gram(k, zi_d, xa) - t1z.T @ T1x + t2z.T @ T2x)
+            knn_p.append(kdiag(k, xa) - torch.sum(T1x * T1x, dim=0) + torch.sum(T2x * T2x, dim=0))
+            res.append(lin["y_col"] - mean_x[-1])
+            noise_w.append(floor_noise(noise / lin["w_col"]))
+        elbo, _, _, beta_n = sharded_titsias_panels(Kmm_p, Kmn_p, knn_p, res, noise_w,
+                                                    [lin["obs_mask"] for lin in lins])
+        nlls.append(-elbo)
+        est_rows = [mx + Kp.T @ beta_n.to(mx.device) for mx, Kp in zip(mean_x, Kmn_p)]
+        est_ind = Km_z.T @ fac["beta"] + Kmm_p @ beta_n
+        x_aug, zi_aug = _mesh_augmented(plan, lins, est_rows, est_ind, x_aug, zi_aug)
+    return -torch.stack(nlls).sum()
+
+
+def make_scan_posterior_logpdf_tail(plan, x_ind, rows_traced=False, mesh=None):
     """The posterior log-density of new data (``gpar_tpu/models/fused.py:
-    1630-1790``, single device): ``tail(z_all, factors, x, xs_rows=None,
+    1630-1855``; with ``mesh`` and a sparse plan the scored rows sharded,
+    :func:`_mesh_sparse_posterior_score`, while a dense posterior score
+    under a mesh runs through the GP core, as in ``gpar_tpu/models/
+    regressor.py:2169-2187``): ``tail(z_all, factors, x, xs_rows=None,
     tr_mask=None) -> scalar``.  ``plan`` is the scored data's plan and
     ``factors`` yields the training chain's per-layer posterior factors in
     turn (:func:`posterior_factor_layers`).  Per layer the GP core's nested
@@ -1245,9 +1521,14 @@ def make_scan_posterior_logpdf_tail(plan, x_ind, rows_traced=False):
         if not plan.sparse and tr_mask is None:
             raise ValueError("make_scan_posterior_logpdf_tail: dense factors need the training "
                              "chain's per-layer observation masks (tr_mask)")
+        if mesh is not None and not plan.sparse:
+            raise ValueError("a dense posterior score under a mesh runs through the GP core")
         dtype, device = x.dtype, x.device
         with torch.no_grad(), _cusolver(device):
             xs, z_ext = _serving_inputs(plan, z_all, x, xs_rows, rows_traced)
+            if mesh is not None:
+                zi = _inducing(x_ind, plan.m, dtype, device)
+                return _mesh_sparse_posterior_score(plan, z_ext, xs, x, zi, factors, mesh)
             x_aug = _widen(x, plan.W)
             zi_aug = _widen(_inducing(x_ind, plan.m, dtype, device), plan.W)
             eps = resolve_epsilon(dtype)

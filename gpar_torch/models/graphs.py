@@ -9,7 +9,13 @@ iteration and every later fit with the same key, by any estimator.  The
 key covers the plan's fingerprint (model structure and index maps), the
 row bucket, the number of inducing points (0 for a dense plan), the dtype, ``iters``, ``gtol``,
 ``memory_size``, the number of restarts (the batch of the step's L-BFGS),
-the device and the jitter settings the captured work bakes in.
+the device, the jitter settings the captured work bakes in, and the mesh
+(the step's own and ``config.mesh_descriptor()``), so a step captured
+without a mesh is never replayed under one.  A
+:class:`~gpar_torch.models.fused.MeshScanStep` whose shards all lie on one
+card is captured like the one-device step: its per-shard work is more
+launches on the same stream.  A mesh over distinct cards runs eagerly
+(``fused.make_scan_fit_body``).
 
 - The bodies read everything from the step's static buffers; the layer's
   plan slice is copied on the device from the stacked plan by a layer
@@ -51,9 +57,9 @@ import time
 
 import torch
 
-from ..config import config
+from ..config import config, mesh_descriptor
 from ..ops import gram_kernel as GK
-from .fused import ScanStep, plan_static_fingerprint
+from .fused import new_step, plan_static_fingerprint
 
 __all__ = ["GraphedStep", "graphed_step", "clear_cache", "evictions", "cached_bytes", "CACHE_CAP"]
 
@@ -151,20 +157,21 @@ class GraphedStep:
             self.replayed[k] += v
 
 
-def _key(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size, restarts=1):
+def _key(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size, restarts=1, mesh=None):
     return (
         plan_static_fingerprint(plan), n_rows, n_ind, str(dtype), str(device), iters, gtol,
         memory_size, restarts, config.epsilon, config.epsilon_f32,
-        tuple(config.cholesky_retry_factors),
+        tuple(config.cholesky_retry_factors), mesh, mesh_descriptor(), config.dense_shard_block,
     )
 
 
-def graphed_step(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size, args, restarts=1):
+def graphed_step(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size, args, restarts=1,
+                 mesh=None):
     """``(step, graphs, capture_s)`` for a fit: the cached step of this key
     with ``args`` (``ScanStep.load``'s) loaded, or a new one, loaded and
     captured (``capture_s`` is 0 on a hit); a new step enters the cache and
     the byte budget evicts as the module says."""
-    key = _key(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size, restarts)
+    key = _key(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size, restarts, mesh)
     hit = _CACHE.get(key)
     if hit is not None:
         _CACHE.move_to_end(key)
@@ -172,7 +179,7 @@ def graphed_step(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size, a
         step.load(*args)
         return step, graphs, 0.0
     before = _reserved(device)
-    step = ScanStep(plan, n_rows, n_ind, dtype, device, gtol, memory_size, restarts)
+    step = new_step(plan, n_rows, n_ind, dtype, device, gtol, memory_size, restarts, mesh)
     step.load(*args)
     graphs = GraphedStep(step)
     _CACHE[key] = (step, graphs, max(_reserved(device) - before, 0))

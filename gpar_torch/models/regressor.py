@@ -95,24 +95,45 @@ Design, in PyTorch terms:
   package's format.  Every entry point takes ``torch.Tensor`` inputs as
   data (detached, read on the host).
 
+- The device mesh: ``mesh=`` on ``fit``, ``fit_predict``, ``predict``,
+  ``sample`` and ``logpdf``, or an enclosing ``gpar_torch.use_mesh``
+  (a :class:`gpar_torch.parallel.Mesh` whose first device is the
+  estimator's).  The scan fits (``fix`` True and False) and the prior and
+  sparse posterior scores shard their rows over the mesh when there are at
+  least ``max(config.shard_min_rows, mesh size)`` of them; smaller fits
+  take the unrolled route and smaller or dense posterior scores the GP
+  core, which shard through ``Obs`` / ``PseudoObs``
+  (``gpar_tpu/models/regressor.py:1283-1307, 2169-2187``).  Sampling splits
+  its sample axis over the shards, padded to a mesh multiple and the
+  surplus dropped, from per-layer factors computed once on the first
+  device (a dense stack over ``config.posterior_cache_max_bytes`` samples
+  unsplit there, each layer's factors in the tail); the greedy scorer
+  splits its candidate axis, padded by repeating the first candidate.
+  ``fused="batched"`` under a mesh raises, as in JAX.  JAX's float64
+  ``restarts > 1`` guard under a TPU mesh (``regressor.py:1346-1366``), for
+  a crash of the TPU runtime, has no counterpart: such fits run.
+
 Both the sparse model (``x_ind`` given) and the dense one (``x_ind=None``,
 the exact marginal likelihood over the data rows) run through every entry
-point above.  Not ported: the mesh (``mesh=``, the greedy scorer's
-candidate axis sharded over devices included), ``trace=`` and
-``profile_dir=``.
+point above.  Not ported: ``trace=`` and ``profile_dir=``.
 """
 
+import functools
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..config import bucket_rows, config, default_dtype, resolve_device
+from ..config import (
+    bucket_rows, config, default_dtype, mesh_context, mesh_descriptor, resolve_device,
+)
 from ..gp.core import GP, Obs, PseudoObs
 from ..ops.kernels import EQ, RQ, Const, Linear, ZeroKernel, gram, kdiag
 from ..ops.linalg import floor_noise, resolve_epsilon, titsias_factors
 from ..params.lbfgs import lbfgs_minimize, lbfgs_minimize_batched, new_stats
 from ..params.optim import minimise_l_bfgs_b, restart_normals
+from ..parallel.mesh import canonical, split_rows, to_device
 from ..params.store import Vars, load_latents
 from ..utils.experiment import Counter
 from ..utils.rng import default_generator
@@ -520,7 +541,7 @@ class GPARRegressor:
 
     def fit(self, x, y, w=None, greedy=False, fix=True, iters=None, gtol=1e-9, memory_size=10,
             fused=True, restarts=1, cuda_graphs=True, restart_scale=1.0, generator=None,
-            restart_normals=None):
+            restart_normals=None, mesh=None):
         """Fit the model to data (``gpar/regression.py:391-459``), one
         L-BFGS per layer position.  With ``fix=True`` (default) position
         ``pi`` optimises layer ``pi``'s variables and the layer is fixed
@@ -563,7 +584,19 @@ class GPARRegressor:
         (:meth:`_greedy_order`, with ``iters``, ``gtol`` and
         ``memory_size``), its permutation is kept in ``order`` and the fit
         runs on the permuted outputs, on any route above.  Every entry
-        point takes and returns the outputs in their original columns."""
+        point takes and returns the outputs in their original columns.
+
+        ``mesh`` (or an enclosing ``use_mesh``): the scan fit's rows, and
+        the greedy scorer's candidates, shard over the mesh; a fit with
+        fewer than ``max(config.shard_min_rows, mesh size)`` rows takes the
+        unrolled route, which shards through the GP core, and
+        ``fused="batched"`` raises."""
+        with mesh_context(mesh):
+            self._fit(x, y, w, greedy, fix, iters, gtol, memory_size, fused, restarts,
+                      cuda_graphs, restart_scale, generator, restart_normals)
+
+    def _fit(self, x, y, w, greedy, fix, iters, gtol, memory_size, fused, restarts, cuda_graphs,
+             restart_scale, generator, restart_normals):
         if fused == "batched" and not fix:
             raise ValueError("fused='batched' requires independent layer fits; fit(fix=False) "
                              "optimises layers jointly: use fused=True or fused=False.")
@@ -572,6 +605,12 @@ class GPARRegressor:
         if int(restarts) != restarts or restarts < 1:
             raise ValueError(f"restarts must be a positive integer, got {restarts!r}")
         restarts = int(restarts)
+        mesh = self._mesh()
+        if fused == "batched" and mesh is not None:
+            raise ValueError(
+                "fused='batched' is a single-device program; disable "
+                "the active mesh or use fused=True."
+            )
         if greedy:
             if self.compat:
                 # Reference parity (``gpar/regression.py:448-449``).
@@ -582,6 +621,8 @@ class GPARRegressor:
         iters = 1000 if iters is None else iters
         self.condition(x, y, w)
         self._ensure_vars(self.p)
+        if fused is True and mesh is not None and not self._shards_rows(self.n):
+            fused = "unroll"  # too few rows to shard: the GP core's mesh dispatch
         t0 = time.perf_counter()
         starts = dict(restarts=restarts, restart_scale=restart_scale, generator=generator,
                       normals=restart_normals)
@@ -600,6 +641,20 @@ class GPARRegressor:
         if greedy:
             report["greedy_s"] = self.last_greedy_report["wall_clock_s"]
         self.last_fit_report = report
+
+    def _mesh(self):
+        """The active mesh (``config.mesh``), or None; its first device must be
+        this estimator's, where replicated values are computed."""
+        mesh = config.mesh
+        if mesh is not None and canonical(mesh.home) != canonical(self.device):
+            raise ValueError(f"the mesh's first device {mesh.home} is not the estimator's "
+                             f"device {self.device}")
+        return mesh
+
+    def _shards_rows(self, n):
+        """Whether ``n`` rows shard over the active mesh
+        (``gpar_tpu/models/regressor.py:1302-1307``)."""
+        return n >= max(config.shard_min_rows, config.mesh.size)
 
     def _greedy_order(self, iters=100, gtol=1e-9, memory_size=10):
         """Greedily order the outputs by conditional marginal likelihood
@@ -676,36 +731,61 @@ class GPARRegressor:
         vs = Vars(dtype=self.dtype, device=self.device)
         _model_generator(vs, self.m, position, **self.model_config)()
         names = vs.select(None)
+        C = ys.shape[0]
+        mesh = self._mesh()
+        if mesh is not None:
+            # The candidate axis splits over the shards, padded to a mesh
+            # multiple with copies of the first candidate whose scores are
+            # dropped (``gpar_tpu/models/regressor.py:919-928, 1058-1070``).
+            extra = lambda a: np.concatenate([a, np.repeat(a[:1], (-C) % mesh.size, axis=0)])  # noqa: E731
+            ys, ws, masks = extra(ys), extra(ws), extra(masks)
         pad = bucket_rows(ys.shape[1]) - ys.shape[1]
         x_t = self._upload(np.pad(x_aug, ((0, pad), (0, 0))))
         y_t = self._upload(np.pad(ys, ((0, 0), (0, pad))))
         w_t = self._upload(np.pad(ws, ((0, 0), (0, pad)), constant_values=1.0))
         mask = self._upload(np.pad(masks.astype(self._np_dtype), ((0, 0), (0, pad))))
-        r = y_t * mask
-        C = ys.shape[0]
-        escalations = torch.zeros((), dtype=torch.int64, device=self.device)
         if self.sparse:
             # The inducing inputs with the prior-mean (zero) estimates of the
             # selected outputs (``gpar/model.py:291-305``).
             z_aug = torch.cat([self.x_ind, self.x_ind.new_zeros((self.x_ind.shape[0], position))],
                               dim=1)
+        else:
+            z_aug = None
+        # One shard per device of the mesh (the estimator's device alone
+        # without one): its candidates' rows, the shared inputs, and its
+        # count of escalated factorisations.
+        devices = [self.device] if mesh is None else list(mesh.devices)
+        cand = [[a] for a in (y_t, w_t, mask)] if mesh is None else [
+            split_rows(a, mesh) for a in (y_t, w_t, mask)]
+        shards = [dict(y=y, w=w, mask=mk, x=x_t.to(d), z_aug=to_device(z_aug, d),
+                       esc=torch.zeros((), dtype=torch.int64, device=d))
+                  for d, y, w, mk in zip(devices, *cand)]
 
-        def nll(z):
+        def shard_nll(z, sh):
             view = vs.with_latent_vector(names, z)
             f, noise = _model_generator(view, self.m, position, **self.model_config)()
-            noise_w = floor_noise(noise.reshape(C, 1) / w_t)
+            kern, noise = to_device((f.kernel, noise), sh["x"].device)
+            noise_w = floor_noise(noise.reshape(-1, 1) / sh["w"])
+            r, x, zz = sh["y"] * sh["mask"], sh["x"], sh["z_aug"]
             if self.sparse:
-                kern = f.kernel
-                return -titsias_factors(gram(kern, z_aug, z_aug), gram(kern, z_aug, x_t),
-                                        kdiag(kern, x_t), r, torch.zeros_like(r), noise_w,
-                                        mask=mask, escalations=escalations)[0]
-            K = gram(f.kernel, x_t, x_t)
-            return -_masked_dense_factors(K, r, mask, noise_w, resolve_epsilon(K.dtype),
-                                          escalations)[0]
+                return -titsias_factors(gram(kern, zz, zz), gram(kern, zz, x), kdiag(kern, x), r,
+                                        torch.zeros_like(r), noise_w, mask=sh["mask"],
+                                        escalations=sh["esc"])[0]
+            K = gram(kern, x, x)
+            return -_masked_dense_factors(K, r, sh["mask"], noise_w, resolve_epsilon(K.dtype),
+                                          sh["esc"])[0]
 
-        z0 = vs.latent_vector(names).expand(C, -1)
+        def nll(z):
+            if mesh is None:
+                return shard_nll(z, shards[0])
+            return torch.cat([shard_nll(zc, sh).to(self.device)
+                              for zc, sh in zip(z.chunk(mesh.size), shards)])
+
+        z0 = vs.latent_vector(names).expand(ys.shape[0], -1)
         _, f, its, _ = lbfgs_minimize_batched(nll, z0, iters=iters, gtol=gtol, memory=memory_size,
                                               stats=stats)
+        escalations = sum(sh["esc"].to(self.device) for sh in shards)
+        f, its = f[:C], its[:C]
         out = torch.cat([f, its.to(f.dtype), escalations.to(f.dtype).reshape(1)]).cpu().numpy()
         if stats is not None:
             stats["host_syncs"] += 1
@@ -788,9 +868,10 @@ class GPARRegressor:
             program = make_batched_fit_body(plan, *common, rows_traced=True)
         elif fix:
             program = make_scan_fit_body(plan, self.x_ind, *common, rows_traced=True,
-                                         cuda_graphs=cuda_graphs)
+                                         cuda_graphs=cuda_graphs, mesh=self._mesh())
         else:
-            program = make_scan_free_fit_body(plan, self.x_ind, *common, rows_traced=True)
+            program = make_scan_free_fit_body(plan, self.x_ind, *common, rows_traced=True,
+                                              mesh=self._mesh())
         stats = new_stats()
         z, nll, its, nll0 = program(self.vs.latent_vector(names), x_pad, rows, stats=stats,
                                     normals=self._layer_normals(normals, restarts, width,
@@ -890,8 +971,8 @@ class GPARRegressor:
         ``generator``."""
         from .fused import (
             build_scan_prior_plan, factor_slices, make_scan_ancestral_tail, make_scan_cached_tail,
-            make_scan_predict_tail, make_scan_prior_tail, posterior_factor_layers,
-            resolve_sample_chunk,
+            make_scan_posterior_factors, make_scan_predict_tail, make_scan_prior_tail,
+            posterior_factor_layers, resolve_sample_chunk,
         )
 
         posterior = p_prior is None
@@ -917,7 +998,9 @@ class GPARRegressor:
         normals = torch.nn.functional.pad(normals, (0, pad))
         if noise_normals is not None:
             noise_normals = torch.nn.functional.pad(noise_normals, (0, pad))
-        chunk = resolve_sample_chunk(config.predict_sample_chunk, num_samples, nt + pad,
+        mesh = self._mesh()
+        per_shard = num_samples if mesh is None else -(-num_samples // mesh.size)
+        chunk = resolve_sample_chunk(config.predict_sample_chunk, per_shard, nt + pad,
                                      self.dtype, config.predict_memory_budget)
         if not posterior:
             gpar = _construct_gpar(self, self.vs, m_in, p)
@@ -926,7 +1009,9 @@ class GPARRegressor:
             names = self.vs.select(None)
             plan = build_scan_prior_plan(self, m_in, p, names, self._np_dtype)
             tail = make_scan_prior_tail(plan, latent, chunk)
-            batch = tail(self.vs.latent_vector(names), x_t, w_t, normals, noise_normals, mt)
+            args = (self.vs.latent_vector(names), x_t, w_t)
+            batch = self._split_samples(lambda put, nm, nn: tail(*put(args), nm, nn, put(mt)),
+                                        normals, noise_normals)
             return batch[:, :nt]
         self._ensure_vars(p)
         names = self.vs.select(None)
@@ -934,6 +1019,25 @@ class GPARRegressor:
         x_pad, rows = self._bucket_fit_inputs(plan)
         z = self.vs.latent_vector(names)
         cached = self._factor_cache_eligible(plan)
+        if mesh is not None and self._factor_stack_fits(plan):
+            # The per-layer factors once, then each shard's share of the
+            # samples from them on its device.
+            if cached:
+                factors = self._posterior_factors(plan, z)
+            else:
+                factors = make_scan_posterior_factors(plan, self.x_ind, rows_traced=True)(
+                    z, x_pad, rows)
+            args = (z, factors, x_t, w_t)
+            if self.replace:
+                tail = make_scan_cached_tail(plan, latent, rows_traced=True)
+                draw = lambda put, nm, nn: tail(*put(args), nm, *put((rows, mt)))[0]  # noqa: E731
+            else:
+                tail = make_scan_ancestral_tail(plan, latent, chunk, rows_traced=True)
+
+                def draw(put, nm, nn):
+                    z_d, fac, *rest = put(args)
+                    return tail(z_d, factor_slices(fac), *rest, nm, nn, *put((rows, mt)))
+            return self._split_samples(draw, normals, noise_normals)[:, :nt]
         if self.replace:
             if cached:
                 tail = make_scan_cached_tail(plan, latent, rows_traced=True)
@@ -947,6 +1051,27 @@ class GPARRegressor:
             factors = posterior_factor_layers(plan, self.x_ind, rows_traced=True)(z, x_pad, rows)
         tail = make_scan_ancestral_tail(plan, latent, chunk, rows_traced=True)
         return tail(z, factors, x_t, w_t, normals, noise_normals, rows, mt)[:, :nt]
+
+    def _split_samples(self, draw, normals, noise_normals):
+        """``draw(put, normals, noise_normals)`` over the sample axis (axis 1
+        of the (p, S, n) normals): once without a mesh; under one, the
+        normals padded to a mesh multiple and split, each shard's draws made
+        on its device (``put`` moves the tail's other arguments there) and
+        concatenated in sample order, the surplus dropped
+        (``gpar_tpu/models/regressor.py:2394-2405``)."""
+        mesh = config.mesh
+        if mesh is None:
+            return draw(lambda a: a, normals, noise_normals)
+        S = normals.shape[1]
+
+        def cut(a):
+            if a is None:
+                return [None] * mesh.size
+            return split_rows(F.pad(a, (0, 0, 0, (-S) % mesh.size)), mesh, dim=1)
+
+        parts = [draw(functools.partial(to_device, device=d), nm, nn).to(self.device)
+                 for d, nm, nn in zip(mesh.devices, cut(normals), cut(noise_normals))]
+        return torch.cat(parts)[:S]
 
     def _sample_unrolled(self, x_np, w_np, p, posterior, latent, normals, noise_normals):
         """The unrolled serving oracle (``config.scan_predict = False``;
@@ -972,6 +1097,7 @@ class GPARRegressor:
         normals=None,
         noise_normals=None,
         generator=None,
+        mesh=None,
     ):
         """Monte-Carlo predictive means, and with ``credible_bounds`` the
         2.5 / 97.5 percentiles, at new inputs
@@ -982,13 +1108,14 @@ class GPARRegressor:
         the draws, and ``noise_normals`` (same shape) those of the noise a
         latent draw feeds forward under ``replace=False``; otherwise they
         come from ``generator`` (default: the device's generator of
-        ``utils.rng``)."""
+        ``utils.rng``).  ``mesh`` (or an enclosing ``use_mesh``) splits the
+        samples over the mesh's shards."""
         if not self.is_conditioned:
             raise RuntimeError(
                 "Cannot sample from the posterior: no data has been "
                 "conditioned on yet (call fit() or condition() first)."
             )
-        with torch.no_grad():
+        with torch.no_grad(), mesh_context(mesh):
             batch = self._sample_batch(x, w, num_samples, latent, normals, noise_normals,
                                        generator)
             batch = self._undo_transforms(batch)
@@ -1011,14 +1138,15 @@ class GPARRegressor:
         normals=None,
         noise_normals=None,
         generator=None,
+        mesh=None,
     ):
         """Samples from the prior, or from the posterior with ``posterior``
         (``gpar/regression.py:508-564``): one (n, p) array, or a list of
         them when ``num_samples > 1``.  The prior needs ``p``, the number of
         outputs.  ``normals``, ``noise_normals`` and ``generator`` as in
-        :meth:`predict`.  Under a greedy ordering the columns are the
-        original ones, except those of a prior sample of another width than
-        the fitted one, which stay in layer order."""
+        :meth:`predict`, and ``mesh`` too.  Under a greedy ordering the
+        columns are the original ones, except those of a prior sample of
+        another width than the fitted one, which stay in layer order."""
         if posterior and not self.is_conditioned:
             raise RuntimeError(
                 "Cannot sample from the posterior: no data has been "
@@ -1026,7 +1154,7 @@ class GPARRegressor:
             )
         if not posterior and p is None:
             raise ValueError("Prior sampling needs `p`, the number of outputs to draw.")
-        with torch.no_grad():
+        with torch.no_grad(), mesh_context(mesh):
             batch = self._sample_batch(x, w, num_samples, latent, normals, noise_normals,
                                        generator, p_prior=None if posterior else p)
             batch = self._undo_transforms(batch).cpu().numpy()
@@ -1036,7 +1164,7 @@ class GPARRegressor:
         return samples[0] if num_samples == 1 else samples
 
     def logpdf(self, x, y, w=None, sample_missing=False, posterior=False, normals=None,
-               generator=None):
+               generator=None, mesh=None):
         """Log-density of observations (``gpar/regression.py:461-506``):
         under the prior, or with ``posterior`` under the posterior given the
         conditioned data.  A Python float, or a detached 0-d tensor in the
@@ -1065,7 +1193,16 @@ class GPARRegressor:
         the missing outputs that feed later layers with one posterior draw
         per layer; ``normals`` gives those draws' standard normals, one
         vector per drawing layer in order, else they come from
-        ``generator`` (default: the device's generator of ``utils.rng``)."""
+        ``generator`` (default: the device's generator of ``utils.rng``).
+
+        ``mesh`` (or an enclosing ``use_mesh``): the scan scores shard the
+        scored rows over the mesh, when there are enough of them, and the
+        model is sparse for a posterior score; otherwise the GP core
+        scores, its ``Obs`` / ``PseudoObs`` sharded."""
+        with mesh_context(mesh):
+            return self._logpdf(x, y, w, sample_missing, posterior, normals, generator)
+
+    def _logpdf(self, x, y, w, sample_missing, posterior, normals, generator):
         if posterior and not self.is_conditioned:
             raise RuntimeError(
                 "Cannot evaluate the posterior logpdf: no data has been "
@@ -1137,6 +1274,10 @@ class GPARRegressor:
             make_scan_posterior_logpdf_tail, posterior_factor_layers,
         )
 
+        mesh = self._mesh()
+        if mesh is not None and (not self._shards_rows(x_np.shape[0])
+                                 or (posterior and not self.sparse)):
+            return None  # the GP core's mesh dispatch scores
         names = self.vs.select(None)
         z = self.vs.latent_vector(names)
         plan = build_scan_data_plan(self, x_np, y_np, w_np, names)
@@ -1144,7 +1285,8 @@ class GPARRegressor:
             return None
         x_pad, rows = self._bucket_score_inputs(plan, x_np, y_np, w_np)
         if not posterior:
-            return make_scan_logpdf_body(plan, self.x_ind, rows_traced=True)(z, x_pad, rows)
+            return make_scan_logpdf_body(plan, self.x_ind, rows_traced=True, mesh=mesh)(z, x_pad,
+                                                                                        rows)
         plan_tr = self._scan_fit_plan(names)
         x_tr, rows_tr = self._bucket_fit_inputs(plan_tr)
         if self._factor_cache_eligible(plan_tr):
@@ -1152,7 +1294,7 @@ class GPARRegressor:
         else:
             factors = posterior_factor_layers(plan_tr, self.x_ind, rows_traced=True)(z, x_tr,
                                                                                      rows_tr)
-        tail = make_scan_posterior_logpdf_tail(plan, self.x_ind, rows_traced=True)
+        tail = make_scan_posterior_logpdf_tail(plan, self.x_ind, rows_traced=True, mesh=mesh)
         return tail(z, factors, x_pad, rows, None if plan.sparse else rows_tr["obs_mask"])
 
     def _factor_stack_fits(self, plan):
@@ -1187,7 +1329,7 @@ class GPARRegressor:
 
         key = (bucket_rows(plan.n), self.p, str(self.dtype), str(self.device),
                z.detach().cpu().numpy().tobytes(), config.epsilon, config.epsilon_f32,
-               tuple(config.cholesky_retry_factors))
+               tuple(config.cholesky_retry_factors), mesh_descriptor())
         if self._factor_cache is not None and self._factor_cache[0] == key:
             return self._factor_cache[1]
         self._factor_cache = None  # the old stack goes before the new one is made
@@ -1339,12 +1481,19 @@ class GPARRegressor:
         normals=None,
         noise_normals=None,
         generator=None,
+        mesh=None,
         **fit_kw,
     ):
         """``fit(x, y, w, **fit_kw)`` followed by ``predict(x_test, w_test,
         ...)``; ``x_test`` defaults to the training inputs.  ``generator``
         serves both: the fit's restart perturbations (``restarts > 1``)
-        are drawn first, then the predictive's normals."""
+        are drawn first, then the predictive's normals; ``mesh`` too."""
+        with mesh_context(mesh):
+            return self._fit_predict(x, y, x_test, w, w_test, num_samples, latent,
+                                     credible_bounds, normals, noise_normals, generator, **fit_kw)
+
+    def _fit_predict(self, x, y, x_test, w, w_test, num_samples, latent, credible_bounds, normals,
+                     noise_normals, generator, **fit_kw):
         self.fit(x, y, w, generator=generator, **fit_kw)
         return self.predict(
             self._x_np if x_test is None else x_test,

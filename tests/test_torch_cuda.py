@@ -445,3 +445,37 @@ def test_cuda_graph_cache_keeps_what_the_byte_budget_holds():
     finally:
         config.graph_cache_max_bytes = old
         graphs.clear_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+def test_cuda_virtual_mesh_matches_cpu(dense):
+    # A 2-shard virtual mesh of the card (graphed fit, prior and posterior
+    # scores, predict) against the CPU route on the same inputs, float64;
+    # every Gram of the mesh route through the kernels, none through
+    # gram_eval.
+    import gpar_torch
+    from gpar_torch.parallel import make_mesh
+
+    _need_cuda()
+    x, y, x_test = chain_data(n=60, p=3, seed=2, n_test=12)
+    y[[4, 9], 1] = np.nan
+    kw = dict(bench_kwargs(n_ind=8), **({"x_ind": None, "replace": False} if dense else {}))
+    normals = np.random.default_rng(3).standard_normal((3, 5, len(x_test)))
+    out = []
+    for device in ("cuda", "cpu"):
+        reg = GPARRegressor(**kw, device=device, dtype=torch.float64)
+        mesh = make_mesh(2, devices=[torch.device(device)] * 2)
+        GK.reset_counters()
+        with gpar_torch.use_mesh(mesh, min_rows=8):
+            reg.fit(x, y, iters=3)
+            res = [reg.last_fit_report["layer_nll"], reg.logpdf(x, y), reg.logpdf(x, y, posterior=True),
+                   reg.predict(x_test, num_samples=5, normals=normals)]
+        counts = GK.counters()
+        out.append(res)
+        if device == "cuda":
+            assert reg.last_fit_report["graph_replays"] > 0
+            assert counts["gram_kernel_launches"] > 0 and counts["gram_bwd_kernel_launches"] > 0
+            assert counts["gram_eval_cuda_calls"] == 0 and counts["gram_plain_cuda_calls"] == 0
+    for a, b in zip(*out):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-9)
