@@ -166,7 +166,15 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    launch checks; the split predictive and both scores against one
    device), the dense model at n = 2000 through the distributed Cholesky,
    and float64 at n = 2000, p = 4 against one device (1e-8).
-16. Small-input agreement: a float64 fit_predict (p=3, n=100, sparse with
+16. The traced and profiled fit (``[trace]`` lines, :func:`phase_trace`):
+   ``fit_predict(..., trace=True)`` of the bench's sparse request at full
+   width and depth (optax's zoom-line-search L-BFGS in the per-layer
+   driver; one ``lbfgs iter`` line per iteration, each finite; the ``10k``
+   gates), the dense model at n = 2000 traced, float64 at n = 2000, p = 4
+   traced on the card against the CPU (1e-8 relative), and
+   ``fit(profile_dir=)`` of a traced and of a cold graphed fit, whose
+   ``*.pt.trace.json`` must hold device events of both Gram kernels.
+17. Small-input agreement: a float64 fit_predict (p=3, n=100, sparse with
    8 inducing points and dense, ``replace`` True and False) through the
    scan path on the card (graphed) against the same run on the CPU (eager;
    the CPU route is held against the JAX package by the test suite), rtol
@@ -177,9 +185,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    all on the card, from the same normals (rtol 1e-6); and the greedy
    search at n = 64, p = 4, sparse and dense, on the card against the CPU
    (the same order, NLLs to rtol 1e-6).
-17. Summary: ``[main]``, ``[dense]``, ``[ancestral]``, ``[logpdf]``,
+18. Summary: ``[main]``, ``[dense]``, ``[ancestral]``, ``[logpdf]``,
    ``[free]``, ``[restarts]``, ``[batched]``, ``[greedy]``, ``[configs]``,
-   ``[serve]``, ``[unroll]``, ``[examples]`` and ``[mesh]`` JSON lines, a ``kernels``
+   ``[serve]``, ``[unroll]``, ``[examples]``, ``[mesh]`` and ``[trace]`` JSON lines, a ``kernels``
    JSON line (launches of the sparse and the dense graphed cold runs, the
    scan-route scores' cold runs and the sparse joint fit; the sample-axis
    route's from the ``[ancestral]`` sparse cold and dense requests and the
@@ -189,7 +197,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    warmup; the ``[unroll]`` phase's cold fits and predicts; the
    ``[examples]`` phase's ``--quick`` runs; the ``[mesh]`` phase's sparse
    cold and dense mesh requests, ``launches_by_path["mesh"]``, with the
-   per-shard shapes' rows), the card line, and last
+   per-shard shapes' rows; the ``[trace]`` phase's sparse request and
+   dense fit), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` additionally traces one warm (graphed) fit_predict of each
@@ -2827,6 +2836,182 @@ def phase_unroll(device):
     return res
 
 
+#: The float64 traced fit on the card against the same fit on the CPU
+#: (``[trace]``), the bound of the other float64 route checks.
+TRACE_TOL_F64 = 1e-8
+_LBFGS_LINE = r"lbfgs iter (\d+): objective (\S+)"
+
+
+def traced(fn):
+    """``fn()`` with its standard output captured; returns ``(out, the
+    objectives of its lbfgs iter lines)``."""
+    import contextlib
+    import io
+    import re
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, [float(v) for _, v in re.findall(_LBFGS_LINE, buf.getvalue())]
+
+
+def check_trace_lines(tag, objectives, rep):
+    """One finite objective printed per L-BFGS iteration of the report; one
+    host read per iteration and per line-search step, one evaluation per
+    step and one at each layer's start."""
+    want = int(np.sum(rep["layer_iters"]))
+    if len(objectives) != want or not np.all(np.isfinite(objectives)):
+        raise AssertionError(f"{tag}: {len(objectives)} lbfgs iter lines for {want} iterations, "
+                             f"finite: {bool(np.all(np.isfinite(objectives)))}")
+    if not rep["trace"] or rep["fused"] is not False:
+        raise AssertionError(f"{tag}: the fit did not run the traced per-layer driver: {rep}")
+    steps = rep["linesearch_trials"]
+    if rep["host_syncs"] != want + steps or rep["evaluations"] != len(rep["layer_iters"]) + steps:
+        raise AssertionError(f"{tag}: host reads {rep['host_syncs']} and evaluations "
+                             f"{rep['evaluations']} for {want} iterations and {steps} line-search "
+                             "steps (one read per iteration and per step, one evaluation per step "
+                             "and one per layer)")
+
+
+def profile_kernel_events(profile_dir):
+    """The one ``*.pt.trace.json`` in ``profile_dir``: its device kernel
+    events counted by the Gram kernels' names, and every kernel event."""
+    import glob
+
+    files = glob.glob(os.path.join(profile_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"{profile_dir}: {len(files)} *.pt.trace.json files, expected 1")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in name for name in kernels)
+             for k in ("gram_tile_kernel", "gram_bwd_kernel", "gram_bwd_reduce")}
+    return found, len(kernels), os.path.getsize(files[0])
+
+
+def phase_trace(device):
+    """The traced and profiled fit at full width (``[trace]`` lines):
+    ``fit(trace=True)`` runs the per-layer driver with optax's zoom-line-
+    search L-BFGS (``gpar_torch/params/zoom.py``), printing one ``lbfgs
+    iter`` line per iteration; ``fit(profile_dir=)`` runs under
+    ``torch.profiler`` and writes ``*.pt.trace.json``.
+
+    - The bench's sparse request (n = 10 000, p = 16, 256 inducing points,
+      10 iterations per layer, 100 samples at 1024 test points, float32)
+      through ``fit_predict(..., trace=True)``: its lines counted (one per
+      iteration, each finite), the ``10k`` gates on its predict, wall-clock,
+      evaluations, host reads, launches and peak memory.
+    - The dense model at n = 2000, 10 iterations, traced.
+    - float64 at n = 2000, p = 4 (64 inducing points): the traced fit on
+      the card against the same traced fit on the CPU, layer NLLs within
+      :data:`TRACE_TOL_F64` relative.
+    - ``fit(profile_dir=tmp, iters=3)`` of the bench's model at n = 2000,
+      p = 4 (the trace records every operator the host dispatches): one
+      traced fit and one cold default fit (the graph cache cleared, so its
+      step is captured under the profiler); each trace must hold device
+      events of ``gram_tile_kernel`` and ``gram_bwd_kernel``.
+    """
+    import tempfile
+
+    import torch
+
+    import gpar_torch
+    from gpar_torch import GPARRegressor
+    from gpar_torch.models import graphs
+
+    P = "[trace]"
+    gpar_torch.config.epsilon = 1e-6
+    res = {}
+
+    def line(tag, rep, wall, peak, c, n_lines):
+        print(f"{P} {tag}: {wall:.3f} s (fit {rep['wall_clock_s']:.3f} s); {n_lines} lbfgs iter lines "
+              f"for {int(np.sum(rep['layer_iters']))} iterations; objective evaluations "
+              f"{rep['evaluations']}; line-search steps {rep['linesearch_trials']}; L-BFGS host reads "
+              f"{rep['host_syncs']}; gram kernel launches {c['gram_kernel_launches']}, backward "
+              f"launches {c['gram_bwd_kernel_launches']} for {c['gram_autograd_calls']} Grams under "
+              f"autograd; plain-route CUDA Grams {c['gram_plain_cuda_calls']}, gram_eval on CUDA "
+              f"{c['gram_eval_cuda_calls']}; peak device memory {peak:.2f} GiB; sum of layer NLLs "
+              f"{float(np.sum(rep['layer_nll'])):.3f}")
+        return dict(wall_s=wall, fit_s=rep["wall_clock_s"], lines=n_lines,
+                    iterations=int(np.sum(rep["layer_iters"])), evaluations=rep["evaluations"],
+                    linesearch_steps=rep["linesearch_trials"], host_syncs=rep["host_syncs"],
+                    launches=c["gram_kernel_launches"], bwd_launches=c["gram_bwd_kernel_launches"],
+                    peak_gib=peak, nll_sum=float(np.sum(rep["layer_nll"])))
+
+    # The bench's sparse request, traced.
+    n, n_test = 10_000, 1024
+    x, y, f = make_data(n, 16)
+    test_idx = np.arange(n)[:: n // n_test][:n_test]
+    reg = GPARRegressor(**model_kwargs(x), device=device)
+    gen = torch.Generator(device).manual_seed(0)
+    (out, objectives), wall, peak, c = launches_checked("sparse traced fit_predict", lambda: traced(
+        lambda: reg.fit_predict(x, y, x[test_idx], num_samples=100, credible_bounds=True, iters=10,
+                                trace=True, generator=gen)), backward=True)
+    rep = reg.last_fit_report
+    check_trace_lines("sparse", objectives, rep)
+    res["sparse"] = line("sparse n=10000 p=16 fit_predict(trace=True, iters=10)", rep, wall, peak, c,
+                         len(objectives))
+    res["sparse"].update(check_quality(P, "sparse traced predict", out, rep, f[test_idx]))
+
+    # The dense model at n = 2000, traced.
+    x, y, _ = make_data(2000, 16)
+    kw = dict(model_kwargs(x), x_ind=None)
+    reg = GPARRegressor(**kw, device=device)
+    (_, objectives), wall, peak, c = launches_checked("dense traced fit", lambda: traced(
+        lambda: reg.fit(x, y, iters=10, trace=True)), backward=True)
+    rep = reg.last_fit_report
+    check_trace_lines("dense", objectives, rep)
+    res["dense"] = line("dense n=2000 p=16 fit(trace=True, iters=10)", rep, wall, peak, c,
+                        len(objectives))
+
+    # float64: the card against the CPU.
+    x, y, _ = make_data(2000, 4, seed=3)
+    x, y = x.astype(np.float64), y.astype(np.float64)
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        r = GPARRegressor(**model_kwargs(x, n_ind=64), device=dev, dtype=torch.float64)
+        t0 = time.perf_counter()
+        _, objectives = traced(lambda: r.fit(x, y, iters=10, trace=True))
+        check_trace_lines(f"float64 {dev}", objectives, r.last_fit_report)
+        fits[dev] = (r.last_fit_report, objectives, time.perf_counter() - t0)
+    gap = rel_diff(fits["cuda"][0]["layer_nll"], fits["cpu"][0]["layer_nll"])
+    print(f"{P} float64 sparse n=2000 p=4: traced fit on the card {fits['cuda'][2]:.3f} s, on the CPU "
+          f"{fits['cpu'][2]:.3f} s; layer NLLs relative {gap:.3e} (limit {TRACE_TOL_F64:g}); the same "
+          f"number of lbfgs iter lines: {len(fits['cuda'][1]) == len(fits['cpu'][1])}")
+    if gap > TRACE_TOL_F64:
+        raise AssertionError(f"float64 traced fit: card against CPU {gap:.3e}")
+    res["float64"] = dict(rel_layer_nll=gap, card_s=fits["cuda"][2], cpu_s=fits["cpu"][2])
+
+    # Profiled fits: their traces must name both kernels.  Small (p = 4, 3
+    # iterations): the trace records every operator the host dispatches.
+    x, y, _ = make_data(2000, 4)
+    for tag, kw in (("traced", dict(trace=True)), ("default cold", {})):
+        if not kw:
+            graphs.clear_cache()  # the step is captured inside the profiled window
+        reg = GPARRegressor(**model_kwargs(x), device=device)
+        with tempfile.TemporaryDirectory() as d:
+            (_, objectives), wall, peak, c = launches_checked(f"profiled {tag} fit", lambda: traced(
+                lambda: reg.fit(x, y, iters=3, profile_dir=d, **kw)), backward=True)
+            found, n_kernels, size = profile_kernel_events(d)
+        rep = reg.last_fit_report
+        print(f"{P} fit(profile_dir=, {tag}, iters=3) sparse n=2000 p=4: {wall:.3f} s; route "
+              f"fused={rep['fused']}, cuda_graphs={rep['cuda_graphs']}, graph replays "
+              f"{rep['graph_replays']}; trace file {size / 2**20:.1f} MiB, {n_kernels} device kernel "
+              f"events, by name {found}; launches counted {c['gram_kernel_launches']} forward, "
+              f"{c['gram_bwd_kernel_launches']} backward")
+        if not (found["gram_tile_kernel"] > 0 and found["gram_bwd_kernel"] > 0):
+            raise AssertionError(f"profiled {tag} fit: its trace lacks the Gram kernels: {found}")
+        if tag == "traced":
+            check_trace_lines("profiled traced", objectives, rep)
+        elif not rep["cuda_graphs"] or rep["graph_replays"] <= 0 or rep["capture_s"] <= 0:
+            raise AssertionError(f"profiled default fit: no graphs captured and replayed: {rep}")
+        res[f"profiled {tag}"] = dict(wall_s=wall, cuda_graphs=rep["cuda_graphs"],
+                                      kernel_events=n_kernels, by_name=found, trace_mib=size / 2**20,
+                                      launches=c["gram_kernel_launches"],
+                                      bwd_launches=c["gram_bwd_kernel_launches"])
+    return res
+
+
 #: The examples' workloads (``examples/*.py``): the loader's call, the
 #: script's constructor arguments verbatim, its fit and predict keywords, its
 #: metric with the ``check_metric`` name and bound, its jitter, and the
@@ -3074,6 +3259,7 @@ def main(argv):
     unroll_res = timed("unroll", phase_unroll, "cuda")
     examples_res = timed("examples", phase_examples, "cuda")
     mesh_res = timed("mesh", phase_mesh, "cuda", main_res)
+    trace_res = timed("trace", phase_trace, "cuda")
     timed("small", phase_small_agreement)
     timed("small greedy", phase_small_greedy)
     if "--profile" in argv:
@@ -3095,14 +3281,16 @@ def main(argv):
                         "serve": serve_res["launches"], "warmup": serve_res["warmup"]["launches"],
                         "unroll": sum(r["launches"] for r in unroll_runs),
                         "examples": sum(r["launches"] for r in examples_res.values()),
-                        "mesh": mesh_res["sparse"]["launches"] + mesh_res["dense"]["mesh"]["launches"]},
+                        "mesh": mesh_res["sparse"]["launches"] + mesh_res["dense"]["mesh"]["launches"],
+                        "trace": trace_res["sparse"]["launches"] + trace_res["dense"]["launches"]},
                "gram_bwd": {"free": free_res["sparse"]["bwd_launches"],
                             "configs": sum(r["bwd_launches"] for r in configs_res.values()),
                             "warmup": serve_res["warmup"]["bwd_launches"],
                             "unroll": sum(r["bwd_launches"] for r in unroll_runs),
                             "examples": sum(r["bwd_launches"] for r in examples_res.values()),
                             "mesh": (mesh_res["sparse"]["bwd_launches"]
-                                     + mesh_res["dense"]["mesh"]["bwd_launches"])}}
+                                     + mesh_res["dense"]["mesh"]["bwd_launches"]),
+                            "trace": trace_res["sparse"]["bwd_launches"] + trace_res["dense"]["bwd_launches"]}}
     kernels = {"kernels": []}
     for name, (source, replaces, count, check) in sources.items():
         big = next(r for r in rows[name] if r["tree"] == "gated" and (r["n"], r["m"]) == SCAN_SHAPES[0])
@@ -3117,9 +3305,10 @@ def main(argv):
             # first cached predicts and scores (forward only) and its
             # request after warmup, the [unroll] phase's cold unrolled fits
             # and unrolled predicts (sparse at full width, dense at
-            # n = 2000), the [examples] phase's --quick runs and the [mesh]
+            # n = 2000), the [examples] phase's --quick runs, the [mesh]
             # phase's sparse cold request and dense n = 2000 request on the
-            # 4-shard virtual mesh, each counted from 0.
+            # 4-shard virtual mesh and the [trace] phase's traced sparse
+            # request and dense n = 2000 fit, each counted from 0.
             "launches": main_res[count] + dense_res[count] + sum(by_path[name].values()),
             "launches_by_path": {"sparse": main_res[count], "dense": dense_res[count], **by_path[name]},
             "check": check,
@@ -3215,6 +3404,7 @@ def main(argv):
     print("[unroll] " + json.dumps(unroll_res))
     print("[examples] " + json.dumps(examples_res))
     print("[mesh] " + json.dumps(mesh_res))
+    print("[trace] " + json.dumps(trace_res))
     print("[phases] wall-clock s " + json.dumps(phase_s))
     print(json.dumps(kernels))
     print(card)

@@ -1121,7 +1121,8 @@ def make_scan_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1, restar
     key (``models/graphs.py``); otherwise they run eagerly.  ``stats``
     (``params.lbfgs.new_stats()``) receives the counters,
     ``graph_replays``, ``replay_counts`` (what the replays added to the
-    Gram counters) and ``capture_s``."""
+    Gram counters), ``capture_s`` and ``cuda_graphs`` (whether the step ran
+    as CUDA graphs)."""
 
     def program(z_all, x, xs_rows=None, stats=None, normals=None):
         stats = new_stats() if stats is None else stats
@@ -1131,8 +1132,9 @@ def make_scan_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1, restar
         pert = _perturbations(normals, restarts, restart_scale,
                               (plan.p, restarts - 1, plan.s_max), x)
         args = (z_all, x, rows, zi, pert)
+        graphed = device.type == "cuda" and cuda_graphs and (mesh is None or mesh.virtual)
         with _cusolver(device):
-            if device.type == "cuda" and cuda_graphs and (mesh is None or mesh.virtual):
+            if graphed:
                 from .graphs import graphed_step
 
                 step, run, capture_s = graphed_step(plan, x.shape[0], zi.shape[0], dtype, device,
@@ -1147,6 +1149,7 @@ def make_scan_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1, restar
         stats["graph_replays"] = run.replays - replays0
         stats["replay_counts"] = {k: v - replayed0[k] for k, v in run.replayed.items()}
         stats["capture_s"] = capture_s
+        stats["cuda_graphs"] = graphed
         return out
 
     return program

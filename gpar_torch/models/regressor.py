@@ -115,9 +115,19 @@ Design, in PyTorch terms:
 
 Both the sparse model (``x_ind`` given) and the dense one (``x_ind=None``,
 the exact marginal likelihood over the data rows) run through every entry
-point above.  Not ported: ``trace=`` and ``profile_dir=``.
+point above.
+
+- The traced and profiled fit (``gpar_tpu/models/regressor.py:795-809,
+  1146-1202``): ``fit(trace=True)`` or ``fit(jit=False)`` runs the
+  per-layer driver with its progress line whatever ``fused`` says;
+  ``trace=True`` optimises each position with optax's zoom-line-search
+  L-BFGS (``params/zoom.py``, the port's own copy), printing ``  lbfgs iter
+  k: objective v`` per iteration.  ``fit(profile_dir=d)`` runs the whole
+  fit, greedy search included, under ``torch.profiler`` and writes
+  ``d/*.pt.trace.json``.
 """
 
+import contextlib
 import functools
 import time
 
@@ -310,6 +320,23 @@ def _model_generator(
         return f, noise_variance
 
     return model
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir, device):
+    """``torch.profiler.profile`` over the block, writing its trace to
+    ``profile_dir/*.pt.trace.json`` when the block ends (the counterpart of
+    ``jax.profiler.trace(profile_dir)``); no profiler for None."""
+    if profile_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(profile_dir))):
+        yield
 
 
 def _construct_gpar(reg, vs, m, p):
@@ -541,7 +568,7 @@ class GPARRegressor:
 
     def fit(self, x, y, w=None, greedy=False, fix=True, iters=None, gtol=1e-9, memory_size=10,
             fused=True, restarts=1, cuda_graphs=True, restart_scale=1.0, generator=None,
-            restart_normals=None, mesh=None):
+            restart_normals=None, mesh=None, trace=False, profile_dir=None, jit=True):
         """Fit the model to data (``gpar/regression.py:391-459``), one
         L-BFGS per layer position.  With ``fix=True`` (default) position
         ``pi`` optimises layer ``pi``'s variables and the layer is fixed
@@ -590,18 +617,41 @@ class GPARRegressor:
         the greedy scorer's candidates, shard over the mesh; a fit with
         fewer than ``max(config.shard_min_rows, mesh size)`` rows takes the
         unrolled route, which shards through the GP core, and
-        ``fused="batched"`` raises."""
-        with mesh_context(mesh):
+        ``fused="batched"`` raises.
+
+        ``trace=True`` (the reference's ``minimise_l_bfgs_b(..., trace=)``)
+        or ``jit=False`` runs the per-layer driver, with its progress line,
+        whatever ``fused`` says (``last_fit_report["fused"]`` is False), as
+        the JAX package does; under a mesh it shards through the GP core.
+        With ``trace=True`` every position runs optax's L-BFGS with its zoom
+        line search (``params/zoom.py``) and prints ``  lbfgs iter k:
+        objective v`` after each iteration; it is single-start, so
+        ``restarts > 1`` raises ``ValueError``.  ``greedy=True`` still runs
+        the batched search untraced first.  ``jit=False`` alone is the
+        per-layer driver of ``fused=False``.
+
+        ``profile_dir``: the whole fit, greedy search included, runs under
+        ``torch.profiler.profile`` (CPU activity, and CUDA activity on a
+        CUDA device), whose trace ``torch.profiler.tensorboard_trace_handler``
+        writes to ``profile_dir/*.pt.trace.json`` (TensorBoard's layout).
+        The graphed scan fit captures and replays its CUDA graphs under the
+        profiler; ``last_fit_report["cuda_graphs"]`` says whether the fit's
+        step ran as CUDA graphs."""
+        with mesh_context(mesh), _profiled(profile_dir, self.device):
             self._fit(x, y, w, greedy, fix, iters, gtol, memory_size, fused, restarts,
-                      cuda_graphs, restart_scale, generator, restart_normals)
+                      cuda_graphs, restart_scale, generator, restart_normals, trace, jit)
 
     def _fit(self, x, y, w, greedy, fix, iters, gtol, memory_size, fused, restarts, cuda_graphs,
-             restart_scale, generator, restart_normals):
+             restart_scale, generator, restart_normals, trace=False, jit=True):
+        if fused not in (True, False, "batched", "unroll"):
+            raise ValueError(f"fused must be True, False, 'batched' or 'unroll'; got {fused!r}")
+        if trace or not jit:
+            # The per-layer driver, whose progress is visible
+            # (``gpar_tpu/models/regressor.py:1146-1151``).
+            fused = False
         if fused == "batched" and not fix:
             raise ValueError("fused='batched' requires independent layer fits; fit(fix=False) "
                              "optimises layers jointly: use fused=True or fused=False.")
-        if fused not in (True, False, "batched", "unroll"):
-            raise ValueError(f"fused must be True, False, 'batched' or 'unroll'; got {fused!r}")
         if int(restarts) != restarts or restarts < 1:
             raise ValueError(f"restarts must be a positive integer, got {restarts!r}")
         restarts = int(restarts)
@@ -632,10 +682,12 @@ class GPARRegressor:
             stats = new_stats()
             nll0, nll, its = self._fit_per_layer_loop(iters, gtol, memory_size, fix,
                                                       progress=fused is False, stats=stats,
-                                                      **starts)
+                                                      trace=trace, **starts)
             report = {"layer_nll0": np.asarray(nll0), "layer_nll": np.asarray(nll),
                       "layer_iters": np.asarray(its), "fused": fused, "graph_replays": 0,
                       **stats}
+        report.setdefault("cuda_graphs", False)
+        report["trace"] = bool(trace)
         report["restarts"] = restarts
         report["wall_clock_s"] = time.perf_counter() - t0
         if greedy:
@@ -880,7 +932,8 @@ class GPARRegressor:
         return {"layer_nll0": nll0, "layer_nll": nll, "layer_iters": its, "fused": True, **stats}
 
     def _fit_per_layer_loop(self, iters, gtol, memory_size, fix=True, progress=True, stats=None,
-                            restarts=1, restart_scale=1.0, generator=None, normals=None):
+                            restarts=1, restart_scale=1.0, generator=None, normals=None,
+                            trace=False):
         """One L-BFGS per position through ``GPAR.logpdf``: the per-layer
         driver (``gpar_tpu/models/regressor.py:1146-1272``), and with
         ``progress`` off the unrolled fit (``_build_fused_fit_body`` and
@@ -888,8 +941,10 @@ class GPARRegressor:
         reference's ``Counter(name="Training conditionals", total=p)``
         counts the positions (``gpar/regression.py:417``).  ``stats``
         (``new_stats()``) receives the optimiser's host reads and
-        backtracking counts.  Returns the initial and final NLLs and the
-        iterations per position."""
+        backtracking counts.  ``trace``: each position's optimiser is the
+        printing zoom-line-search L-BFGS (``minimise_l_bfgs_b(trace=True)``).
+        Returns the initial and final NLLs and the iterations per
+        position."""
         if normals is not None and len(normals) != self.p:
             raise ValueError(f"restart_normals has {len(normals)} layers; expected {self.p}")
         y_cached = self._y_cache
@@ -925,6 +980,7 @@ class GPARRegressor:
                     generator=generator,
                     normals=None if normals is None else normals[pi],
                     stats=stats,
+                    trace=trace,
                 )
                 nll0.append(f0)
                 nll.append(f)
