@@ -65,7 +65,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    iteration; held to the benchmark's ``10k`` quality gates; every Gram
    must have gone through the kernel (no plain-route Gram, no
    ``gram_eval`` on the card), every Gram taken under autograd through the
-   backward kernel, and the graph replays must have launched both.  Cold
+   backward kernel, and the fit must have replayed the step's graphs.  Cold
    (captures included) and warm wall-clocks; the two runs must give
    identical results (no atomics); the host reads are held to one per
    L-BFGS iteration, backtracking trial and episode, and one per fit.
@@ -1184,7 +1184,6 @@ def phase_main_path(device, dense=False):
     res = {}
     for tag, (out, wall, rep, counts) in (("graphed cold", cold), ("graphed warm", warm)):
         res[tag] = quality(tag, out, rep)
-        rc = rep["replay_counts"]
         bound = (int(np.sum(rep["layer_iters"])) + rep["linesearch_trials"] + rep["linesearch_episodes"]
                  + 1)
         print(timing(tag, wall, rep) + f"; capture {rep['capture_s']:.3f} s; graph replays "
@@ -1192,16 +1191,13 @@ def phase_main_path(device, dense=False):
               f"{int(np.sum(rep['layer_iters']))} + backtracking trials {rep['linesearch_trials']} + "
               f"episodes {rep['linesearch_episodes']} + 1 for the results); factorisations past the "
               f"first jitter rung {rep['ladder_escalations']}")
-        print(f"{P} {tag}: gram kernel launches {counts['gram_kernel_launches']} (replays "
-              f"{rc['gram_kernel_launches']}), backward kernel launches {counts['gram_bwd_kernel_launches']} "
-              f"(replays {rc['gram_bwd_kernel_launches']}) for {counts['gram_autograd_calls']} Grams under "
-              f"autograd (replays {rc['gram_autograd_calls']}), plain-route CUDA Grams "
-              f"{counts['gram_plain_cuda_calls']}, gram_eval on CUDA {counts['gram_eval_cuda_calls']}")
+        print(f"{P} {tag}: gram kernel launches {counts['gram_kernel_launches']}, backward kernel "
+              f"launches {counts['gram_bwd_kernel_launches']} for {counts['gram_autograd_calls']} Grams "
+              f"under autograd, plain-route CUDA Grams {counts['gram_plain_cuda_calls']}, gram_eval on "
+              f"CUDA {counts['gram_eval_cuda_calls']} (replays included)")
         if not rep["fused"] or rep["graph_replays"] <= 0:
             raise AssertionError(f"{tag}: the fit did not replay the scan step's graphs: {rep}")
         check_counts(tag, counts)
-        if not (rc["gram_kernel_launches"] > 0 and 0 < rc["gram_bwd_kernel_launches"] == rc["gram_autograd_calls"]):
-            raise AssertionError(f"{tag}: the graph replays did not launch both kernels: {rc}")
         if rep["host_syncs"] > bound:
             raise AssertionError(f"{tag}: {rep['host_syncs']} host reads, more than {bound}")
     print(f"{P} the cached graphed step (its buffers and its graphs' memory pools) pins "
@@ -3192,21 +3188,15 @@ def phase_profile(state, out_dir, tag="main"):
           f"kernels (busy {100 * busy / wall_ms:.1f}%), of which gram kernel {fwd:.2f} ms ({n_fwd} "
           f"launches), gram backward kernel {bwd:.2f} ms ({n_bwd}) and its reduction {red:.2f} ms "
           f"({n_red}); graph replays {rep['graph_replays']}, host reads {rep['host_syncs']}; table in {out_dir}")
-    # The counters against the profiler: all launches, or, if the profiler
-    # does not see the kernels inside replayed graphs, the eager ones (the
-    # replays' share is the counts recorded at capture times the replays).
+    # The counters' totals (each graph replay adds what its capture
+    # launched) against the profiler's kernel events, which CUPTI records
+    # inside graph replays too.
     total = (counts["gram_kernel_launches"], counts["gram_bwd_kernel_launches"])
-    rc = rep["replay_counts"]
-    eager = (total[0] - rc["gram_kernel_launches"], total[1] - rc["gram_bwd_kernel_launches"])
     seen = (n_fwd, n_bwd)
-    verdict = ("agree, replays included" if seen == total else
-               "agree with the eager launches only: the profiler does not see kernels inside graphs"
-               if seen == eager else "DIFFER")
-    print(f"[profile {tag}] launch counters of that run: gram kernel {total[0]}, backward {total[1]} (from "
-          f"replays, by the counts recorded at capture: {rc['gram_kernel_launches']}, "
-          f"{rc['gram_bwd_kernel_launches']}); profiler's kernel events: gram_tile_kernel {n_fwd}, "
-          f"gram_bwd_kernel {n_bwd}: {verdict}")
-    if verdict == "DIFFER":
+    print(f"[profile {tag}] launch counters of that run, replays included: gram kernel {total[0]}, "
+          f"backward {total[1]}; profiler's kernel events: gram_tile_kernel {n_fwd}, gram_bwd_kernel "
+          f"{n_bwd}: {'agree' if seen == total else 'DIFFER'}")
+    if seen != total:
         raise AssertionError("the launch counters disagree with the profiler's kernel events")
 
 

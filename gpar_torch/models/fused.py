@@ -100,7 +100,6 @@ import torch
 import torch.nn.functional as F
 
 from ..config import config
-from ..ops import gram_kernel as GK
 from ..ops.kernels import EQ, RQ, Const, Linear, gram, kdiag
 from ..ops.linalg import (
     LOG_2PI,
@@ -121,6 +120,7 @@ from ..parallel.dense import _pad_geometry, chol_logpdf, masked_rows
 from ..parallel.mesh import all_gather, broadcast, devices_of, split_rows, to_device
 from ..parallel.sharded import sharded_titsias_panels
 from ..params.store import _Bounded, _Identity, _LowerBounded
+from ..utils.spans import span
 
 __all__ = [
     "ScanFitPlan",
@@ -902,9 +902,11 @@ class ScanStep:
         """``(z_all, layer_nll, layer_iters, layer_nll0)`` after the last
         layer: the latents stay on the device; the per-layer results and
         the escalation count come back in one read
-        (``stats["ladder_escalations"]``)."""
+        (``stats["ladder_escalations"]``), under the span ``gpar.fit.read``."""
         stats["host_syncs"] += 1
-        out = torch.cat([self.out.reshape(-1), self.escalations.to(self.out.dtype).reshape(1)]).cpu()
+        with span("gpar.fit.read"):
+            out = torch.cat([self.out.reshape(-1),
+                             self.escalations.to(self.out.dtype).reshape(1)]).cpu()
         out, stats["ladder_escalations"] = out[:-1].numpy().reshape(3, -1), int(out[-1])
         return self.z_ext[:-1].clone(), out[0], out[2].astype(np.int64), out[1]
 
@@ -1039,7 +1041,6 @@ class Eager:
     """Runs a :class:`ScanStep`'s bodies now, without graphs."""
 
     replays = 0  # no graphs, no replays
-    replayed = dict.fromkeys(GK.counters(), 0)
 
     def __init__(self, step):
         self.step = step
@@ -1051,14 +1052,20 @@ class Eager:
 def run_scan_fit(step, run, iters, stats=None):
     """The loop over layers: per layer, ``layer_init``, up to ``iters``
     L-BFGS iterations and ``layer_finish``, each body run by ``run``
-    (eagerly or from its graph).  The host reads the L-BFGS
+    (eagerly or from its graph), each run under the span
+    ``gpar.fit.launch``.  The host reads the L-BFGS
     flags once per iteration (and per backtracking trial) and the results
     once at the end.  Returns :meth:`ScanStep.results`."""
     stats = new_stats() if stats is None else stats
+
+    def launch(name):
+        with span("gpar.fit.launch"):
+            run(name)
+
     for _ in range(step.plan.p):
-        run("layer_init")
-        _iterations(run, step.opt, iters, stats)
-        run("layer_finish")
+        launch("layer_init")
+        _iterations(launch, step.opt, iters, stats)
+        launch("layer_finish")
     return step.results(stats)
 
 
@@ -1120,34 +1127,35 @@ def make_scan_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1, restar
     ``cuda_graphs`` the step's bodies replay CUDA graphs captured once per
     key (``models/graphs.py``); otherwise they run eagerly.  ``stats``
     (``params.lbfgs.new_stats()``) receives the counters,
-    ``graph_replays``, ``replay_counts`` (what the replays added to the
-    Gram counters), ``capture_s`` and ``cuda_graphs`` (whether the step ran
-    as CUDA graphs)."""
+    ``graph_replays``, ``capture_s`` and ``cuda_graphs`` (whether the step
+    ran as CUDA graphs).  The host set-up up to the first body run is the
+    span ``gpar.fit.prepare``."""
 
     def program(z_all, x, xs_rows=None, stats=None, normals=None):
         stats = new_stats() if stats is None else stats
         dtype, device = x.dtype, x.device
-        rows = xs_rows if rows_traced else plan_tensors(plan, dtype, device)
-        zi = _inducing(x_ind, plan.m, dtype, device)
-        pert = _perturbations(normals, restarts, restart_scale,
-                              (plan.p, restarts - 1, plan.s_max), x)
-        args = (z_all, x, rows, zi, pert)
         graphed = device.type == "cuda" and cuda_graphs and (mesh is None or mesh.virtual)
         with _cusolver(device):
-            if graphed:
-                from .graphs import graphed_step
+            with span("gpar.fit.prepare"):
+                rows = xs_rows if rows_traced else plan_tensors(plan, dtype, device)
+                zi = _inducing(x_ind, plan.m, dtype, device)
+                pert = _perturbations(normals, restarts, restart_scale,
+                                      (plan.p, restarts - 1, plan.s_max), x)
+                args = (z_all, x, rows, zi, pert)
+                if graphed:
+                    from .graphs import graphed_step
 
-                step, run, capture_s = graphed_step(plan, x.shape[0], zi.shape[0], dtype, device,
-                                                    iters, gtol, memory_size, args, restarts, mesh)
-            else:
-                step = new_step(plan, x.shape[0], zi.shape[0], dtype, device, gtol, memory_size,
-                                restarts, mesh)
-                step.load(*args)
-                run, capture_s = Eager(step), 0.0
-            replays0, replayed0 = run.replays, dict(run.replayed)
+                    step, run, capture_s = graphed_step(plan, x.shape[0], zi.shape[0], dtype,
+                                                        device, iters, gtol, memory_size, args,
+                                                        restarts, mesh)
+                else:
+                    step = new_step(plan, x.shape[0], zi.shape[0], dtype, device, gtol,
+                                    memory_size, restarts, mesh)
+                    step.load(*args)
+                    run, capture_s = Eager(step), 0.0
+            replays0 = run.replays
             out = run_scan_fit(step, run, iters, stats=stats)
         stats["graph_replays"] = run.replays - replays0
-        stats["replay_counts"] = {k: v - replayed0[k] for k, v in run.replayed.items()}
         stats["capture_s"] = capture_s
         stats["cuda_graphs"] = graphed
         return out
@@ -1238,9 +1246,10 @@ def make_scan_free_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1,
                 z_ext[-1:].zero_()
                 out[:, pi] = torch.stack([f, f0, it.to(dtype)])
             stats["host_syncs"] += 1
-            res = torch.cat([out.reshape(-1), escalations.to(dtype).reshape(1)]).cpu()
+            with span("gpar.fit.read"):
+                res = torch.cat([out.reshape(-1), escalations.to(dtype).reshape(1)]).cpu()
         per_pos, stats["ladder_escalations"] = res[:-1].numpy().reshape(3, -1), int(res[-1])
-        stats.update(graph_replays=0, replay_counts=dict.fromkeys(GK.counters(), 0), capture_s=0.0)
+        stats.update(graph_replays=0, capture_s=0.0)
         return z_ext[:-1].clone(), per_pos[0], per_pos[2].astype(np.int64), per_pos[1]
 
     return program
@@ -1314,9 +1323,10 @@ def make_batched_fit_body(plan, iters, gtol, memory_size, restarts=1, restart_sc
             its = opt.state.it.reshape(p, R)[rows, best]
             out = torch.stack([f[rows, best], opt.f0.reshape(p, R)[:, 0], its.to(dtype)])
             stats["host_syncs"] += 1
-            res = torch.cat([out.reshape(-1), escalations.to(dtype).reshape(1)]).cpu()
+            with span("gpar.fit.read"):
+                res = torch.cat([out.reshape(-1), escalations.to(dtype).reshape(1)]).cpu()
         per_layer, stats["ladder_escalations"] = res[:-1].numpy().reshape(3, -1), int(res[-1])
-        stats.update(graph_replays=0, replay_counts=dict.fromkeys(GK.counters(), 0), capture_s=0.0)
+        stats.update(graph_replays=0, capture_s=0.0)
         return z_ext[:-1].clone(), per_layer[0], per_layer[2].astype(np.int64), per_layer[1]
 
     return program

@@ -59,6 +59,7 @@ import torch
 
 from ..config import config, mesh_descriptor
 from ..ops import gram_kernel as GK
+from ..utils.spans import span
 from .fused import new_step, plan_static_fingerprint
 
 __all__ = ["GraphedStep", "graphed_step", "clear_cache", "evictions", "cached_bytes", "CACHE_CAP"]
@@ -118,14 +119,13 @@ def _budget(device):
 
 class GraphedStep:
     """Every body of ``step`` captured once; ``self(name)`` replays body
-    ``name``.  ``capture_s`` is the wall-clock of warm-up and captures,
-    ``replays`` counts replays and ``replayed`` what they added to each
-    counter of ``ops.gram_kernel``."""
+    ``name``.  ``capture_s`` is the wall-clock of warm-up and captures, the
+    span ``gpar.fit.capture``; ``replays`` counts replays."""
 
     def __init__(self, step):
         device = step.device
         t0 = time.perf_counter()
-        with torch.cuda.device(device):
+        with span("gpar.fit.capture"), torch.cuda.device(device):
             warm = step.clone()
             side = torch.cuda.Stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
@@ -147,14 +147,11 @@ class GraphedStep:
             torch.cuda.synchronize(device)
         self.capture_s = time.perf_counter() - t0
         self.replays = 0
-        self.replayed = dict.fromkeys(GK.counters(), 0)  # counter increments from replays
 
     def __call__(self, name):
         self.graphs[name].replay()
         GK.add_counters(self.counts[name])
         self.replays += 1
-        for k, v in self.counts[name].items():
-            self.replayed[k] += v
 
 
 def _key(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size, restarts=1, mesh=None):

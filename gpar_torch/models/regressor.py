@@ -124,7 +124,8 @@ point above.
   L-BFGS (``params/zoom.py``, the port's own copy), printing ``  lbfgs iter
   k: objective v`` per iteration.  ``fit(profile_dir=d)`` runs the whole
   fit, greedy search included, under ``torch.profiler`` and writes
-  ``d/*.pt.trace.json``.
+  ``d/*.pt.trace.json``.  Under any recording profiler, ``fit`` and
+  ``predict`` mark their phases as ``gpar.*`` spans (``utils/spans.py``).
 """
 
 import contextlib
@@ -147,6 +148,7 @@ from ..parallel.mesh import canonical, split_rows, to_device
 from ..params.store import Vars, load_latents
 from ..utils.experiment import Counter
 from ..utils.rng import default_generator
+from ..utils.spans import span
 from .gpar import GPAR, per_output
 
 __all__ = ["GPARRegressor", "log_transform", "squishing_transform"]
@@ -536,30 +538,32 @@ class GPARRegressor:
         per-output normalisation (std == 0 -> 1), the closed-downwards row
         plan, and one upload of the inputs.  Under a greedy ordering the
         output columns (and weights) are permuted to layer order first; a
-        width mismatch raises before any state changes."""
-        y_np = self._permute_outputs(_uprank_np(y, self._np_dtype))
-        w_np = None if w is None else self._permute_outputs(_uprank_np(w, self._np_dtype))
-        x_np = _uprank_np(x, self._np_dtype)
-        y_np = np.asarray(self._transform_y(torch.as_tensor(y_np)), dtype=self._np_dtype)
-        self.n, self.m = x_np.shape
-        self.p = y_np.shape[1]
-        if self.normalise_y:
-            means, stds = [], []
-            for i in range(self.p):
-                y_i = y_np[~np.isnan(y_np[:, i]), i]
-                means.append(np.mean(y_i))
-                std = np.std(y_i, ddof=1) if y_i.size > 1 else 0.0
-                stds.append(std if std > 0 else 1.0)
-            self._means = np.asarray(means, dtype=self._np_dtype)[None, :]
-            self._stds = np.asarray(stds, dtype=self._np_dtype)[None, :]
-            y_np = (y_np - self._means) / self._stds
-        if w_np is None:
-            w_np = np.ones(y_np.shape, dtype=self._np_dtype)
-        self._x_np = x_np
-        self._set_outputs(y_np, w_np)
-        self.x = self._upload(x_np)
-        self._vars_ready = None
-        self.is_conditioned = True
+        width mismatch raises before any state changes.  The span
+        ``gpar.condition`` covers the call."""
+        with span("gpar.condition"):
+            y_np = self._permute_outputs(_uprank_np(y, self._np_dtype))
+            w_np = None if w is None else self._permute_outputs(_uprank_np(w, self._np_dtype))
+            x_np = _uprank_np(x, self._np_dtype)
+            y_np = np.asarray(self._transform_y(torch.as_tensor(y_np)), dtype=self._np_dtype)
+            self.n, self.m = x_np.shape
+            self.p = y_np.shape[1]
+            if self.normalise_y:
+                means, stds = [], []
+                for i in range(self.p):
+                    y_i = y_np[~np.isnan(y_np[:, i]), i]
+                    means.append(np.mean(y_i))
+                    std = np.std(y_i, ddof=1) if y_i.size > 1 else 0.0
+                    stds.append(std if std > 0 else 1.0)
+                self._means = np.asarray(means, dtype=self._np_dtype)[None, :]
+                self._stds = np.asarray(stds, dtype=self._np_dtype)[None, :]
+                y_np = (y_np - self._means) / self._stds
+            if w_np is None:
+                w_np = np.ones(y_np.shape, dtype=self._np_dtype)
+            self._x_np = x_np
+            self._set_outputs(y_np, w_np)
+            self.x = self._upload(x_np)
+            self._vars_ready = None
+            self.is_conditioned = True
 
     def _undo_transforms(self, y):
         if self.normalise_y and self._means is not None:
@@ -636,8 +640,9 @@ class GPARRegressor:
         writes to ``profile_dir/*.pt.trace.json`` (TensorBoard's layout).
         The graphed scan fit captures and replays its CUDA graphs under the
         profiler; ``last_fit_report["cuda_graphs"]`` says whether the fit's
-        step ran as CUDA graphs."""
-        with mesh_context(mesh), _profiled(profile_dir, self.device):
+        step ran as CUDA graphs.  The whole call is the span ``gpar.fit``
+        (``utils/spans.py`` lists the spans inside it)."""
+        with mesh_context(mesh), _profiled(profile_dir, self.device), span("gpar.fit"):
             self._fit(x, y, w, greedy, fix, iters, gtol, memory_size, fused, restarts,
                       cuda_graphs, restart_scale, generator, restart_normals, trace, jit)
 
@@ -838,7 +843,8 @@ class GPARRegressor:
                                               stats=stats)
         escalations = sum(sh["esc"].to(self.device) for sh in shards)
         f, its = f[:C], its[:C]
-        out = torch.cat([f, its.to(f.dtype), escalations.to(f.dtype).reshape(1)]).cpu().numpy()
+        with span("gpar.fit.read"):
+            out = torch.cat([f, its.to(f.dtype), escalations.to(f.dtype).reshape(1)]).cpu().numpy()
         if stats is not None:
             stats["host_syncs"] += 1
             stats["iterations"] = out[C:2 * C].astype(np.int64).tolist()
@@ -911,23 +917,24 @@ class GPARRegressor:
                   restart_scale=1.0, generator=None, normals=None):
         from .fused import make_batched_fit_body, make_scan_fit_body, make_scan_free_fit_body
 
-        names = self.vs.select(None)
-        plan = self._scan_fit_plan(names)
-        x_pad, rows = self._bucket_fit_inputs(plan)
-        width = plan.s_max if fix else plan.n_z  # a start's latents
-        common = (iters, gtol, memory_size, restarts, restart_scale)
-        if fused == "batched":
-            program = make_batched_fit_body(plan, *common, rows_traced=True)
-        elif fix:
-            program = make_scan_fit_body(plan, self.x_ind, *common, rows_traced=True,
-                                         cuda_graphs=cuda_graphs, mesh=self._mesh())
-        else:
-            program = make_scan_free_fit_body(plan, self.x_ind, *common, rows_traced=True,
-                                              mesh=self._mesh())
+        with span("gpar.fit.prepare"):
+            names = self.vs.select(None)
+            plan = self._scan_fit_plan(names)
+            x_pad, rows = self._bucket_fit_inputs(plan)
+            width = plan.s_max if fix else plan.n_z  # a start's latents
+            common = (iters, gtol, memory_size, restarts, restart_scale)
+            if fused == "batched":
+                program = make_batched_fit_body(plan, *common, rows_traced=True)
+            elif fix:
+                program = make_scan_fit_body(plan, self.x_ind, *common, rows_traced=True,
+                                             cuda_graphs=cuda_graphs, mesh=self._mesh())
+            else:
+                program = make_scan_free_fit_body(plan, self.x_ind, *common, rows_traced=True,
+                                                  mesh=self._mesh())
+            z0 = self.vs.latent_vector(names)
+            starts = self._layer_normals(normals, restarts, width, generator)
         stats = new_stats()
-        z, nll, its, nll0 = program(self.vs.latent_vector(names), x_pad, rows, stats=stats,
-                                    normals=self._layer_normals(normals, restarts, width,
-                                                                generator))
+        z, nll, its, nll0 = program(z0, x_pad, rows, stats=stats, normals=starts)
         self.vs.set_latent_vector(names, z)
         return {"layer_nll0": nll0, "layer_nll": nll, "layer_iters": its, "fused": True, **stats}
 
@@ -1024,7 +1031,8 @@ class GPARRegressor:
         num_samples, n) are the draws' standard normals and
         ``noise_normals`` (same shape) those of the noise that a latent
         draw feeds forward (``replace=False``); each defaults to draws from
-        ``generator``."""
+        ``generator``.  The route's tail, with its factors where they are
+        not cached, is the span ``gpar.predict.tail``."""
         from .fused import (
             build_scan_prior_plan, factor_slices, make_scan_ancestral_tail, make_scan_cached_tail,
             make_scan_posterior_factors, make_scan_predict_tail, make_scan_prior_tail,
@@ -1046,7 +1054,9 @@ class GPARRegressor:
         else:
             noise_normals = None  # the noise of a draw that feeds forward: none here
         if not config.scan_predict:
-            return self._sample_unrolled(x_np, w_np, p, posterior, latent, normals, noise_normals)
+            with span("gpar.predict.tail"):
+                return self._sample_unrolled(x_np, w_np, p, posterior, latent, normals,
+                                             noise_normals)
         pad = bucket_rows(nt) - nt
         x_t = self._upload(np.pad(x_np, ((0, pad), (0, 0))))
         w_t = self._upload(np.pad(w_np, ((0, pad), (0, 0)), constant_values=1.0).T)
@@ -1066,8 +1076,9 @@ class GPARRegressor:
             plan = build_scan_prior_plan(self, m_in, p, names, self._np_dtype)
             tail = make_scan_prior_tail(plan, latent, chunk)
             args = (self.vs.latent_vector(names), x_t, w_t)
-            batch = self._split_samples(lambda put, nm, nn: tail(*put(args), nm, nn, put(mt)),
-                                        normals, noise_normals)
+            with span("gpar.predict.tail"):
+                batch = self._split_samples(lambda put, nm, nn: tail(*put(args), nm, nn, put(mt)),
+                                            normals, noise_normals)
             return batch[:, :nt]
         self._ensure_vars(p)
         names = self.vs.select(None)
@@ -1078,35 +1089,41 @@ class GPARRegressor:
         if mesh is not None and self._factor_stack_fits(plan):
             # The per-layer factors once, then each shard's share of the
             # samples from them on its device.
-            if cached:
-                factors = self._posterior_factors(plan, z)
-            else:
-                factors = make_scan_posterior_factors(plan, self.x_ind, rows_traced=True)(
-                    z, x_pad, rows)
-            args = (z, factors, x_t, w_t)
-            if self.replace:
-                tail = make_scan_cached_tail(plan, latent, rows_traced=True)
-                draw = lambda put, nm, nn: tail(*put(args), nm, *put((rows, mt)))[0]  # noqa: E731
-            else:
-                tail = make_scan_ancestral_tail(plan, latent, chunk, rows_traced=True)
+            with span("gpar.predict.tail"):
+                if cached:
+                    factors = self._posterior_factors(plan, z)
+                else:
+                    factors = make_scan_posterior_factors(plan, self.x_ind, rows_traced=True)(
+                        z, x_pad, rows)
+                args = (z, factors, x_t, w_t)
+                if self.replace:
+                    tail = make_scan_cached_tail(plan, latent, rows_traced=True)
+                    draw = lambda put, nm, nn: tail(  # noqa: E731
+                        *put(args), nm, *put((rows, mt)))[0]
+                else:
+                    tail = make_scan_ancestral_tail(plan, latent, chunk, rows_traced=True)
 
-                def draw(put, nm, nn):
-                    z_d, fac, *rest = put(args)
-                    return tail(z_d, factor_slices(fac), *rest, nm, nn, *put((rows, mt)))
-            return self._split_samples(draw, normals, noise_normals)[:, :nt]
+                    def draw(put, nm, nn):
+                        z_d, fac, *rest = put(args)
+                        return tail(z_d, factor_slices(fac), *rest, nm, nn, *put((rows, mt)))
+                return self._split_samples(draw, normals, noise_normals)[:, :nt]
         if self.replace:
             if cached:
                 tail = make_scan_cached_tail(plan, latent, rows_traced=True)
-                factors = self._posterior_factors(plan, z)
-                return tail(z, factors, x_t, w_t, normals, rows, mt)[0][:, :nt]
+                with span("gpar.predict.tail"):
+                    factors = self._posterior_factors(plan, z)
+                    return tail(z, factors, x_t, w_t, normals, rows, mt)[0][:, :nt]
             tail = make_scan_predict_tail(plan, self.x_ind, latent, rows_traced=True)
-            return tail(z, x_pad, x_t, w_t, normals, rows, mt)[0][:, :nt]
-        if cached:
-            factors = factor_slices(self._posterior_factors(plan, z))
-        else:
-            factors = posterior_factor_layers(plan, self.x_ind, rows_traced=True)(z, x_pad, rows)
+            with span("gpar.predict.tail"):
+                return tail(z, x_pad, x_t, w_t, normals, rows, mt)[0][:, :nt]
         tail = make_scan_ancestral_tail(plan, latent, chunk, rows_traced=True)
-        return tail(z, factors, x_t, w_t, normals, noise_normals, rows, mt)[:, :nt]
+        with span("gpar.predict.tail"):
+            if cached:
+                factors = factor_slices(self._posterior_factors(plan, z))
+            else:
+                factors = posterior_factor_layers(plan, self.x_ind, rows_traced=True)(z, x_pad,
+                                                                                      rows)
+            return tail(z, factors, x_t, w_t, normals, noise_normals, rows, mt)[:, :nt]
 
     def _split_samples(self, draw, normals, noise_normals):
         """``draw(put, normals, noise_normals)`` over the sample axis (axis 1
@@ -1165,22 +1182,28 @@ class GPARRegressor:
         latent draw feeds forward under ``replace=False``; otherwise they
         come from ``generator`` (default: the device's generator of
         ``utils.rng``).  ``mesh`` (or an enclosing ``use_mesh``) splits the
-        samples over the mesh's shards."""
+        samples over the mesh's shards.  The whole call is the span
+        ``gpar.predict``: its draws (:meth:`_sample_batch`), then the
+        summary (``gpar.predict.summary``) and its copy to the host
+        (``gpar.predict.read``)."""
         if not self.is_conditioned:
             raise RuntimeError(
                 "Cannot sample from the posterior: no data has been "
                 "conditioned on yet (call fit() or condition() first)."
             )
-        with torch.no_grad(), mesh_context(mesh):
-            batch = self._sample_batch(x, w, num_samples, latent, normals, noise_normals,
-                                       generator)
-            batch = self._undo_transforms(batch)
-            out = [torch.mean(batch, dim=0)]
-            if credible_bounds:
-                q = torch.tensor([0.025, 0.975], dtype=self.dtype, device=self.device)
-                lo, hi = torch.quantile(batch, q, dim=0, interpolation="linear")
-                out += [lo, hi]
-        out = tuple(self._unpermute_outputs(a.cpu().numpy()) for a in out)
+        with span("gpar.predict"):
+            with torch.no_grad(), mesh_context(mesh):
+                batch = self._sample_batch(x, w, num_samples, latent, normals, noise_normals,
+                                           generator)
+                with span("gpar.predict.summary"):
+                    batch = self._undo_transforms(batch)
+                    out = [torch.mean(batch, dim=0)]
+                    if credible_bounds:
+                        q = torch.tensor([0.025, 0.975], dtype=self.dtype, device=self.device)
+                        lo, hi = torch.quantile(batch, q, dim=0, interpolation="linear")
+                        out += [lo, hi]
+            with span("gpar.predict.read"):
+                out = tuple(self._unpermute_outputs(a.cpu().numpy()) for a in out)
         return out if credible_bounds else out[0]
 
     def sample(

@@ -47,6 +47,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.spans import span
+
 __all__ = [
     "MAX_LINESEARCH",
     "LBFGSState",
@@ -440,9 +442,10 @@ def new_stats():
 def read_flags(flags, stats):
     """The one host read: ``flags`` as Python ints, ``[accepted, done]``
     (of a batch: whether every element accepted, whether every element is
-    done)."""
+    done), under the span ``gpar.fit.read``."""
     stats["host_syncs"] += 1
-    out = flags.tolist()
+    with span("gpar.fit.read"):
+        out = flags.tolist()
     if flags.ndim == 2:
         return [all(a for a, _ in out), all(d for _, d in out)]
     return out

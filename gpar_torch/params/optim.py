@@ -22,6 +22,7 @@ any evaluation).
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from .lbfgs import _objective, best_of, lbfgs_minimize, new_stats
 from .zoom import lbfgs_init, lbfgs_update, value_and_grad_from_state
 
@@ -75,8 +76,9 @@ def lbfgs_traced_host(fun, z0, iters=1000, gtol=1e-9, memory_size=10, stats=None
         z = z + updates
         it += 1
         stats["host_syncs"] += 1
-        v, gmax, z_finite = torch.stack([state.value, torch.max(torch.abs(state.grad)),
-                                         torch.all(torch.isfinite(z)).to(z.dtype)]).tolist()
+        with span("gpar.fit.read"):
+            v, gmax, z_finite = torch.stack([state.value, torch.max(torch.abs(state.grad)),
+                                             torch.all(torch.isfinite(z)).to(z.dtype)]).tolist()
         print(f"  lbfgs iter {it}: objective {v:.6f}")
         finite = bool(np.isfinite(v))
         if not (gmax > gtol) or not finite:

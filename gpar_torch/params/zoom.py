@@ -41,12 +41,14 @@ Every ``jnp.where`` of optax is a ``torch.where`` on the device: a value
 that can be NaN never reaches a Python ``if``.  The host reads one
 three-flag tensor per line-search step (``interval_found``, ``done``,
 ``failed``: optax's ``while_loop`` condition and its branch); ``stats``
-counts those reads (``host_syncs``).
+counts those reads (``host_syncs``), each the span ``gpar.fit.read``.
 """
 
 from typing import NamedTuple
 
 import torch
+
+from ..utils.spans import span
 
 __all__ = [
     "LBFGSMemory",
@@ -348,7 +350,8 @@ def _try_safe_step(st):
 
 def _read_flags(st, stats):
     stats["host_syncs"] += 1
-    flags = torch.stack([st.interval_found, st.done, st.failed]).tolist()
+    with span("gpar.fit.read"):
+        flags = torch.stack([st.interval_found, st.done, st.failed]).tolist()
     return tuple(bool(f) for f in flags)
 
 

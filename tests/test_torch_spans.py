@@ -1,0 +1,176 @@
+"""The spans of gpar_torch's fit and predict (``gpar_torch/utils/spans.py``)
+on ``torch.profiler``'s timeline: their names and nesting, their counts
+against the fit's report, and that nothing is recorded with no profiler.
+
+One tiny sparse ``fit_predict`` on the CPU (p = 3, 40 rows, 8 inducing
+points) under the profiler serves the CPU tests.  The card test checks the
+graphed fit: a capture span on a graph-cache miss only, a launch span per
+graph replay, and no span among the card's operations.  This file imports
+neither JAX nor ``gpar_tpu``, so on a card it runs as::
+
+    python -m pytest --noconftest tests/test_torch_spans.py
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from gpar_torch import GPARRegressor  # noqa: E402
+from gpar_torch.utils import spans  # noqa: E402
+
+from .torch_cases import bench_kwargs, chain_data  # noqa: E402
+
+P, N, NT, S, ITERS = 3, 40, 12, 6, 3
+
+
+def _spans(prof):
+    """The ``gpar.*`` host spans of a profile as ``(name, start_ns, end_ns)``."""
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("gpar.") and e.device_type() == torch.autograd.DeviceType.CPU:
+            out.append((e.name(), e.start_ns(), e.start_ns() + e.duration_ns()))
+    return sorted(out, key=lambda r: r[1])
+
+
+def _named(rows, name):
+    return [r for r in rows if r[0] == name]
+
+
+@pytest.fixture(scope="module")
+def traced():
+    """A profiled ``fit_predict``: its spans, the fit's report and the
+    fitted estimator."""
+    x, y, x_test = chain_data(n=N, p=P, seed=0, n_test=NT)
+    reg = GPARRegressor(**bench_kwargs(n_ind=8), device="cpu", dtype=torch.float64)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        reg.fit_predict(x, y, x_test, iters=ITERS, num_samples=S)
+    return _spans(prof), reg.last_fit_report, reg, x_test
+
+
+@pytest.mark.parametrize("child, parent", [
+    ("gpar.condition", "gpar.fit"),
+    ("gpar.fit.prepare", "gpar.fit"),
+    ("gpar.fit.launch", "gpar.fit"),
+    ("gpar.fit.read", "gpar.fit"),
+    ("gpar.predict.tail", "gpar.predict"),
+    ("gpar.predict.summary", "gpar.predict"),
+    ("gpar.predict.read", "gpar.predict"),
+])
+def test_spans_nest_inside_their_entry_span(traced, child, parent):
+    rows = traced[0]
+    outer = _named(rows, parent)
+    inner = _named(rows, child)
+    assert len(outer) == 1 and inner
+    _, a, b = outer[0]
+    assert all(a <= s and e <= b for _, s, e in inner)
+
+
+def test_fit_and_predict_spans_do_not_overlap(traced):
+    (fit,), (predict,) = _named(traced[0], "gpar.fit"), _named(traced[0], "gpar.predict")
+    assert fit[2] <= predict[1]
+
+
+def test_read_and_launch_spans_count_as_the_report(traced):
+    # Each host read is one read span.  Each body run is one launch span:
+    # per layer its start and finish, per L-BFGS iteration its step and
+    # commit, and per backtracking episode its trials and one more step.
+    rows, rep = traced[0], traced[1]
+    assert len(_named(rows, "gpar.fit.read")) == rep["host_syncs"]
+    iterations = rep["host_syncs"] - 1 - rep["linesearch_episodes"] - rep["linesearch_trials"]
+    bodies = 2 * P + 2 * iterations + rep["linesearch_trials"] + rep["linesearch_episodes"]
+    assert len(_named(rows, "gpar.fit.launch")) == bodies
+    assert not _named(rows, "gpar.fit.capture")  # eager on the CPU: nothing captured
+
+
+@pytest.mark.parametrize("route, model", [
+    (dict(fix=False), {}),
+    (dict(fused="batched"), dict(x_ind=None, replace=False)),
+    (dict(fused=False), {}),
+    (dict(trace=True), {}),
+    (dict(greedy=True), {}),
+], ids=["joint", "batched-dense", "per-layer", "trace", "greedy"])
+def test_read_spans_count_as_host_syncs_on_every_route(route, model):
+    # Every host read of a fit, on any route, is one read span inside
+    # ``gpar.fit``; the greedy search's reads count in its own report.
+    x, y, _ = chain_data(n=N, p=2, seed=0, n_test=NT)
+    kw = {**bench_kwargs(n_ind=8), **model}
+    reg = GPARRegressor(**kw, compat=False, device="cpu", dtype=torch.float64)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        reg.fit(x, y, iters=2, **route)
+    rows = _spans(prof)
+    syncs = reg.last_fit_report["host_syncs"]
+    if route.get("greedy"):
+        syncs += sum(pos["host_syncs"] for pos in reg.last_greedy_report["positions"])
+    reads = _named(rows, "gpar.fit.read")
+    assert len(reads) == syncs > 0
+    (_, a, b), = _named(rows, "gpar.fit")
+    assert all(a <= s and e <= b for _, s, e in reads)
+
+
+def test_no_profiler_no_record_function(traced, monkeypatch):
+    entered = []
+
+    class Counting:
+        def __init__(self, name):
+            entered.append(name)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(spans, "_RecordFunctionFast", Counting)
+    assert not torch.autograd._profiler_enabled()
+    assert spans.span("gpar.fit") is spans.span("gpar.predict")
+    reg, x_test = traced[2], traced[3]
+    reg.predict(x_test, num_samples=S)
+    assert entered == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        with spans.span("gpar.fit"):
+            pass
+    assert entered == ["gpar.fit"]
+
+
+def test_cached_predict_spans_its_tail_and_no_fit(traced):
+    reg, x_test = traced[2], traced[3]
+    assert reg.precompute()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        reg.predict(x_test, num_samples=S)
+    names = {name for name, _, _ in _spans(prof)}
+    assert {"gpar.predict", "gpar.predict.tail", "gpar.predict.read"} <= names
+    assert not [n for n in names if n.startswith("gpar.fit")]
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_fit_spans_match_its_report():
+    # A graph-cache miss then a hit: a capture span on the miss alone, a
+    # launch span per graph replay, a read span per host read; no span
+    # reaches the card's timeline.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the graphed fit has no CPU mode)")
+    from gpar_torch.models import graphs
+
+    x, y, x_test = chain_data(n=N, p=P, seed=0, n_test=NT)
+    graphs.clear_cache()
+    try:
+        captures = []
+        for _ in range(2):
+            reg = GPARRegressor(**bench_kwargs(n_ind=8), device="cuda", dtype=torch.float64)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                reg.fit_predict(x, y, x_test, iters=ITERS, num_samples=S)
+                torch.cuda.synchronize()
+            rows, rep = _spans(prof), reg.last_fit_report
+            assert rep["cuda_graphs"] and rep["graph_replays"] > 0
+            assert len(_named(rows, "gpar.fit.launch")) == rep["graph_replays"]
+            assert len(_named(rows, "gpar.fit.read")) == rep["host_syncs"]
+            captures.append(len(_named(rows, "gpar.fit.capture")))
+            cuda = torch.autograd.DeviceType.CUDA
+            leaked = {e.name() for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == cuda and e.name().startswith("gpar.")}
+            assert not leaked
+        assert captures == [1, 0]
+    finally:
+        graphs.clear_cache()
