@@ -43,6 +43,9 @@ standard normals:
 - :func:`make_scan_predict_tail` (``replace=True``): per layer the
   Titsias or exact factors, the posterior at the bucketed and masked test
   rows, one sampling factor and all Monte-Carlo draws as one matmul;
+  :func:`make_scan_cached_tail` the same from cached factors, which on the
+  card the estimator replays as one CUDA graph (:class:`CachedTailBody`,
+  ``models/graphs.py``);
 - :func:`make_scan_ancestral_tail` (``replace=False``, posterior
   ``sample``) and :func:`make_scan_prior_tail` (prior ``sample``):
   per-sample chains, each sample with its own augmented test inputs, so a
@@ -51,8 +54,8 @@ standard normals:
   (``ops.linalg.psd_sample_factor_batched``), in chunks of samples
   (:func:`resolve_sample_chunk`).  The tail computes each layer's
   posterior factors inside its loop (:func:`posterior_factor_layers`);
-  :func:`make_scan_posterior_factors` stacks them, for the factor cache
-  that is not ported yet.
+  :func:`make_scan_posterior_factors` stacks them, for the estimator's
+  factor cache.
 
 The whole chain's log-density is written once, :func:`_chain_nll`: per
 layer the masked layer NLL, then one augmentation step out of place
@@ -109,6 +112,7 @@ from ..ops.linalg import (
     psd_sample_factor,
     psd_sample_factor_batched,
     resolve_epsilon,
+    sample_factor_first_rung,
     solve_chol,
     solve_lower,
     titsias_factors,
@@ -126,6 +130,8 @@ __all__ = [
     "ScanFitPlan",
     "ScanStep",
     "MeshScanStep",
+    "CachedTailBody",
+    "run_cached_tail",
     "new_step",
     "Eager",
     "build_scan_data_plan",
@@ -779,6 +785,7 @@ class ScanStep:
     """
 
     BODIES = ("layer_init", "step", "trial", "commit", "layer_finish")
+    CAPTURE_SPAN = "gpar.fit.capture"
 
     def __init__(self, plan, n_rows, n_ind, dtype, device, gtol=1e-9, memory_size=10,
                  restarts=1):
@@ -1046,7 +1053,7 @@ class Eager:
         self.step = step
 
     def __call__(self, name):
-        getattr(self.step, name)()
+        return getattr(self.step, name)()
 
 
 def run_scan_fit(step, run, iters, stats=None):
@@ -1653,7 +1660,11 @@ def make_scan_cached_tail(plan, latent, rows_traced=False):
     :func:`make_scan_predict_tail`.  Each call rebuilds the layer kernels
     from the latent vector; only the conditioning factors are reused, so
     given the same normals the draws are the same operations, and on one
-    device the same bits, as that tail's.
+    device the same bits, as that tail's.  On the card the estimator's
+    cached predict (no mesh) replays this computation as one CUDA graph
+    instead: :class:`CachedTailBody`, captured once per key by
+    ``models/graphs.graphed_tail``, the same draws with one host read a
+    call in place of one a layer.
 
     Returns ``tail(z_all, factors, x_test, w_test_T, normals, xs_rows=None,
     mt=None) -> (batch, mean_chain)``: ``factors`` the stacked dict of
@@ -1681,14 +1692,133 @@ def _predict_chain(plan, latent, layers, x_test, w_test_T, normals, mt):
     xt_aug = _widen(x_test, plan.W)
     ys, means = [], []
     for pi, (lin, kernel, noise, fac) in enumerate(layers):
-        mean_t, cov_t = _test_posterior(plan, kernel, lin, fac, xt_aug, mt)
-        if not latent:
-            cov_t = cov_t + torch.diag(floor_noise(noise / w_test_T[pi]))
-        F = psd_sample_factor(cov_t)
-        ys.append(mean_t[None, :] + normals[pi] @ F.T)  # (S, n_test)
+        mean_t, cov_t = _draw_posterior(plan, latent, lin, kernel, noise, fac, xt_aug,
+                                        w_test_T[pi], mt)
+        ys.append(_draws(mean_t, psd_sample_factor(cov_t), normals[pi]))
         means.append(mean_t)
-        xt_aug.index_copy_(1, (plan.m + lin["col"]).reshape(1), mean_t[:, None])
+        _feed_mean(plan, lin["col"], xt_aug, mean_t)
     return torch.stack(ys, dim=-1), torch.stack(means, dim=-1)
+
+
+def _draw_posterior(plan, latent, lin, kernel, noise, fac, xt_aug, w_t, mt):
+    """A ``replace=True`` layer's posterior mean at the test rows and the
+    covariance its draws sample: the floored noise on the diagonal of an
+    observed draw (``w_t`` the layer's test weights)."""
+    mean_t, cov_t = _test_posterior(plan, kernel, lin, fac, xt_aug, mt)
+    if not latent:
+        cov_t = cov_t + torch.diag(floor_noise(noise / w_t))
+    return mean_t, cov_t
+
+
+def _draws(mean_t, F, normals_pi):
+    """All of a layer's draws as one matmul, (S, n_test)."""
+    return mean_t[None, :] + normals_pi @ F.T
+
+
+def _feed_mean(plan, col, xt_aug, mean_t):
+    """The layer's posterior mean into its output column of the test inputs."""
+    xt_aug.index_copy_(1, (plan.m + col).reshape(1), mean_t[:, None])
+
+
+class CachedTailBody:
+    """:func:`make_scan_cached_tail`'s computation at fixed shapes, the form
+    ``models/graphs.py`` captures as one CUDA graph: static buffers and one
+    body, ``tail``, that reads only them and reads nothing back to the host.
+
+    Buffers, each shaped and laid out as the first call's argument (so a
+    replayed solve or matmul takes the library path, and gives the bits,
+    of the eager tail's): the latents ``z_ext`` (dummy slot last), the
+    plan's arrays ``xs`` (the model structure uploaded once, fixed by
+    :func:`plan_static_fingerprint`; the row arrays of
+    :data:`_ROW_KEYS`, the only ones that vary under one fingerprint,
+    copied by every :meth:`load`), the stacked ``factors``, ``x_test``,
+    ``w_test_T``, ``normals`` and ``mt``.
+
+    ``tail`` returns ``(batch, mean_chain, info)``: per layer the eager
+    tail's posterior and covariance, the first rung of its sampling factor
+    (``ops.linalg.sample_factor_first_rung``, the very call
+    ``psd_sample_factor`` makes first), the draws and the mean fed
+    forward; ``info`` (p,) the first rung's ``cholesky_ex`` flag per layer.
+    A layer whose flag is not 0 has draws from a failed factor;
+    :meth:`repair` makes them anew.  The body moves none of the buffers,
+    so a run before the capture needs no copy of them."""
+
+    BODIES = ("tail",)
+    CAPTURE_SPAN = "gpar.predict.capture"
+
+    def __init__(self, plan, latent, z_all, factors, x_test, w_test_T, normals, xs_rows, mt):
+        self.plan, self.latent, self.device = plan, latent, x_test.device
+        self.z_ext = z_all.new_zeros(plan.n_z + 1)
+        self.xs = {k: torch.empty_like(v) if k in _ROW_KEYS else v
+                   for k, v in plan_tensors(plan, x_test.dtype, self.device, xs_rows).items()}
+        self.factors = {k: torch.empty_like(v) for k, v in factors.items()}
+        self.x_test, self.w_test_T, self.normals, self.mt = (
+            torch.empty_like(a) for a in (x_test, w_test_T, normals, mt))
+
+    def clone(self):
+        return self  # the body writes none of the buffers
+
+    def load(self, z_all, factors, x_test, w_test_T, normals, xs_rows, mt):
+        """A call's arguments, copied on the device into the buffers."""
+        self.z_ext[:-1].copy_(z_all)
+        for k in _ROW_KEYS:
+            self.xs[k].copy_(xs_rows[k])
+        for k, buf in self.factors.items():
+            buf.copy_(factors[k])
+        for buf, a in ((self.x_test, x_test), (self.w_test_T, w_test_T),
+                       (self.normals, normals), (self.mt, mt)):
+            buf.copy_(a)
+
+    def tail(self):
+        plan = self.plan
+        with torch.no_grad(), _cusolver(self.device):
+            xt_aug = _widen(self.x_test, plan.W)
+            ys, means, infos = [], [], []
+            layers = zip(_layer_kernels(plan, self.z_ext, self.xs), factor_slices(self.factors))
+            for pi, ((lin, kernel, noise), fac) in enumerate(layers):
+                mean_t, cov_t = _draw_posterior(plan, self.latent, lin, kernel, noise, fac,
+                                                xt_aug, self.w_test_T[pi], self.mt)
+                L, info = sample_factor_first_rung(cov_t[None])
+                ys.append(_draws(mean_t, L[0], self.normals[pi]))
+                means.append(mean_t)
+                infos.append(info)
+                _feed_mean(plan, lin["col"], xt_aug, mean_t)
+            return torch.stack(ys, dim=-1), torch.stack(means, dim=-1), torch.cat(infos)
+
+    def repair(self, pi, batch, mean_chain):
+        """Layer ``pi``'s draws in ``batch`` made anew, eagerly: its test
+        inputs rebuilt from ``mean_chain``'s earlier columns (a
+        ``replace=True`` chain feeds forward the means, never the draws),
+        its covariance again and :func:`~gpar_torch.ops.linalg.psd_sample_factor`
+        with its later rungs: the eager tail's draws of that layer."""
+        plan = self.plan
+        with torch.no_grad(), _cusolver(self.device):
+            xt_aug = _widen(self.x_test, plan.W)
+            for j in range(pi):
+                _feed_mean(plan, self.xs["col"][j], xt_aug, mean_chain[:, j])
+            lin = {k: v[pi] for k, v in self.xs.items()}
+            kernel, noise = _layer_kernel(plan, lin, self.z_ext)
+            fac = {k: v[pi] for k, v in self.factors.items()}
+            mean_t, cov_t = _draw_posterior(plan, self.latent, lin, kernel, noise, fac, xt_aug,
+                                            self.w_test_T[pi], self.mt)
+            batch[..., pi] = _draws(mean_t, psd_sample_factor(cov_t), self.normals[pi])
+
+
+def run_cached_tail(body, run):
+    """``(batch, mean_chain)`` of a :class:`CachedTailBody` whose call is
+    loaded: ``run("tail")`` (a graph replay, or :class:`Eager`) and one host
+    read of the layers' first-rung flags, the span ``gpar.predict.replay``;
+    then each layer whose first rung failed repaired
+    (:meth:`CachedTailBody.repair`), each the span ``gpar.predict.repair``.
+    The outputs are copies: a replay's own buffers are the next replay's."""
+    with span("gpar.predict.replay"):
+        batch, mean_chain, info = run("tail")
+        batch, mean_chain = batch.clone(), mean_chain.clone()
+        bad = torch.nonzero(info.cpu()).flatten().tolist()
+    for pi in bad:
+        with span("gpar.predict.repair"):
+            body.repair(pi, batch, mean_chain)
+    return batch, mean_chain
 
 
 def resolve_sample_chunk(sample_chunk, num_samples, n_test, dtype, budget):

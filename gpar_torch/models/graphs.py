@@ -1,4 +1,4 @@
-"""CUDA graphs of the scan-fused layer step.
+"""CUDA graphs of the scan-fused layer step and of the cached predictive tail.
 
 The port's counterpart of ``jax.jit`` of the scan body and of the JAX
 package's cross-instance program cache (``regressor._shared_jit``,
@@ -49,6 +49,36 @@ launches on the same stream.  A mesh over distinct cards runs eagerly
   Two fits of the same key that run at once (two threads) would overwrite
   each other's buffers.
 - There is no fallback: a capture or replay that fails raises.
+
+The estimator's cached ``replace=True`` predict on the card with no mesh
+(the factors from its factor slot; ``predict``, ``sample(posterior=True)``
+and ``warmup()``) replays a tail graph instead of the eager tail
+(:func:`graphed_tail`): a :class:`~gpar_torch.models.fused.CachedTailBody`
+captured once per key, in the same cache, under the same byte budget, cap
+and eviction, its Gram counters re-added on every replay, its capture the
+span ``gpar.predict.capture``.
+
+- Its key is tagged ``"tail"`` and covers the plan's fingerprint, the
+  training row bucket, the number of inducing points (0 dense), p, the
+  number of samples, the test bucket, ``latent``, the dtype, the device,
+  the jitter settings and ``config.mesh_descriptor()``.
+- A call copies, on the device, the latents, the stacked factors, the
+  bucketed training row arrays, the test inputs, weights, mask and
+  normals into the body's buffers, and replays: per layer the posterior at
+  the test rows, the first rung of the sampling factor
+  (``ops.linalg.sample_factor_first_rung``), the draws and the mean fed
+  forward, and each layer's ``cholesky_ex`` flag into a (p,) tensor.  The
+  replay writes the draws, the means and the flags into the graph's own
+  outputs, which the call copies.
+- Then one host read of the (p,) flags, in place of one a layer (span
+  ``gpar.predict.replay``, with the replay).  Where a layer's first rung
+  failed, its draws are made anew eagerly from the replay's means, through
+  ``ops.linalg.psd_sample_factor``'s later rungs and its clamped
+  eigendecomposition (span ``gpar.predict.repair``); later layers feed
+  forward the mean, not the draws, and need nothing.  The answer is the
+  eager tail's in every case.
+- A cached tail is shared mutable state too: it serves one predict at a
+  time.
 """
 
 import collections
@@ -60,9 +90,10 @@ import torch
 from ..config import config, mesh_descriptor
 from ..ops import gram_kernel as GK
 from ..utils.spans import span
-from .fused import new_step, plan_static_fingerprint
+from .fused import CachedTailBody, new_step, plan_static_fingerprint, run_cached_tail
 
-__all__ = ["GraphedStep", "graphed_step", "clear_cache", "evictions", "cached_bytes", "CACHE_CAP"]
+__all__ = ["GraphedStep", "graphed_step", "graphed_tail", "on_card", "clear_cache", "evictions",
+           "cached_bytes", "CACHE_CAP"]
 
 _CACHE = collections.OrderedDict()  # key -> (step, graphs, pinned bytes), least recent first
 #: Most keys the cache holds, the cap of the JAX package's program cache; the
@@ -88,11 +119,12 @@ def evictions(sizes, max_bytes, cap):
 
 
 def cached_bytes():
-    """What the cached steps pin, summed (bytes)."""
+    """What the cached steps and tails pin, summed (bytes)."""
     return sum(entry[2] for entry in _CACHE.values())
 
 
-def _on_card(device):
+def on_card(device):
+    """Whether ``device`` is a CUDA device, where graphs are captured."""
     return torch.device(device).type == "cuda"
 
 
@@ -100,7 +132,7 @@ def _reserved(device):
     """Reserved device memory once the allocator's unused cache is
     released: the live tensors and the captured graphs' pools (0 off the
     card, where nothing is captured)."""
-    if not _on_card(device):
+    if not on_card(device):
         return 0
     gc.collect()
     torch.cuda.synchronize(device)
@@ -112,20 +144,21 @@ def _budget(device):
     """``config.graph_cache_max_bytes``, or half of the card's memory."""
     if config.graph_cache_max_bytes is not None:
         return config.graph_cache_max_bytes
-    if not _on_card(device):
+    if not on_card(device):
         return float("inf")
     return torch.cuda.get_device_properties(device).total_memory // 2
 
 
 class GraphedStep:
     """Every body of ``step`` captured once; ``self(name)`` replays body
-    ``name``.  ``capture_s`` is the wall-clock of warm-up and captures, the
-    span ``gpar.fit.capture``; ``replays`` counts replays."""
+    ``name`` and returns what the body returned at the capture, the graph's
+    outputs.  ``capture_s`` is the wall-clock of warm-up and captures, the
+    step's span ``CAPTURE_SPAN``; ``replays`` counts replays."""
 
     def __init__(self, step):
         device = step.device
         t0 = time.perf_counter()
-        with span("gpar.fit.capture"), torch.cuda.device(device):
+        with span(step.CAPTURE_SPAN), torch.cuda.device(device):
             warm = step.clone()
             side = torch.cuda.Stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
@@ -134,12 +167,12 @@ class GraphedStep:
                     getattr(warm, name)()
             torch.cuda.current_stream(device).wait_stream(side)
             del warm
-            self.graphs, self.counts = {}, {}
+            self.graphs, self.counts, self.outputs = {}, {}, {}
             for name in step.BODIES:
                 before = GK.counters()
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph):
-                    getattr(step, name)()
+                    self.outputs[name] = getattr(step, name)()
                 after = GK.counters()
                 GK.set_counters(before)
                 self.graphs[name] = graph
@@ -152,6 +185,7 @@ class GraphedStep:
         self.graphs[name].replay()
         GK.add_counters(self.counts[name])
         self.replays += 1
+        return self.outputs[name]
 
 
 def _key(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size, restarts=1, mesh=None):
@@ -169,6 +203,30 @@ def graphed_step(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size, a
     captured (``capture_s`` is 0 on a hit); a new step enters the cache and
     the byte budget evicts as the module says."""
     key = _key(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size, restarts, mesh)
+    return _cached(key, device, args, lambda: new_step(plan, n_rows, n_ind, dtype, device, gtol,
+                                                       memory_size, restarts, mesh))
+
+
+def graphed_tail(plan, latent, z_all, factors, x_test, w_test_T, normals, xs_rows, mt):
+    """``(batch, mean_chain)`` of ``fused.make_scan_cached_tail(plan,
+    latent, rows_traced=True)`` for these arguments, from the cached tail
+    graph of their key (captured on a miss, as the module says): the
+    replay, one host read, and the repair of any layer whose first rung
+    failed."""
+    n_rows = xs_rows["obs_mask"].shape[-1]
+    n_ind = factors["zi_aug"].shape[1] if plan.sparse else 0
+    key = ("tail", plan_static_fingerprint(plan), n_rows, n_ind, plan.p, normals.shape[1],
+           x_test.shape[0], latent, str(x_test.dtype), str(x_test.device), config.epsilon,
+           config.epsilon_f32, tuple(config.cholesky_retry_factors), mesh_descriptor())
+    args = (z_all, factors, x_test, w_test_T, normals, xs_rows, mt)
+    body, graphs, _ = _cached(key, x_test.device, args, lambda: CachedTailBody(plan, latent, *args))
+    return run_cached_tail(body, graphs)
+
+
+def _cached(key, device, args, new):
+    """``(step, graphs, capture_s)``: the entry of ``key`` with ``args``
+    loaded, or ``new()`` loaded and captured; a new entry enters the cache
+    with what it pins, and the byte budget evicts."""
     hit = _CACHE.get(key)
     if hit is not None:
         _CACHE.move_to_end(key)
@@ -176,14 +234,14 @@ def graphed_step(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size, a
         step.load(*args)
         return step, graphs, 0.0
     before = _reserved(device)
-    step = new_step(plan, n_rows, n_ind, dtype, device, gtol, memory_size, restarts, mesh)
+    step = new()
     step.load(*args)
     graphs = GraphedStep(step)
     _CACHE[key] = (step, graphs, max(_reserved(device) - before, 0))
     gone = evictions([(k, e[2]) for k, e in _CACHE.items()], _budget(device), CACHE_CAP)
     for k in gone:
-        # The new step serves this fit even when it is not kept.
-        _evict(k, reset=k != key and _on_card(device))
+        # The new entry serves this call even when it is not kept.
+        _evict(k, reset=k != key and on_card(device))
     if gone:
         _reserved(device)
     return step, graphs, graphs.capture_s
@@ -199,5 +257,5 @@ def _evict(key, reset):
 
 
 def clear_cache():
-    """Drop every captured step (and its buffers and graph memory)."""
+    """Drop every captured step and tail (and their buffers and graph memory)."""
     _CACHE.clear()

@@ -1032,7 +1032,10 @@ class GPARRegressor:
         ``noise_normals`` (same shape) those of the noise that a latent
         draw feeds forward (``replace=False``); each defaults to draws from
         ``generator``.  The route's tail, with its factors where they are
-        not cached, is the span ``gpar.predict.tail``."""
+        not cached, is the span ``gpar.predict.tail``.  From cached factors
+        with ``replace=True``, on the card and with no mesh, the tail is
+        the replay of one CUDA graph (``graphs.graphed_tail``)."""
+        from . import graphs
         from .fused import (
             build_scan_prior_plan, factor_slices, make_scan_ancestral_tail, make_scan_cached_tail,
             make_scan_posterior_factors, make_scan_predict_tail, make_scan_prior_tail,
@@ -1109,10 +1112,12 @@ class GPARRegressor:
                 return self._split_samples(draw, normals, noise_normals)[:, :nt]
         if self.replace:
             if cached:
-                tail = make_scan_cached_tail(plan, latent, rows_traced=True)
                 with span("gpar.predict.tail"):
-                    factors = self._posterior_factors(plan, z)
-                    return tail(z, factors, x_t, w_t, normals, rows, mt)[0][:, :nt]
+                    args = (z, self._posterior_factors(plan, z), x_t, w_t, normals, rows, mt)
+                    if mesh is None and graphs.on_card(self.device):
+                        return graphs.graphed_tail(plan, latent, *args)[0][:, :nt]
+                    tail = make_scan_cached_tail(plan, latent, rows_traced=True)
+                    return tail(*args)[0][:, :nt]
             tail = make_scan_predict_tail(plan, self.x_ind, latent, rows_traced=True)
             with span("gpar.predict.tail"):
                 return tail(z, x_pad, x_t, w_t, normals, rows, mt)[0][:, :nt]
@@ -1427,7 +1432,10 @@ class GPARRegressor:
         when the factors are cached (computed now or before), False where
         the cache does not engage: ``config.scan_predict`` or
         ``config.posterior_cache`` off, or a dense stack over
-        ``config.posterior_cache_max_bytes`` at the row bucket."""
+        ``config.posterior_cache_max_bytes`` at the row bucket.  On the
+        card with no mesh, a cached ``replace=True`` predict then replays
+        the tail as one CUDA graph (``models/graphs.graphed_tail``),
+        captured at the first predict of a test bucket and sample count."""
         if not self.is_conditioned:
             raise RuntimeError(
                 "Cannot precompute posterior factors: no data has been "
@@ -1454,8 +1462,11 @@ class GPARRegressor:
         fully observed data of ``n`` rows, ``m`` inputs and ``p`` outputs.
         The scan step's CUDA graphs of the row bucket enter the shared
         cache of ``models/graphs.py``, so a later fit whose rows fall in
-        the same bucket, with the same optimiser options, captures nothing.
-        This estimator is left untouched.
+        the same bucket, with the same optimiser options, captures nothing;
+        with ``n_test``, so does the graph of the cached ``replace=True``
+        predictive tail (``graphs.graphed_tail``) for the test bucket and
+        ``num_samples``, which a later predict of the same row and test
+        buckets replays.  This estimator is left untouched.
 
         ``paths`` is a subset of ``("fit", "predict", "fit_predict",
         "logpdf")``, by default ``("fit", "logpdf")`` without ``n_test``

@@ -49,6 +49,7 @@ __all__ = [
     "cholesky_ladder_on_device",
     "psd_sample_factor",
     "psd_sample_factor_batched",
+    "sample_factor_first_rung",
     "solve_lower",
     "solve_chol",
     "mvn_logpdf_chol",
@@ -185,22 +186,33 @@ def psd_sample_factor_batched(K, epsilon=None):
     eps = resolve_epsilon(K.dtype, epsilon)
     if K.shape[-1] == 0:
         return torch.zeros_like(K)
-    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
-    L, info = torch.linalg.cholesky_ex(K + eps * eye)
+    L, info = sample_factor_first_rung(K, eps)
     rel = torch.clamp_min(1e-6 * torch.amax(torch.abs(torch.diagonal(K, dim1=-2, dim2=-1)), -1), eps)
     rungs = [eps * f for f in config.cholesky_retry_factors] + [rel]
     bad = torch.nonzero(info).flatten()
+    if bad.numel() == 0:
+        return L
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     for e in rungs:
-        if bad.numel() == 0:
-            return L
         e = e[bad, None, None] if isinstance(e, torch.Tensor) else e
         Lb, info_b = torch.linalg.cholesky_ex(K[bad] + e * eye)
         L[bad] = Lb
         bad = bad[info_b != 0]
-    if bad.numel():
-        w, V = torch.linalg.eigh(K[bad])
-        L[bad] = V * torch.sqrt(torch.clamp_min(w, eps))[..., None, :]
+        if bad.numel() == 0:
+            return L
+    w, V = torch.linalg.eigh(K[bad])
+    L[bad] = V * torch.sqrt(torch.clamp_min(w, eps))[..., None, :]
     return L
+
+
+def sample_factor_first_rung(K, epsilon=None):
+    """The first rung of :func:`psd_sample_factor_batched`, ``(L, info)`` of
+    ``cholesky_ex(K + eps I)`` for ``K`` (S, n, n), with no host read: the
+    call that function makes first, so a factor that holds here is its
+    factor.  The cached tail's CUDA graph takes it on the device."""
+    eps = resolve_epsilon(K.dtype, epsilon)
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+    return torch.linalg.cholesky_ex(K + eps * eye)
 
 
 def solve_lower(L, b):

@@ -359,6 +359,9 @@ def test_cuda_cached_serving_equals_uncached(dense, replace):
     reg, x, y, x_test = _served(dense, replace)
     normals = np.random.default_rng(3).standard_normal((reg.p, 5, len(x_test)))
     assert reg.precompute()
+    # A first cached predict captures the tail's graph, whose warm-up run
+    # launches its Grams once more; the predict below replays it.
+    reg.predict(x_test, num_samples=5, normals=normals)
     runs = {}
     for cached in (True, False):
         config.posterior_cache = cached
@@ -444,6 +447,161 @@ def test_cuda_graph_cache_keeps_what_the_byte_budget_holds():
         assert graphs.cached_bytes() <= config.graph_cache_max_bytes
     finally:
         config.graph_cache_max_bytes = old
+        graphs.clear_cache()
+
+
+def _tail_args(reg, x_test, num_samples=5, seed=2, w=None):
+    """The cached tail's arguments as the estimator's cached predict makes
+    them on the card (test rows padded to their bucket and masked)."""
+    from gpar_torch.config import bucket_rows
+
+    names = reg.vs.select(None)
+    plan = reg._scan_fit_plan(names)
+    _, rows = reg._bucket_fit_inputs(plan)
+    z = reg.vs.latent_vector(names)
+    nt, nb = len(x_test), bucket_rows(len(x_test))
+    up = lambda a: torch.as_tensor(a, dtype=torch.float64, device="cuda")  # noqa: E731
+    x_t = up(np.pad(np.asarray(x_test).reshape(nt, -1), ((0, nb - nt), (0, 0))))
+    w_t = up(np.ones((reg.p, nb))) if w is None else w
+    normals = up(np.random.default_rng(seed).standard_normal((reg.p, num_samples, nb)))
+    return plan, (z, reg._posterior_factors(plan, z), x_t, w_t, normals, rows,
+                  up(np.arange(nb) < nt))
+
+
+def _tail_keys():
+    from gpar_torch.models import graphs
+
+    return [k for k in graphs._CACHE if k[0] == "tail"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("latent", [False, True])
+def test_cuda_tail_graph_replay_equals_the_eager_tail(dense, latent):
+    # Captured on the first call, replayed on the next: the same bits as the
+    # eager cached tail, and as many Gram launches as it makes.
+    from gpar_torch.models import fused, graphs
+
+    _need_cuda()
+    graphs.clear_cache()
+    try:
+        reg, _, _, x_test = _served(dense)
+        eager = fused.make_scan_cached_tail(reg._scan_fit_plan(reg.vs.select(None)), latent,
+                                            rows_traced=True)
+        for seed in (2, 3):
+            plan, args = _tail_args(reg, x_test, seed=seed)
+            GK.reset_counters()
+            got = graphs.graphed_tail(plan, latent, *args)
+            replayed = GK.counters()["gram_kernel_launches"]
+            GK.reset_counters()
+            want = eager(*args)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+            if seed == 3:  # a replay
+                assert replayed == GK.counters()["gram_kernel_launches"] == 2 * reg.p
+        assert len(_tail_keys()) == 1
+    finally:
+        graphs.clear_cache()
+
+
+@pytest.mark.cuda
+def test_cuda_tail_graph_repairs_a_failed_first_rung():
+    # Duplicate test inputs, layer 1's noise weighted down to nothing and
+    # the jitter lowered to -1e-4 (as in tests/test_torch_serving.py): that
+    # layer's first rung fails in the replay and its draws are made anew,
+    # the eager tail's bits.
+    import gpar_torch
+    from gpar_torch.config import bucket_rows
+    from gpar_torch.models import fused, graphs
+
+    _need_cuda()
+    graphs.clear_cache()
+    reg, _, _, x_test = _served(False)
+    x_test[:4] = x_test[0]
+    w = torch.ones((reg.p, bucket_rows(len(x_test))), dtype=torch.float64, device="cuda")
+    w[1] = 1e30
+    plan, args = _tail_args(reg, x_test, w=w)
+    old, repaired = gpar_torch.config.epsilon, []
+    real = fused.CachedTailBody.repair
+    fused.CachedTailBody.repair = lambda self, pi, *a: repaired.append(pi) or real(self, pi, *a)
+    gpar_torch.config.epsilon = -1e-4
+    try:
+        got = graphs.graphed_tail(plan, False, *args)
+        want = fused.make_scan_cached_tail(plan, False, rows_traced=True)(*args)
+    finally:
+        gpar_torch.config.epsilon = old
+        fused.CachedTailBody.repair = real
+        graphs.clear_cache()
+    assert repaired == [1] and bool(torch.isfinite(got[0]).all())
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_tail_graph_captures_once_per_key():
+    # The first predict at a key captures, the next replays; another number
+    # of samples or another test bucket is another key.
+    from gpar_torch.models import graphs
+
+    _need_cuda()
+    graphs.clear_cache()
+    try:
+        reg, _, _, x_test = _served(False)
+        assert reg.precompute()
+        reg.predict(x_test, num_samples=5)
+        (key,) = _tail_keys()
+        entry = graphs._CACHE[key][1]
+        reg.predict(x_test, num_samples=5)
+        assert _tail_keys() == [key] and graphs._CACHE[key][1] is entry
+        reg.predict(x_test, num_samples=7)
+        assert len(_tail_keys()) == 2
+        reg.predict(np.linspace(0.2, 9.8, 100), num_samples=7)
+        assert len(_tail_keys()) == 3
+    finally:
+        graphs.clear_cache()
+
+
+@pytest.mark.cuda
+def test_cuda_tail_graph_is_evicted_by_the_byte_budget(monkeypatch):
+    # A real tail capture pins bytes on the card; then, with each new
+    # entry's pinned bytes stated (a capture's reading moves with the
+    # allocator's rounding), steps and tails share the budget: the least
+    # recently used goes, whichever kind it is, its graphs reset.
+    from gpar_torch.config import config
+    from gpar_torch.models import graphs
+
+    _need_cuda()
+    graphs.clear_cache()
+    reg, x, y, x_test = _served(False)
+    assert reg.precompute()
+    reg.predict(x_test, num_samples=5)
+    (key,) = _tail_keys()
+    assert graphs._CACHE[key][2] > 0
+    graphs.clear_cache()
+    reserved, pending = [0], [0]
+    real = graphs.GraphedStep
+
+    def stated(step):
+        reserved[0] += pending[0]
+        return real(step)
+
+    monkeypatch.setattr(graphs, "GraphedStep", stated)
+    monkeypatch.setattr(graphs, "_reserved", lambda device: reserved[0])
+    monkeypatch.setattr(config, "graph_cache_max_bytes", 100)
+    try:
+        kinds = []
+        for nbytes, call in ((40, lambda: reg.fit(x, y, iters=3)),
+                             (50, lambda: reg.predict(x_test, num_samples=5)),
+                             (30, lambda: reg.predict(x_test, num_samples=7)),
+                             (60, lambda: reg.fit(x, y, iters=4))):
+            pending[0] = nbytes
+            call()
+            kinds.append([(k[0] == "tail", e[2]) for k, e in graphs._CACHE.items()])
+        assert kinds == [[(False, 40)], [(False, 40), (True, 50)], [(True, 50), (True, 30)],
+                         [(True, 30), (False, 60)]]
+        assert graphs.cached_bytes() == 90
+    finally:
         graphs.clear_cache()
 
 

@@ -8,14 +8,18 @@ and what stays sums to at most the budget and counts at most the cap.
 Then :func:`graphs.graphed_step` itself, with the capture stubbed out (it
 needs the card) and the pinned bytes stated through the reserved-memory
 reader; the card-side measurement is checked in ``tests/test_torch_cuda.py``.
+The cached predictive tail's entries (:func:`graphs.graphed_tail`) share
+the budget with the steps, their bodies run eagerly in place of a replay.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import gpar_torch.models.fused as TF
 import gpar_torch.models.graphs as TGr
 from gpar_torch import GPARRegressor as TReg
+from gpar_torch.config import bucket_rows
 from gpar_torch.config import config as tconfig
 from gpar_torch.models.fused import build_scan_fit_plan
 
@@ -111,3 +115,58 @@ def test_budget_defaults_to_half_the_card_and_is_unbounded_off_it(monkeypatch):
     assert TGr._budget("cpu") == 123
     assert TGr._reserved("cpu") == 0
     np.testing.assert_equal(TGr.CACHE_CAP, 64)
+
+
+def test_tail_entries_share_the_budget_with_steps(monkeypatch):
+    # graphed_tail on the CPU, each capture an eager run and its pinned
+    # bytes stated: a tail is a cache entry like a step, a new number of
+    # samples a new key, and the least recently used entry goes first,
+    # whichever kind.  Every call gives the eager cached tail's answer.
+    x, y, x_test = chain_data(n=30, p=2, seed=0, n_test=9)
+    rt = TReg(**bench_kwargs(n_ind=4), device="cpu")
+    rt.condition(x, y)
+    rt._ensure_vars(rt.p)
+    names = rt.vs.select(None)
+    plan = build_scan_fit_plan(rt, names)
+    x_pad, rows = rt._bucket_fit_inputs(plan)
+    z = rt.vs.latent_vector(names)
+    reserved, pending = [0], [0]
+
+    class Captured(TF.Eager):
+        capture_s = 1.0
+
+        def __init__(self, step):
+            super().__init__(step)
+            reserved[0] += pending[0]
+
+    monkeypatch.setattr(TGr, "GraphedStep", Captured)
+    monkeypatch.setattr(TGr, "_reserved", lambda device: reserved[0])
+    monkeypatch.setattr(TGr, "_CACHE", type(TGr._CACHE)())
+    monkeypatch.setattr(tconfig, "graph_cache_max_bytes", 100)
+    nb = bucket_rows(len(x_test))
+    factors = rt._posterior_factors(plan, z)
+
+    def tail(S):
+        normals = torch.as_tensor(np.random.default_rng(S).standard_normal((rt.p, S, nb)))
+        args = (z, factors, torch.as_tensor(np.pad(x_test, (0, nb - len(x_test)))[:, None]),
+                torch.ones(rt.p, nb, dtype=torch.float64), normals, rows,
+                torch.as_tensor((np.arange(nb) < len(x_test)).astype(np.float64)))
+        got = TGr.graphed_tail(plan, False, *args)
+        want = TF.make_scan_cached_tail(plan, False, rows_traced=True)(*args)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+    def step():
+        TGr.graphed_step(plan, x_pad.shape[0], 4, torch.float64, "cpu", 2, 1e-9, 10,
+                         (z, x_pad, rows, rt.x_ind))
+
+    kinds = []
+    for nbytes, call in ((40, step), (50, lambda: tail(3)), (0, lambda: tail(3)),
+                         (30, lambda: tail(5)), (60, lambda: step())):
+        pending[0] = nbytes
+        call()
+        kinds.append([(k[0] == "tail", e[2]) for k, e in TGr._CACHE.items()])
+    # The hit on tail(3) moved it last; a step is not a tail; tail(5) is a
+    # new key; a new step (evicted before) evicts the oldest tail.
+    assert kinds == [[(False, 40)], [(False, 40), (True, 50)], [(False, 40), (True, 50)],
+                     [(True, 50), (True, 30)], [(True, 30), (False, 60)]]

@@ -1,7 +1,10 @@
 """The serving layer of gpar_torch's estimator against gpar_tpu's, float64,
 on the CPU: the posterior-factor cache (``precompute``, the cached
 ``replace=True`` tail, the cached stack fed to the per-sample tail and to
-the posterior score) and when the cache engages.
+the posterior score) and when the cache engages; the body that the card
+replays as the cached tail's CUDA graph (``fused.CachedTailBody``), run
+eagerly with its one read and its repair, and the route that enters the
+graph (``graphs.graphed_tail``, stubbed here).
 
 The benchmark's configuration scaled down (p=3, n=40, 8 inducing points or
 none, NaNs in the later outputs), both ``replace`` modes, at the latents
@@ -17,6 +20,8 @@ A spy on ``fused.make_scan_posterior_factors`` counts the factor
 computations: what drops the slot, what hits it.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -25,8 +30,11 @@ from .test_torch_common import bench_kwargs, chain_data, close, jax, jax_chain_n
 import gpar_tpu  # noqa: E402
 from gpar_tpu.models.regressor import GPARRegressor as JReg  # noqa: E402
 
+import gpar_torch  # noqa: E402
 import gpar_torch.models.fused as TF  # noqa: E402
+import gpar_torch.models.graphs as TGr  # noqa: E402
 from gpar_torch import GPARRegressor as TReg  # noqa: E402
+from gpar_torch.parallel import make_mesh  # noqa: E402
 from gpar_torch.config import bucket_rows  # noqa: E402
 from gpar_torch.config import config as tconfig  # noqa: E402
 
@@ -264,3 +272,101 @@ def test_cached_tail_equals_the_conditioning_tail(latents):
         got = TF.make_scan_cached_tail(plan, latent, rows_traced=True)(z, stack, xt, w, normals, rows)
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def _tail_args(rt, x_test, seed=2, w=None):
+    """The cached tail's arguments as the estimator's cached predict makes
+    them: the slot's factors, the test inputs padded to their bucket and
+    masked, the bucketed training rows, normals from ``seed``."""
+    names = rt.vs.select(None)
+    plan = rt._scan_fit_plan(names)
+    _, rows = rt._bucket_fit_inputs(plan)
+    z = rt.vs.latent_vector(names)
+    nb = bucket_rows(NT)
+    x_t = torch.as_tensor(np.pad(x_test[:, None], ((0, nb - NT), (0, 0))))
+    w_t = torch.ones(P, nb, dtype=torch.float64) if w is None else w
+    mt = torch.as_tensor((np.arange(nb) < NT).astype(np.float64))
+    normals = torch.as_tensor(np.random.default_rng(seed).standard_normal((P, S, nb)))
+    return plan, (z, rt._posterior_factors(plan, z), x_t, w_t, normals, rows, mt)
+
+
+@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("latent", [False, True], ids=["observed", "latent"])
+def test_tail_body_run_eagerly_equals_the_cached_tail(latents, model, latent):
+    # The graph's body, its one read and its repair, run eagerly: built
+    # from one call's arguments, then loaded with another's.
+    rt = _port(latents, model, True)
+    plan, first = _tail_args(rt, _data()[2], seed=1)
+    body = TF.CachedTailBody(plan, latent, *first)
+    for seed in (2, 3):
+        _, args = _tail_args(rt, _data()[2], seed=seed)
+        body.load(*args)
+        got = TF.run_cached_tail(body, TF.Eager(body))
+        want = TF.make_scan_cached_tail(plan, latent, rows_traced=True)(*args)
+        assert not body.tail()[2].any()  # no first rung failed: nothing repaired
+        for a, b in zip(got, want):
+            close(a, b, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_tail_repairs_only_the_layer_whose_first_rung_failed(latents, model, monkeypatch):
+    # Duplicate test inputs, layer 1's observation noise weighted down to
+    # nothing and the jitter lowered to -1e-4: that layer's covariance is
+    # singular, so its first rung factors a matrix with an eigenvalue near
+    # -1e-4 and fails; the other layers' noise keeps theirs definite.
+    rt = _port(latents, model, True)
+    x_test = _data()[2]
+    x_test[:4] = x_test[0]
+    w = torch.ones(P, bucket_rows(NT), dtype=torch.float64)
+    w[1] = 1e30
+    plan, args = _tail_args(rt, x_test, w=w)  # the factors at the usual jitter
+    monkeypatch.setattr(tconfig, "epsilon", -1e-4)
+    repaired = []
+    real = TF.CachedTailBody.repair
+
+    def counted(self, pi, *a):
+        repaired.append(pi)
+        return real(self, pi, *a)
+
+    monkeypatch.setattr(TF.CachedTailBody, "repair", counted)
+    body = TF.CachedTailBody(plan, False, *args)
+    body.load(*args)
+    assert body.tail()[2].nonzero().flatten().tolist() == [1]
+    got = TF.run_cached_tail(body, TF.Eager(body))
+    want = TF.make_scan_cached_tail(plan, False, rows_traced=True)(*args)
+    assert repaired == [1]
+    assert torch.isfinite(got[0]).all()
+    for a, b in zip(got, want):
+        close(a, b, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("route, entered", [
+    ("cached-sparse", 2), ("cached-dense", 2), ("cpu", 0), ("uncached", 0), ("replace=False", 0),
+    ("mesh", 0),
+])
+def test_tail_graph_is_entered_on_the_cached_route_alone(latents, route, entered, monkeypatch):
+    # A counting stub on the graph's entry, the device test made to say
+    # "card" (except on the cpu route): a cached replace=True predict and
+    # posterior sample with no mesh enter it; no other route does.
+    calls = []
+
+    def stub(plan, latent, *args):
+        calls.append(latent)
+        return TF.make_scan_cached_tail(plan, latent, rows_traced=True)(*args)
+
+    monkeypatch.setattr(TGr, "graphed_tail", stub)
+    if route != "cpu":
+        monkeypatch.setattr(TGr, "on_card", lambda device: True)
+    if route == "uncached":
+        monkeypatch.setattr(tconfig, "posterior_cache", False)
+    rt = _port(latents, "dense" if route == "cached-dense" else "sparse", route != "replace=False")
+    x_test = _data()[2]
+    z = np.random.default_rng(1).standard_normal((P, S, NT))
+    mesh = make_mesh(2, devices=[torch.device("cpu")] * 2) if route == "mesh" else None
+    with gpar_torch.use_mesh(mesh, min_rows=8) if mesh else contextlib.nullcontext():
+        pred = rt.predict(x_test, num_samples=S, normals=z)
+        rt.sample(x_test, posterior=True, num_samples=S, latent=True, normals=z)
+    assert len(calls) == entered and calls == [False, True][:entered]
+    if entered:
+        monkeypatch.undo()
+        close(rt.predict(x_test, num_samples=S, normals=z), pred, rtol=0)

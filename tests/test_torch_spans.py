@@ -3,9 +3,11 @@ on ``torch.profiler``'s timeline: their names and nesting, their counts
 against the fit's report, and that nothing is recorded with no profiler.
 
 One tiny sparse ``fit_predict`` on the CPU (p = 3, 40 rows, 8 inducing
-points) under the profiler serves the CPU tests.  The card test checks the
+points) under the profiler serves the CPU tests.  The card tests check the
 graphed fit: a capture span on a graph-cache miss only, a launch span per
-graph replay, and no span among the card's operations.  This file imports
+graph replay, and no span among the card's operations; and the cached
+predict's tail graph: its capture, replay and repair spans inside
+``gpar.predict.tail``.  This file imports
 neither JAX nor ``gpar_tpu``, so on a card it runs as::
 
     python -m pytest --noconftest tests/test_torch_spans.py
@@ -174,3 +176,42 @@ def test_cuda_graphed_fit_spans_match_its_report():
         assert captures == [1, 0]
     finally:
         graphs.clear_cache()
+
+
+@pytest.mark.cuda
+def test_cuda_tail_graph_spans_nest_inside_the_tail():
+    # Cached predicts on the card: a capture span on the tail graph's first
+    # predict alone, a replay span in each, a repair span for a layer whose
+    # first rung failed (duplicate test inputs, layer 1's noise weighted
+    # down to nothing, the jitter lowered to -1e-4: another key), all inside
+    # ``gpar.predict.tail``.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the tail graph has no CPU mode)")
+    import numpy as np
+
+    import gpar_torch
+    from gpar_torch.models import graphs
+
+    x, y, x_test = chain_data(n=N, p=P, seed=0, n_test=NT)
+    dup, w = x_test.copy(), np.ones((NT, P))
+    dup[:4], w[:, 1] = dup[0], 1e30
+    names = ("gpar.predict.capture", "gpar.predict.replay", "gpar.predict.repair")
+    graphs.clear_cache()
+    eps, counts = gpar_torch.config.epsilon, []
+    try:
+        reg = GPARRegressor(**bench_kwargs(n_ind=8), device="cuda", dtype=torch.float64)
+        reg.fit(x, y, iters=ITERS)
+        assert reg.precompute()
+        for xt, wt, jitter in ((x_test, None, eps), (x_test, None, eps), (dup, w, -1e-4)):
+            gpar_torch.config.epsilon = jitter
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                reg.predict(xt, wt, num_samples=S)
+                torch.cuda.synchronize()
+            rows = _spans(prof)
+            (_, a, b), = _named(rows, "gpar.predict.tail")
+            assert all(a <= s and e <= b for n, s, e in rows if n in names)
+            counts.append(tuple(len(_named(rows, n)) for n in names))
+    finally:
+        gpar_torch.config.epsilon = eps
+        graphs.clear_cache()
+    assert counts == [(1, 1, 0), (0, 1, 0), (1, 1, 1)]
