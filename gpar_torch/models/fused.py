@@ -1858,38 +1858,48 @@ def _ancestral(plan, latent, sample_chunk, z_ext, xs, layers, x_test, w_test_T, 
     diagonal of an observed draw, one batched sampling factor and the
     draws.  A latent draw returns the noiseless sample and feeds forward
     the noisy one with UNfloored noise, ``sqrt(noise / w)``; the column fed
-    forward is the mean under ``replace``, the draw otherwise."""
+    forward is the mean under ``replace``, the draw otherwise.
+
+    Spans: ``gpar.predict.layer_factors``, a layer's factors as ``layers``
+    gives them (computed anew, with the imputation of the layer before,
+    where they are not cached); ``gpar.predict.chunk``, one layer and chunk
+    of samples; inside it ``gpar.predict.sample_factor``, the batched
+    sampling factor with its host reads of ``info``."""
     S, nt = normals.shape[1], x_test.shape[0]
     xt_b = _widen(x_test, plan.W).expand(S, nt, plan.W).contiguous()
     if latent and not plan.replace and noise_normals is None:
         raise ValueError("latent draws that feed forward need noise_normals")
-    cols = []
-    for pi, fac in zip(range(plan.p), layers):
+    cols, layers = [], iter(layers)
+    for pi in range(plan.p):
+        with span("gpar.predict.layer_factors"):
+            fac = next(layers)
         lin = {k: v[pi] for k, v in xs.items()}
         kernel, noise = _layer_kernel(plan, lin, z_ext)
         col = (plan.m + lin["col"]).reshape(1)
         w_t = w_test_T[pi]
 
         def batch(sl, lin=lin, kernel=kernel, noise=noise, fac=fac, col=col, w_t=w_t):
-            xt = xt_b[sl]
-            if fac is None:
-                cov = _mask_test_cov(gram(kernel, xt, xt), mt)
-                mean = cov.new_zeros(cov.shape[:-1])
-            else:
-                mean, cov = _test_posterior(plan, kernel, lin, fac, xt, mt)
-            if not latent:
-                cov.diagonal(dim1=-2, dim2=-1).add_(floor_noise(noise / w_t))
-            F = psd_sample_factor_batched(cov)
-            del cov
-            draw = mean + (F @ normals[pi, sl, :, None])[..., 0]
-            if plan.replace:
-                nxt = mean
-            elif latent:
-                nxt = draw + torch.sqrt(noise / w_t) * noise_normals[pi, sl]
-            else:
-                nxt = draw
-            xt.index_copy_(2, col, nxt[..., None])
-            return draw
+            with span("gpar.predict.chunk"):
+                xt = xt_b[sl]
+                if fac is None:
+                    cov = _mask_test_cov(gram(kernel, xt, xt), mt)
+                    mean = cov.new_zeros(cov.shape[:-1])
+                else:
+                    mean, cov = _test_posterior(plan, kernel, lin, fac, xt, mt)
+                if not latent:
+                    cov.diagonal(dim1=-2, dim2=-1).add_(floor_noise(noise / w_t))
+                with span("gpar.predict.sample_factor"):
+                    F = psd_sample_factor_batched(cov)
+                del cov
+                draw = mean + (F @ normals[pi, sl, :, None])[..., 0]
+                if plan.replace:
+                    nxt = mean
+                elif latent:
+                    nxt = draw + torch.sqrt(noise / w_t) * noise_normals[pi, sl]
+                else:
+                    nxt = draw
+                xt.index_copy_(2, col, nxt[..., None])
+                return draw
 
         cols.append(_chunked_batch(batch, S, sample_chunk))
     return torch.stack(cols, dim=-1)

@@ -50,7 +50,10 @@ Design, in PyTorch terms:
   ``fused.make_scan_prior_tail``): every sample carries its own augmented
   test inputs, so per chunk of samples each layer takes Grams with a
   sample axis (one kernel launch each), a batched posterior covariance
-  and one batched sampling factor.
+  and one batched sampling factor.  ``last_predict_report`` gives a
+  ``predict``'s sample chunk and its batched sampling factors' batches,
+  rungs read, escalations past the first rung and eigendecompositions
+  (:meth:`GPARRegressor.predict`).
 - The posterior-factor cache (:meth:`GPARRegressor.precompute`): the
   per-layer posterior factors of the conditioned data are computed once
   per latents and kept in one slot, so later ``predict`` / ``sample`` /
@@ -140,6 +143,7 @@ from ..config import (
     bucket_rows, config, default_dtype, mesh_context, mesh_descriptor, resolve_device,
 )
 from ..gp.core import GP, Obs, PseudoObs
+from ..ops import linalg
 from ..ops.kernels import EQ, RQ, Const, Linear, ZeroKernel, gram, kdiag
 from ..ops.linalg import floor_noise, resolve_epsilon, titsias_factors
 from ..params.lbfgs import lbfgs_minimize, lbfgs_minimize_batched, new_stats
@@ -416,6 +420,9 @@ class GPARRegressor:
         #: and the Cholesky factorisations that escalated past the first
         #: jitter rung.
         self.last_fit_report = None
+        #: The most recent ``predict``'s draws (:meth:`predict`): the samples
+        #: a batch holds and the batched sampling factors' counters.
+        self.last_predict_report = None
         self.compat = compat
         self.normalise_y = normalise_y
         self._means = self._stds = None
@@ -1021,7 +1028,7 @@ class GPARRegressor:
         return normals
 
     def _sample_batch(self, x, w, num_samples, latent, normals, noise_normals, generator,
-                      p_prior=None):
+                      p_prior=None, report=None):
         """Model-space draws (num_samples, n, p) at the inputs ``x``: from the
         posterior, or with ``p_prior`` outputs from the prior.  On the scan
         routes the test rows are padded to their bucket and masked out of
@@ -1034,7 +1041,9 @@ class GPARRegressor:
         ``generator``.  The route's tail, with its factors where they are
         not cached, is the span ``gpar.predict.tail``.  From cached factors
         with ``replace=True``, on the card and with no mesh, the tail is
-        the replay of one CUDA graph (``graphs.graphed_tail``)."""
+        the replay of one CUDA graph (``graphs.graphed_tail``).  ``report``
+        (a dict) receives the samples one batch of the tail holds
+        (:meth:`predict`'s report)."""
         from . import graphs
         from .fused import (
             build_scan_prior_plan, factor_slices, make_scan_ancestral_tail, make_scan_cached_tail,
@@ -1071,6 +1080,8 @@ class GPARRegressor:
         per_shard = num_samples if mesh is None else -(-num_samples // mesh.size)
         chunk = resolve_sample_chunk(config.predict_sample_chunk, per_shard, nt + pad,
                                      self.dtype, config.predict_memory_budget)
+        if report is not None:
+            report["sample_chunk"] = per_shard if self.replace or chunk is None else chunk
         if not posterior:
             gpar = _construct_gpar(self, self.vs, m_in, p)
             for layer in gpar.layers:
@@ -1190,16 +1201,30 @@ class GPARRegressor:
         samples over the mesh's shards.  The whole call is the span
         ``gpar.predict``: its draws (:meth:`_sample_batch`), then the
         summary (``gpar.predict.summary``) and its copy to the host
-        (``gpar.predict.read``)."""
+        (``gpar.predict.read``).
+
+        ``last_predict_report`` then holds, from counts the host keeps (no
+        read of their own): ``sample_chunk``, the samples one batch of the
+        tail holds (the chunk of the per-sample ``replace=False`` chains;
+        every sample under ``replace=True``), and the counters of
+        ``ops.linalg.psd_sample_factor_batched`` (:func:`~gpar_torch.ops.
+        linalg.counters`): ``sample_factor_batches`` its calls (one per
+        layer and chunk on the per-sample route; a replayed tail graph's
+        first rungs count in none of these), ``sample_factor_rungs`` the
+        host reads of ``info``, ``sample_factor_escalations`` the samples
+        whose factor needed a rung past the first and
+        ``sample_factor_eigh`` those that no rung repaired."""
         if not self.is_conditioned:
             raise RuntimeError(
                 "Cannot sample from the posterior: no data has been "
                 "conditioned on yet (call fit() or condition() first)."
             )
         with span("gpar.predict"):
+            linalg.reset_counters()
+            report = {"sample_chunk": num_samples}
             with torch.no_grad(), mesh_context(mesh):
                 batch = self._sample_batch(x, w, num_samples, latent, normals, noise_normals,
-                                           generator)
+                                           generator, report=report)
                 with span("gpar.predict.summary"):
                     batch = self._undo_transforms(batch)
                     out = [torch.mean(batch, dim=0)]
@@ -1209,6 +1234,7 @@ class GPARRegressor:
                         out += [lo, hi]
             with span("gpar.predict.read"):
                 out = tuple(self._unpermute_outputs(a.cpu().numpy()) for a in out)
+        self.last_predict_report = dict(report, **linalg.counters())
         return out if credible_bounds else out[0]
 
     def sample(

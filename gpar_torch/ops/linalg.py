@@ -50,6 +50,8 @@ __all__ = [
     "psd_sample_factor",
     "psd_sample_factor_batched",
     "sample_factor_first_rung",
+    "counters",
+    "reset_counters",
     "solve_lower",
     "solve_chol",
     "mvn_logpdf_chol",
@@ -61,6 +63,26 @@ __all__ = [
 ]
 
 LOG_2PI = 1.8378770664093453  # log(2 * pi)
+
+#: Counters of :func:`psd_sample_factor_batched`, kept by the host from the
+#: reads of ``info`` it makes anyway (no read of their own):
+#: ``sample_factor_batches`` its calls, ``sample_factor_rungs`` the rungs
+#: it read, ``sample_factor_escalations`` the elements that needed a rung
+#: past the first and ``sample_factor_eigh`` those that no rung repaired
+#: (the clamped eigendecomposition).  A CUDA graph's first rung
+#: (:func:`sample_factor_first_rung`) counts in none of them.
+_COUNTS = dict.fromkeys(("sample_factor_batches", "sample_factor_rungs",
+                         "sample_factor_escalations", "sample_factor_eigh"), 0)
+
+
+def counters():
+    """The sampling factor's counters by name."""
+    return dict(_COUNTS)
+
+
+def reset_counters():
+    _COUNTS.update(dict.fromkeys(_COUNTS, 0))
+
 
 def resolve_epsilon(dtype, epsilon=None):
     """Effective Cholesky jitter for ``dtype``: an explicit ``epsilon``
@@ -182,24 +204,29 @@ def psd_sample_factor_batched(K, epsilon=None):
     ``max(1e-6 max|diag K_s|, eps)`` of each element) runs only on the
     elements that are still failing, and the clamped eigendecomposition
     only on those that every rung failed.  Factors that hold are kept.  One
-    host read of ``info`` per rung tried."""
+    host read of ``info`` per rung tried, counted (:func:`counters`)."""
     eps = resolve_epsilon(K.dtype, epsilon)
     if K.shape[-1] == 0:
         return torch.zeros_like(K)
+    _COUNTS["sample_factor_batches"] += 1
     L, info = sample_factor_first_rung(K, eps)
     rel = torch.clamp_min(1e-6 * torch.amax(torch.abs(torch.diagonal(K, dim1=-2, dim2=-1)), -1), eps)
     rungs = [eps * f for f in config.cholesky_retry_factors] + [rel]
     bad = torch.nonzero(info).flatten()
+    _COUNTS["sample_factor_rungs"] += 1
     if bad.numel() == 0:
         return L
+    _COUNTS["sample_factor_escalations"] += bad.numel()
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     for e in rungs:
         e = e[bad, None, None] if isinstance(e, torch.Tensor) else e
         Lb, info_b = torch.linalg.cholesky_ex(K[bad] + e * eye)
         L[bad] = Lb
         bad = bad[info_b != 0]
+        _COUNTS["sample_factor_rungs"] += 1
         if bad.numel() == 0:
             return L
+    _COUNTS["sample_factor_eigh"] += bad.numel()
     w, V = torch.linalg.eigh(K[bad])
     L[bad] = V * torch.sqrt(torch.clamp_min(w, eps))[..., None, :]
     return L

@@ -36,6 +36,13 @@ The spans and what each covers (sites in ``models/regressor.py``,
   the plan);
 - ``gpar.predict.tail``: the route's tail: the posterior factors where they
   are not cached, and the draws;
+- inside it, on the per-sample (``replace=False``) route:
+  ``gpar.predict.layer_factors``, one layer's training factors as the tail
+  takes them (computed anew, with the imputation of the layer before,
+  where they are not cached); ``gpar.predict.chunk``, one layer and chunk
+  of samples (the Grams, the posterior, the covariance and the draws); and
+  inside each chunk ``gpar.predict.sample_factor``, the batched sampling
+  factor with its host reads of ``info``;
 - ``gpar.predict.summary``: the undone transforms, the mean and the
   quantiles;
 - ``gpar.predict.read``: the copies of the summary to the host, which wait

@@ -637,3 +637,37 @@ def test_cuda_virtual_mesh_matches_cpu(dense):
             assert counts["gram_eval_cuda_calls"] == 0 and counts["gram_plain_cuda_calls"] == 0
     for a, b in zip(*out):
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cached", [True, False])
+def test_cuda_rq_ancestral_predict_matches_cpu(cached, monkeypatch):
+    # The exchange-rate route at a small size: RQ kernels, a gap imputed,
+    # replace=False per-sample chains in chunks of 4 (the Grams with a
+    # sample axis through the kernel's RQ branch), the factors cached or
+    # computed in the tail; the card's fit and predictive equal the CPU's
+    # within rounding, float64.
+    import gpar_torch
+
+    _need_cuda()
+    monkeypatch.setattr(gpar_torch.config, "posterior_cache", cached)
+    monkeypatch.setattr(gpar_torch.config, "predict_sample_chunk", 4)
+    x, y, x_test = chain_data(n=60, p=3, seed=4, n_test=12)
+    y[10:22, 1] = np.nan
+    kw = dict(bench_kwargs(), x_ind=None, rq=True, replace=False)
+    normals = np.random.default_rng(5).standard_normal((3, 6, len(x_test)))
+    out = []
+    for device in ("cuda", "cpu"):
+        reg = GPARRegressor(**kw, device=device, dtype=torch.float64)
+        reg.fit(x, y, iters=3)
+        assert reg.precompute() is cached
+        GK.reset_counters()
+        res = reg.predict(x_test, num_samples=6, credible_bounds=True, normals=normals)
+        out.append([reg.last_fit_report["layer_nll"], *res])
+        rep = reg.last_predict_report
+        assert rep["sample_chunk"] == 4 and rep["sample_factor_batches"] == 3 * 2
+        if device == "cuda":
+            assert GK.counters()["gram_batched_kernel_launches"] > 0
+            assert GK.counters()["gram_eval_cuda_calls"] == 0
+    for a, b in zip(*out):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-9)

@@ -146,6 +146,53 @@ def test_cached_predict_spans_its_tail_and_no_fit(traced):
     assert not [n for n in names if n.startswith("gpar.fit")]
 
 
+@pytest.fixture(scope="module", params=["cached", "uncached"])
+def ancestral(request):
+    """A profiled ``replace=False`` predict of a dense RQ model with a gap
+    in one output (the exchange-rate configuration's route) in chunks of 4
+    of its 6 samples: its spans and its report.  Uncached, each layer's
+    factors are computed in the tail."""
+    import gpar_torch
+
+    x, y, x_test = chain_data(n=N, p=P, seed=0, n_test=NT)
+    y[10:20, 1] = float("nan")
+    reg = GPARRegressor(**dict(bench_kwargs(), x_ind=None, rq=True, replace=False),
+                        device="cpu", dtype=torch.float64)
+    reg.fit(x, y, iters=ITERS)
+    saved = gpar_torch.config.posterior_cache, gpar_torch.config.predict_sample_chunk
+    gpar_torch.config.posterior_cache = request.param == "cached"
+    gpar_torch.config.predict_sample_chunk = 4
+    try:
+        assert reg.precompute() is (request.param == "cached")
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            reg.predict(x_test, num_samples=S)
+    finally:
+        gpar_torch.config.posterior_cache, gpar_torch.config.predict_sample_chunk = saved
+    return _spans(prof), reg.last_predict_report
+
+
+def test_ancestral_spans_nest_inside_the_tail(ancestral):
+    # p layer_factors spans, a chunk span per layer and chunk of samples,
+    # one sample_factor span inside each chunk, all inside the tail.
+    rows, report = ancestral
+    (_, a, b), = _named(rows, "gpar.predict.tail")
+    chunks = _named(rows, "gpar.predict.chunk")
+    factors = _named(rows, "gpar.predict.sample_factor")
+    names = ("gpar.predict.layer_factors", "gpar.predict.chunk", "gpar.predict.sample_factor")
+    assert all(a <= s and e <= b for n, s, e in rows if n in names)
+    assert len(_named(rows, "gpar.predict.layer_factors")) == P
+    assert len(chunks) == P * -(-S // 4) == report["sample_factor_batches"]
+    assert [sum(c0 <= s and e <= c1 for _, s, e in factors) for _, c0, c1 in chunks] == \
+        [1] * len(chunks)
+
+
+def test_ancestral_report_counts_the_batches(ancestral):
+    report = ancestral[1]
+    assert report["sample_chunk"] == 4
+    assert report["sample_factor_batches"] == report["sample_factor_rungs"] == P * 2
+    assert report["sample_factor_escalations"] == report["sample_factor_eigh"] == 0
+
+
 @pytest.mark.cuda
 def test_cuda_graphed_fit_spans_match_its_report():
     # A graph-cache miss then a hit: a capture span on the miss alone, a
