@@ -107,6 +107,7 @@ from ..ops.kernels import EQ, RQ, Const, Linear, gram, kdiag
 from ..ops.linalg import (
     LOG_2PI,
     _cholesky,
+    FirstRung,
     _mv,
     floor_noise,
     psd_sample_factor,
@@ -118,7 +119,7 @@ from ..ops.linalg import (
     titsias_factors,
 )
 from ..params.lbfgs import (
-    MAX_LINESEARCH, BatchedDeviceLBFGS, DeviceLBFGS, best_of, iterate, new_stats,
+    MAX_LINESEARCH, BatchedDeviceLBFGS, DeviceLBFGS, FirstRungFailed, best_of, iterate, new_stats,
 )
 from ..parallel.dense import _pad_geometry, chol_logpdf, masked_rows
 from ..parallel.mesh import all_gather, broadcast, devices_of, split_rows, to_device
@@ -518,7 +519,8 @@ def _masked_dense_factors(K, r, mask, noise_w, eps, escalations=None):
     factorisation adds ``eps`` to the whole diagonal, so a masked diagonal
     is set to ``1 - eps`` to land at 1.  With ``escalations`` the Cholesky
     takes the jitter ladder on the device
-    (``ops.linalg.cholesky_ladder_on_device``), else the host ladder.
+    (``ops.linalg.cholesky_ladder_on_device``), or with an
+    ``ops.linalg.FirstRung`` the first rung alone, else the host ladder.
 
     ``K`` is (rows, rows): the masking multiplies by the two mask vectors
     (no (rows, rows) mask is formed or kept for the backward) and the
@@ -543,7 +545,8 @@ def _layer_nll_factors(plan, lin, z_full, x_aug, zi_aug, escalations=None):
     ``lin`` at parameters ``z_full``, and the factors of
     :func:`_est_from_factors`, ``(Kmm, Kmn, beta)`` or ``(K, alpha)``.
     With ``escalations`` the factorisations take the jitter ladder on the
-    device (``ops.linalg.cholesky_ladder_on_device``).  A batch of latents
+    device (``ops.linalg.cholesky_ladder_on_device``), or with an
+    ``ops.linalg.FirstRung`` the first rung alone.  A batch of latents
     ``z_full`` (B, n_z + 1) gives (B,) NLLs and batched factors."""
     kernel, noise = _layer_kernel(plan, lin, z_full)
     noise_w = floor_noise((noise if noise.ndim == 0 else noise[..., None]) / lin["w_col"])
@@ -756,13 +759,24 @@ class ScanStep:
     arrays loaded per fit), the current layer's slice ``lin`` and its index
     ``layer`` (on the device), the latents ``z_ext`` (dummy slot last), the
     augmented inputs, the layer's L-BFGS (``opt``, a
-    :class:`~gpar_torch.params.lbfgs.DeviceLBFGS`), the per-layer results
-    and ``escalations``, the count of Cholesky factorisations that needed
-    more than the first jitter rung.
-    The bodies read nothing back to the host; every factorisation in them
-    takes the jitter ladder on the device
-    (``ops.linalg.cholesky_ladder_on_device``), with the host ladder's
-    value and gradient:
+    :class:`~gpar_torch.params.lbfgs.DeviceLBFGS`), the per-layer results,
+    ``escalations``, the count of Cholesky factorisations that needed
+    more than the first jitter rung, and ``failures``, the count of the
+    layer's first-rung factorisations that failed.
+    The bodies read nothing back to the host.  ``layer_finish`` factors on
+    the jitter ladder on the device (``ops.linalg.cholesky_ladder_on_device``),
+    with the host ladder's value and gradient.  With ``first_rung`` (set
+    where a flags read follows every evaluation, :func:`new_step`),
+    ``layer_init``, ``step`` and ``trial`` factor each matrix once, at the
+    first rung (``ops.linalg.cholesky_first_rung``, through an
+    ``ops.linalg.FirstRung``), counting into ``failures``, which the
+    optimiser's flags carry: where every first-rung factorisation of a
+    layer holds, the ladder's trajectory bit for bit; where one fails,
+    :func:`run_scan_fit` runs that layer again on the ladder
+    (:meth:`on_the_ladder`), eagerly.  These bodies write only the
+    layer's slice ``lin``, the optimiser's buffers and ``failures``, and
+    ``layer_init`` sets all three anew, so the run again needs no snapshot.
+    Without ``first_rung`` every body takes the ladder.
 
     - ``layer_init``: copy layer ``layer``'s plan slice, gather its
       latents, value and gradient there, an empty history;
@@ -788,10 +802,11 @@ class ScanStep:
     CAPTURE_SPAN = "gpar.fit.capture"
 
     def __init__(self, plan, n_rows, n_ind, dtype, device, gtol=1e-9, memory_size=10,
-                 restarts=1):
+                 restarts=1, first_rung=False):
         self.plan, self.n_rows, self.n_ind = plan, n_rows, n_ind
         self.dtype, self.device = dtype, torch.device(device)
         self.gtol, self.memory_size, self.restarts = gtol, memory_size, restarts
+        self.first_rung = first_rung
 
         def zeros(*shape, dt=dtype):
             return torch.zeros(shape, dtype=dt, device=self.device)
@@ -805,27 +820,30 @@ class ScanStep:
         self.x_aug = zeros(n_rows, plan.W)
         self.zi_aug = zeros(n_ind, plan.W)
         self.escalations = zeros(dt=torch.int64)
+        self.failures = zeros(dt=torch.int64)
         self.pert = zeros(plan.p, restarts - 1, plan.s_max)
+        failures = self.failures if first_rung else None
         if restarts > 1:
             self.opt = BatchedDeviceLBFGS(self._value_and_grad, self._value, restarts,
                                           plan.s_max, dtype, self.device, memory=memory_size,
-                                          gtol=gtol)
+                                          gtol=gtol, failures=failures)
         else:
             self.opt = DeviceLBFGS(self._value_and_grad, self._value, plan.s_max, dtype,
-                                   self.device, memory=memory_size, gtol=gtol)
+                                   self.device, memory=memory_size, gtol=gtol, failures=failures)
         self.out = zeros(3, plan.p)  # per layer: final NLL, initial NLL, iterations
 
     def _buffers(self):
         return [
             *self.xs.values(), *self.lin.values(), self.layer, self.z_ext, self.x_aug,
-            self.zi_aug, self.escalations, self.pert, *self.opt.buffers(), self.out,
+            self.zi_aug, self.escalations, self.failures, self.pert, *self.opt.buffers(),
+            self.out,
         ]
 
     def clone(self):
         """A step with copies of every buffer (a CUDA graph's warm-up runs
         on one, so that it moves none of this step's state)."""
         other = ScanStep(self.plan, self.n_rows, self.n_ind, self.dtype, self.device,
-                         self.gtol, self.memory_size, self.restarts)
+                         self.gtol, self.memory_size, self.restarts, self.first_rung)
         for dst, src in zip(other._buffers(), self._buffers()):
             dst.copy_(src)
         return other
@@ -856,12 +874,13 @@ class ScanStep:
         row per start): a scatter that carries the gradient back to ``z``."""
         return _with_span(self.z_ext, self.lin["layer_gather"], z)
 
-    def _nll_factors(self, z_full):
+    def _nll_factors(self, z_full, escalations):
         return _layer_nll_factors(self.plan, self.lin, z_full, self.x_aug, self.zi_aug,
-                                  self.escalations)
+                                  escalations)
 
     def nll(self, z):
-        return self._nll_factors(self._full(z))[0]
+        counter = FirstRung(self.failures) if self.first_rung else self.escalations
+        return self._nll_factors(self._full(z), counter)[0]
 
     def _value_and_grad(self, z):
         return _value_and_grad(self.nll, z)
@@ -872,7 +891,19 @@ class ScanStep:
 
     # -- bodies -------------------------------------------------------------
 
+    @contextlib.contextmanager
+    def on_the_ladder(self):
+        """Inside, the bodies factor on the full ladder on the device: the
+        eager run again of a layer whose first rung failed (a captured
+        graph keeps the factorisation it was captured with)."""
+        first, self.first_rung = self.first_rung, False
+        try:
+            yield
+        finally:
+            self.first_rung = first
+
     def layer_init(self):
+        self.failures.zero_()
         for k, buf in self.lin.items():
             buf.copy_(self.xs[k].index_select(0, self.layer)[0])
         z0 = self.z_ext.index_select(0, self.lin["layer_gather"])
@@ -894,7 +925,7 @@ class ScanStep:
         with torch.no_grad():
             # The output column written here is gated out of this layer's
             # kernel, so the estimates do not depend on it.
-            self._augment(self._nll_factors(self.z_ext)[1])
+            self._augment(self._nll_factors(self.z_ext, self.escalations)[1])
         res = torch.stack([f, f0, it.to(f.dtype)])
         self.out.index_copy_(1, self.layer, res[:, None])
         self.layer.add_(1)
@@ -926,9 +957,12 @@ class MeshScanStep(ScanStep):
     and each shard holds its block of the augmented inputs and of the
     plan's row arrays, and its own layer slice, on its device; the L-BFGS
     state, the latents and the inducing inputs stay on shard 0's device.
-    The layer objective is :func:`_mesh_layer_nll_factors`; the bodies read
-    nothing back to the host, so on a mesh whose shards share one card they
-    are captured as CUDA graphs like the one-device step's."""
+    The layer objective is :func:`_mesh_layer_nll_factors`, every
+    factorisation on the ladder (no ``first_rung``: the dense objective's
+    distributed Cholesky has no rungs, the sparse one's are of order m);
+    the bodies read nothing back to the host, so on a mesh whose shards
+    share one card they are captured as CUDA graphs like the one-device
+    step's."""
 
     def __init__(self, plan, n_rows, n_ind, dtype, device, gtol=1e-9, memory_size=10,
                  restarts=1, mesh=None):
@@ -976,9 +1010,9 @@ class MeshScanStep(ScanStep):
         self.layer.zero_()
         self.escalations.zero_()
 
-    def _nll_factors(self, z_full):
+    def _nll_factors(self, z_full, escalations):
         return _mesh_layer_nll_factors(self.plan, self.lins, z_full, self.x_parts, self.zi_aug,
-                                       self.block, self.escalations)
+                                       self.block, escalations)
 
     def layer_init(self):
         for lin, st in zip(self.lins[1:], self.stacks[1:]):
@@ -996,10 +1030,16 @@ class MeshScanStep(ScanStep):
             self.zi_aug.index_copy_(1, col, est_ind[:, None])
 
 
-def new_step(plan, n_rows, n_ind, dtype, device, gtol, memory_size, restarts=1, mesh=None):
-    """A :class:`ScanStep`, or a :class:`MeshScanStep` over ``mesh``."""
+def new_step(plan, n_rows, n_ind, dtype, device, gtol, memory_size, restarts=1, mesh=None,
+             iters=0):
+    """A :class:`ScanStep`, or a :class:`MeshScanStep` over ``mesh``.  With
+    ``iters > 0`` a flags read follows every evaluation in
+    :func:`run_scan_fit`'s layer, ``layer_init``'s in the first iteration's
+    read, so the one-device step factors at the first rung
+    (``first_rung``); with none, the ladder."""
     if mesh is None:
-        return ScanStep(plan, n_rows, n_ind, dtype, device, gtol, memory_size, restarts)
+        return ScanStep(plan, n_rows, n_ind, dtype, device, gtol, memory_size, restarts,
+                        first_rung=iters > 0)
     return MeshScanStep(plan, n_rows, n_ind, dtype, device, gtol, memory_size, restarts, mesh)
 
 
@@ -1062,8 +1102,15 @@ def run_scan_fit(step, run, iters, stats=None):
     (eagerly or from its graph), each run under the span
     ``gpar.fit.launch``.  The host reads the L-BFGS
     flags once per iteration (and per backtracking trial) and the results
-    once at the end.  Returns :meth:`ScanStep.results`."""
+    once at the end.  A read that finds a first-rung failure
+    (:class:`~gpar_torch.params.lbfgs.FirstRungFailed`) ends the layer's
+    iterations; ``layer_init`` and the iterations then run again eagerly
+    on the full ladder (:meth:`ScanStep.on_the_ladder`), under the span
+    ``gpar.fit.repair``, counted in ``stats["ladder_repairs"]``, and the
+    loop goes on at ``layer_finish``: the ladder's trajectory in every
+    case.  Returns :meth:`ScanStep.results`."""
     stats = new_stats() if stats is None else stats
+    stats["ladder_repairs"] = 0
 
     def launch(name):
         with span("gpar.fit.launch"):
@@ -1071,7 +1118,14 @@ def run_scan_fit(step, run, iters, stats=None):
 
     for _ in range(step.plan.p):
         launch("layer_init")
-        _iterations(launch, step.opt, iters, stats)
+        try:
+            _iterations(launch, step.opt, iters, stats)
+        except FirstRungFailed:
+            stats["ladder_repairs"] += 1
+            with span("gpar.fit.repair"), step.on_the_ladder():
+                eager = Eager(step)
+                eager("layer_init")
+                _iterations(eager, step.opt, iters, stats)
         launch("layer_finish")
     return step.results(stats)
 
@@ -1134,9 +1188,10 @@ def make_scan_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1, restar
     ``cuda_graphs`` the step's bodies replay CUDA graphs captured once per
     key (``models/graphs.py``); otherwise they run eagerly.  ``stats``
     (``params.lbfgs.new_stats()``) receives the counters,
-    ``graph_replays``, ``capture_s`` and ``cuda_graphs`` (whether the step
-    ran as CUDA graphs).  The host set-up up to the first body run is the
-    span ``gpar.fit.prepare``."""
+    ``ladder_repairs`` (:func:`run_scan_fit`), ``graph_replays``,
+    ``capture_s`` and ``cuda_graphs`` (whether the step ran as CUDA
+    graphs).  The host set-up up to the first body run is the span
+    ``gpar.fit.prepare``."""
 
     def program(z_all, x, xs_rows=None, stats=None, normals=None):
         stats = new_stats() if stats is None else stats
@@ -1157,7 +1212,7 @@ def make_scan_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1, restar
                                                         restarts, mesh)
                 else:
                     step = new_step(plan, x.shape[0], zi.shape[0], dtype, device, gtol,
-                                    memory_size, restarts, mesh)
+                                    memory_size, restarts, mesh, iters)
                     step.load(*args)
                     run, capture_s = Eager(step), 0.0
             replays0 = run.replays

@@ -25,9 +25,15 @@ launches on the same stream.  A mesh over distinct cards runs eagerly
   side stream, as ``torch.cuda.graph`` requires (it creates the cuBLAS and
   cuSOLVER handles and the autograd state); the clone keeps that warm-up
   from moving the fit's state.
-- The Cholesky jitter ladder runs on the device inside the bodies
-  (``ops.linalg.cholesky_ladder_on_device``): a replay computes what the eager step
-  computes, so a replayed state never needs redoing.
+- A replay computes what the eager step computes.  Where a flags read
+  follows every evaluation (``iters > 0``), ``layer_init``, ``step`` and
+  ``trial`` factor each matrix once, at the first jitter rung
+  (``ops.linalg.cholesky_first_rung``), and the flags carry the count of
+  those that failed; a layer with a failure is run again eagerly on the
+  full ladder and the fit goes on at its captured ``layer_finish``
+  (``fused.run_scan_fit``), which factors on the ladder on the device
+  (``ops.linalg.cholesky_ladder_on_device``), as every body does with
+  ``iters = 0`` (a key of its own).
 - Launch counters: a capture runs the kernel wrappers' Python once and a
   replay runs none, so :class:`GraphedStep` records what each capture
   added to the counters of ``ops.gram_kernel``, takes it back out, and
@@ -204,7 +210,7 @@ def graphed_step(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size, a
     the byte budget evicts as the module says."""
     key = _key(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size, restarts, mesh)
     return _cached(key, device, args, lambda: new_step(plan, n_rows, n_ind, dtype, device, gtol,
-                                                       memory_size, restarts, mesh))
+                                                       memory_size, restarts, mesh, iters))
 
 
 def graphed_tail(plan, latent, z_all, factors, x_test, w_test_T, normals, xs_rows, mt):

@@ -17,16 +17,26 @@ never enters the autograd graph, so the JAX package's NaN-proof Cholesky
 VJP (``_chol_grad_safe``) is not needed — the gradient is that of the rung
 that succeeded.
 
-A CUDA graph can hold no host read, so a caller that passes an
-``escalations`` counter to :func:`titsias_factors` gets
-:func:`cholesky_ladder_on_device` for its factorisations: every rung is
-tried on the device without autograd, the first that holds is chosen by
-``torch.where``, and the matrix is factored once more at that rung's
-jitter, with autograd.  Value and gradient are bit for bit those of the
-host-read ladder (the same factorisation of the same matrix; the
-unchosen rungs add exact zeros), so a captured step computes what the
-eager one does, at the price of the probes.  The JAX counterpart is the
-ladder through ``lax.cond`` (``gpar_tpu/ops/linalg.py:337-380``).
+A CUDA graph can hold no host read, so the graphed fit factors in one of
+two ways, each with no read of its own:
+
+- A caller that passes an ``escalations`` counter to
+  :func:`titsias_factors` gets :func:`cholesky_ladder_on_device`: every
+  rung is tried on the device without autograd, the first that holds is
+  chosen by ``torch.where``, and the matrix is factored once more at that
+  rung's jitter, with autograd.  Value and gradient are bit for bit those
+  of the host-read ladder (the same factorisation of the same matrix; the
+  unchosen rungs add exact zeros), at the price of the probes.  The JAX
+  counterpart is the ladder through ``lax.cond``
+  (``gpar_tpu/ops/linalg.py:337-380``).
+- A caller whose every evaluation is followed by a host read anyway (the
+  scan fit's L-BFGS bodies, which read their flags) passes
+  ``escalations=FirstRung(failures)`` instead and gets
+  :func:`cholesky_first_rung`: one factorisation, at the first rung, with
+  autograd.  Where it holds it is the ladder's
+  factor and gradient bit for bit; where it fails the factor is NaN and
+  the counter says so, and the caller runs that work again on the ladder
+  (``models.fused.run_scan_fit``).
 
 The on-device ladder, the solves and the Titsias factors take a leading
 batch axis (the JAX package vmaps its fits' objectives over restarts and
@@ -35,6 +45,8 @@ picks its rung per element, as JAX's vmapped ``lax.cond`` does, so one
 element's failing factorisation never changes another's jitter.  Unbatched
 inputs take the same operations as before.
 """
+
+from typing import NamedTuple
 
 import torch
 
@@ -47,6 +59,8 @@ __all__ = [
     "add_jitter",
     "safe_cholesky",
     "cholesky_ladder_on_device",
+    "cholesky_first_rung",
+    "FirstRung",
     "psd_sample_factor",
     "psd_sample_factor_batched",
     "sample_factor_first_rung",
@@ -163,6 +177,33 @@ def cholesky_ladder_on_device(K, escalations, epsilon=None):
         e = torch.where(held, r, e)
     L, _ = _cholesky_ex(K + jit(e) * eye)
     return torch.where(jit(torch.stack(ok).any(0)), L, float("nan"))
+
+
+def cholesky_first_rung(K, failures, epsilon=None):
+    """The first rung of :func:`cholesky_ladder_on_device` alone, with
+    autograd and no host read: ``cholesky_ex(K + eps I)``, the very
+    factorisation the ladder makes where its first rung holds, so there its
+    value and gradient bit for bit.  Where it fails the factor is NaN (as
+    the ladder's where every rung fails), and each failing element of a
+    batch (B, n, n) adds one to the integer device tensor ``failures``.
+    :func:`sample_factor_first_rung` is the same rung for the sampling
+    factors; this one keeps :func:`_cholesky_ex`'s one-matrix-at-a-time
+    route for a batch of large matrices, as the ladder does."""
+    eps = resolve_epsilon(K.dtype, epsilon)
+    if K.shape[-1] == 0:
+        return torch.zeros_like(K)
+    L, info = _cholesky_ex(K + eps * torch.eye(K.shape[-1], dtype=K.dtype, device=K.device))
+    bad = info != 0
+    failures.add_(torch.sum(bad).to(failures.dtype))
+    return torch.where(bad[..., None, None], float("nan"), L)
+
+
+class FirstRung(NamedTuple):
+    """An ``escalations`` argument (:func:`titsias_factors` and the callers
+    that pass it on) that asks for :func:`cholesky_first_rung` in place of
+    the ladder on the device, its failures counted into ``failures``."""
+
+    failures: torch.Tensor
 
 
 def safe_cholesky(K, epsilon=None):
@@ -295,8 +336,12 @@ def titsias_elbo(Kmm, Kmn, knn_diag, y, mean, noise_diag, epsilon=None):
 
 
 def _cholesky(K, epsilon, escalations):
+    """The host ladder without ``escalations``, the first rung alone with a
+    :class:`FirstRung`, else the ladder on the device."""
     if escalations is None:
         return safe_cholesky(K, epsilon)
+    if isinstance(escalations, FirstRung):
+        return cholesky_first_rung(K, escalations.failures, epsilon)
     return cholesky_ladder_on_device(K, escalations, epsilon)
 
 
@@ -312,7 +357,9 @@ def titsias_factors(Kmm, Kmn, knn_diag, y, mean, noise_diag, epsilon=None, mask=
 
     ``escalations`` (optional integer device tensor): factor through
     :func:`cholesky_ladder_on_device`, which reads nothing back to the host
-    and counts into it, instead of :func:`safe_cholesky`.
+    and counts into it, instead of :func:`safe_cholesky`; a
+    :class:`FirstRung`: through :func:`cholesky_first_rung`, counting its
+    failures.
 
     A batch: ``Kmm`` (B, m, m), ``Kmn`` (B, m, n), ``knn_diag`` and
     ``noise_diag`` (B, n); ``y``, ``mean`` and ``mask`` (n,) or (B, n).

@@ -28,7 +28,11 @@ there.  :func:`iterate` drives one iteration from the host with one read of
 a two-entry flags tensor after ``step`` (and one after each backtracking
 trial and episode).  The bodies are plain functions of the buffers: the
 same code runs eagerly or replays as CUDA graphs (``models/fused.py``,
-``models/graphs.py``).
+``models/graphs.py``).  An optimiser given a ``failures`` counter (the scan
+fit's, which factors at the first jitter rung alone) writes it into a third
+entry of the flags, and :func:`read_flags` raises :class:`FirstRungFailed`
+where it is not zero: the same read says whether every factorisation since
+the counter was zeroed held.
 
 :class:`BatchedDeviceLBFGS` runs B independent optimisations at once (the
 JAX package's ``vmap`` of ``lbfgs_minimize`` over restarts and layers,
@@ -57,6 +61,7 @@ __all__ = [
     "two_loop",
     "iterate",
     "read_flags",
+    "FirstRungFailed",
     "new_stats",
     "lbfgs_minimize",
     "lbfgs_minimize_batched",
@@ -171,11 +176,13 @@ class DeviceLBFGS:
     objective at a (d,) point.  Every body reports in ``flags = [accepted,
     done]``.  ``mode`` tells ``step`` what to evaluate: 0 the first trial
     at ``t0``, 1 the point backtracking accepted at ``t``, 2 none (the line
-    search failed)."""
+    search failed).  With ``failures`` (an integer device tensor that the
+    objective counts into) the flags are ``[accepted, done, failures]``."""
 
     def __init__(self, value_and_grad, value, d, dtype, device, memory=10,
-                 gtol=1e-9, ftol=1e-12, c1=1e-4):
+                 gtol=1e-9, ftol=1e-12, c1=1e-4, failures=None):
         self.value_and_grad, self.value = value_and_grad, value
+        self.failures = failures
         self.gtol, self.ftol, self.c1 = gtol, ftol, c1
         self.state = _zero_state(d, memory, dtype, device)
         self.cand = _zero_state(d, memory, dtype, device)
@@ -185,10 +192,13 @@ class DeviceLBFGS:
         self.dg = torch.zeros((), dtype=dtype, device=device)
         self.t = torch.zeros((), dtype=dtype, device=device)
         self.mode = torch.zeros((), dtype=torch.int64, device=device)
-        self.flags = torch.zeros(2, dtype=torch.int64, device=device)
+        self.flags = torch.zeros(2 if failures is None else 3, dtype=torch.int64, device=device)
 
     def _flags(self, ok, done):
-        self.flags.copy_(torch.stack([ok, done]).to(torch.int64))
+        flags = torch.stack([ok, done]).to(torch.int64)
+        if self.failures is not None:
+            flags = torch.cat([flags, self.failures.reshape(1)])
+        self.flags.copy_(flags)
 
     def buffers(self):
         """Every buffer, in a fixed order."""
@@ -334,11 +344,14 @@ class BatchedDeviceLBFGS:
     an element that is done reports both.  ``mode`` is 0 for an
     iteration's first trial and anything else for the evaluation after a
     search; which elements searched (``needs_ls``) and which are still
-    searching, so failed, (``searching``) is kept on the device."""
+    searching, so failed, (``searching``) is kept on the device.  With
+    ``failures`` every row of the flags carries the counter, (B, 3), as in
+    :class:`DeviceLBFGS`."""
 
     def __init__(self, value_and_grad, value, batch, d, dtype, device, memory=10,
-                 gtol=1e-9, ftol=1e-12, c1=1e-4):
+                 gtol=1e-9, ftol=1e-12, c1=1e-4, failures=None):
         self.value_and_grad, self.value = value_and_grad, value
+        self.failures = failures
         self.gtol, self.ftol, self.c1 = gtol, ftol, c1
         B = batch
 
@@ -361,14 +374,18 @@ class BatchedDeviceLBFGS:
         self.needs_ls = torch.zeros(B, dtype=torch.bool, device=device)
         self.searching = torch.zeros(B, dtype=torch.bool, device=device)
         self.mode = torch.zeros((), dtype=torch.int64, device=device)
-        self.flags = torch.zeros((B, 2), dtype=torch.int64, device=device)
+        self.flags = torch.zeros((B, 2 if failures is None else 3), dtype=torch.int64,
+                                 device=device)
 
     def buffers(self):
         return [*self.state, *self.cand, self.z0, self.f0, self.direction, self.dg, self.t,
                 self.needs_ls, self.searching, self.mode, self.flags]
 
     def _flags(self, ok, done):
-        self.flags.copy_(torch.stack([ok, done], dim=1).to(torch.int64))
+        flags = torch.stack([ok, done], dim=1).to(torch.int64)
+        if self.failures is not None:
+            flags = torch.cat([flags, self.failures.expand(flags.shape[0], 1)], dim=1)
+        self.flags.copy_(flags)
 
     def start(self, z0):
         """Body: value and gradient at ``z0`` (B, d); empty histories."""
@@ -439,16 +456,25 @@ def new_stats():
     return {"host_syncs": 0, "linesearch_episodes": 0, "linesearch_trials": 0}
 
 
+class FirstRungFailed(Exception):
+    """A flags read found factorisations whose first jitter rung failed
+    (the flags' third entry, their count): the evaluations since the
+    counter was zeroed are not those of the full ladder."""
+
+
 def read_flags(flags, stats):
     """The one host read: ``flags`` as Python ints, ``[accepted, done]``
     (of a batch: whether every element accepted, whether every element is
-    done), under the span ``gpar.fit.read``."""
+    done), under the span ``gpar.fit.read``.  Raises
+    :class:`FirstRungFailed` where the flags carry a count of first-rung
+    failures that is not zero."""
     stats["host_syncs"] += 1
     with span("gpar.fit.read"):
         out = flags.tolist()
-    if flags.ndim == 2:
-        return [all(a for a, _ in out), all(d for _, d in out)]
-    return out
+    rows = out if flags.ndim == 2 else [out]
+    if len(rows[0]) > 2 and rows[0][2]:
+        raise FirstRungFailed(rows[0][2])
+    return [all(r[0] for r in rows), all(r[1] for r in rows)]
 
 
 def iterate(run, opt, max_linesearch, stats):

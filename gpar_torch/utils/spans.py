@@ -31,6 +31,10 @@ The spans and what each covers (sites in ``models/regressor.py``,
 - ``gpar.fit.read``: one host read of an optimiser's flags or of a fit's
   results, on every route of ``fit``, each counted in ``host_syncs``: the
   host blocked on the device;
+- ``gpar.fit.repair``: one layer of the scan fit run again, eagerly, on the
+  full jitter ladder after a read found a first-rung failure
+  (``ladder_repairs``); its bodies have no launch span, its reads their
+  read spans;
 - ``gpar.predict``: the whole of ``predict``; its own time, outside the
   spans below, is the preparation of the inputs (padding, normals, uploads,
   the plan);

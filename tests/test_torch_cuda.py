@@ -17,10 +17,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from gpar_torch import GPARRegressor  # noqa: E402
-from gpar_torch.models.fused import Eager, ScanStep, build_scan_fit_plan  # noqa: E402
+from gpar_torch.models.fused import Eager, build_scan_fit_plan  # noqa: E402
 from gpar_torch.ops import gram_kernel as GK  # noqa: E402
 
-from .torch_cases import CASES, FUSED, TorchFW, _inputs, bench_kwargs, chain_data  # noqa: E402
+from .torch_cases import (  # noqa: E402
+    CASES, FUSED, TorchFW, _inputs, bench_kwargs, chain_data, scan_step,
+)
 
 
 def _need_cuda():
@@ -119,18 +121,7 @@ def test_cuda_backward_kernel_at_the_lane_maps_edges_gives_the_same_bits(dtype, 
 def _small_step(dtype, dense=False, restarts=1):
     x, y, _ = chain_data(n=100, p=3, seed=0)
     y[::7, 2] = np.nan
-    kw = dict(bench_kwargs(n_ind=8), **({"x_ind": None} if dense else {}))
-    reg = GPARRegressor(**kw, device="cuda", dtype=dtype)
-    reg.condition(x, y)
-    reg._ensure_vars(reg.p)
-    names = reg.vs.select(None)
-    plan = build_scan_fit_plan(reg, names)
-    x_pad, rows = reg._bucket_fit_inputs(plan)
-    zi = x_pad.new_zeros((0, plan.m)) if dense else reg.x_ind
-    step = ScanStep(plan, x_pad.shape[0], zi.shape[0], dtype, "cuda", restarts=restarts)
-    pert = torch.as_tensor(np.random.default_rng(3).normal(size=(plan.p, restarts - 1, plan.s_max)),
-                           dtype=dtype, device="cuda")
-    step.load(reg.vs.latent_vector(names), x_pad, rows, zi, pert)
+    reg, step = scan_step("cuda", dtype, dense, restarts)
     return reg, x, y, step
 
 
@@ -272,6 +263,54 @@ def test_cuda_graphed_fit_equals_eager_fit():
     np.testing.assert_array_equal(graphed[0]["layer_nll"], eager[0]["layer_nll"])
     for k, v in eager[1].items():
         np.testing.assert_array_equal(graphed[1][k], v)
+
+
+def _card_scan_fit(dense, first_rung, graphed, eps=None, w=None, restarts=1):
+    """``(results, stats)`` of the float64 scan fit of :func:`scan_step`'s
+    model on the card, 5 iterations a layer: graphed or eager, at the first
+    rung or on the ladder, with the first jitter ``eps``."""
+    import gpar_torch
+    from gpar_torch.models.fused import _cusolver, run_scan_fit
+    from gpar_torch.models.graphs import GraphedStep
+    from gpar_torch.params.lbfgs import new_stats
+
+    old = gpar_torch.config.epsilon
+    gpar_torch.config.epsilon = old if eps is None else eps
+    try:
+        _, step = scan_step("cuda", torch.float64, dense, restarts, first_rung, w)
+        stats = new_stats()
+        with _cusolver("cuda"):
+            run = GraphedStep(step) if graphed else Eager(step)
+            out = run_scan_fit(step, run, 5, stats)
+        torch.cuda.synchronize()
+    finally:
+        gpar_torch.config.epsilon = old
+    return [a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a) for a in out], stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense, restarts", [(False, 1), (True, 1), (True, 2)],
+                         ids=["sparse", "dense", "dense-restarts"])
+@pytest.mark.parametrize("forced", [False, True], ids=["holds", "repaired"])
+def test_cuda_graphed_first_rung_fit_equals_the_eager_ladder_fit(dense, restarts, forced):
+    # The graphed fit that factors at the first rung against the eager fit
+    # on the full ladder: the same bits.  Forced: a negative first jitter
+    # (and, dense, output 1's noise weighted down to nothing) fails some
+    # first-rung factorisations, whose layers run again eagerly on the
+    # ladder between the replays.
+    _need_cuda()
+    eps, w = None, None
+    if forced:
+        eps = -1e-4 if dense else -1e-1
+        if dense:
+            w = np.ones((100, 3))
+            w[:, 1] = 1e30
+    got, stats = _card_scan_fit(dense, True, True, eps, w, restarts)
+    want, ladder = _card_scan_fit(dense, False, False, eps, w, restarts)
+    assert (stats["ladder_repairs"] > 0) == forced and ladder["ladder_repairs"] == 0
+    assert stats["ladder_escalations"] == ladder["ladder_escalations"]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.cuda

@@ -3,7 +3,9 @@ on ``torch.profiler``'s timeline: their names and nesting, their counts
 against the fit's report, and that nothing is recorded with no profiler.
 
 One tiny sparse ``fit_predict`` on the CPU (p = 3, 40 rows, 8 inducing
-points) under the profiler serves the CPU tests.  The card tests check the
+points) under the profiler serves the CPU tests; a fit whose first jitter
+rung fails in some layers has a repair span for each layer run again, on
+the CPU and on the card.  The card tests check the
 graphed fit: a capture span on a graph-cache miss only, a launch span per
 graph replay, and no span among the card's operations; and the cached
 predict's tail graph: its capture, replay and repair spans inside
@@ -223,6 +225,61 @@ def test_cuda_graphed_fit_spans_match_its_report():
         assert captures == [1, 0]
     finally:
         graphs.clear_cache()
+
+
+def _repair_spans(device, jitter):
+    """The spans and report of a sparse fit at the first jitter ``jitter``
+    (-0.3 fails the first rung of some layers' factorisations)."""
+    import gpar_torch
+
+    x, y, _ = chain_data(n=N, p=P, seed=0, n_test=NT)
+    reg = GPARRegressor(**bench_kwargs(n_ind=8), device=device, dtype=torch.float64)
+    eps = gpar_torch.config.epsilon
+    gpar_torch.config.epsilon = eps if jitter is None else jitter
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device == "cuda" else [])
+    try:
+        with profile(activities=activities) as prof:
+            reg.fit(x, y, iters=ITERS)
+    finally:
+        gpar_torch.config.epsilon = eps
+    return _spans(prof), reg.last_fit_report
+
+
+def _check_repair_spans(rows, rep, repaired):
+    # A repair span per layer run again, and only then; each inside the fit,
+    # holding read spans and no launch span; every read still a host sync.
+    repairs = _named(rows, "gpar.fit.repair")
+    assert (len(repairs) > 0) == repaired and len(repairs) == rep["ladder_repairs"]
+    assert len(_named(rows, "gpar.fit.read")) == rep["host_syncs"]
+    (_, a, b), = _named(rows, "gpar.fit")
+    for _, s, e in repairs:
+        assert a <= s and e <= b
+        inside = [n for n, s2, e2 in rows if s <= s2 and e2 <= e]
+        assert "gpar.fit.read" in inside and "gpar.fit.launch" not in inside
+
+
+@pytest.mark.parametrize("jitter", [None, -0.3], ids=["holds", "repaired"])
+def test_repair_spans_count_the_layers_run_again(jitter):
+    rows, rep = _repair_spans("cpu", jitter)
+    _check_repair_spans(rows, rep, jitter is not None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jitter", [None, -0.3], ids=["holds", "repaired"])
+def test_cuda_repair_spans_count_the_layers_run_again(jitter):
+    # On the card the repair runs eagerly between replays: launch spans still
+    # count the graph replays alone.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the graphed fit has no CPU mode)")
+    from gpar_torch.models import graphs
+
+    graphs.clear_cache()
+    try:
+        rows, rep = _repair_spans("cuda", jitter)
+    finally:
+        graphs.clear_cache()
+    assert rep["cuda_graphs"] and len(_named(rows, "gpar.fit.launch")) == rep["graph_replays"]
+    _check_repair_spans(rows, rep, jitter is not None)
 
 
 @pytest.mark.cuda

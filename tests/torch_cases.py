@@ -16,7 +16,8 @@ from gpar_torch.models.regressor import _model_generator as t_generator
 from gpar_torch.params.store import Vars as TVars
 from gpar_torch.params.store import load_latents
 
-__all__ = ["CASES", "FUSED", "TorchFW", "bench_kwargs", "chain_data", "_inputs", "_layer_kernel_tree"]
+__all__ = ["CASES", "FUSED", "TorchFW", "bench_kwargs", "chain_data", "scan_step", "_inputs",
+           "_layer_kernel_tree"]
 
 
 def chain_data(n=100, p=3, seed=0, n_test=20):
@@ -30,6 +31,32 @@ def chain_data(n=100, p=3, seed=0, n_test=20):
     y = np.stack(cols, axis=1) + 0.05 * rng.standard_normal((n, p))
     x_test = np.linspace(0.2, 9.8, n_test)
     return x, y, x_test
+
+
+def scan_step(device, dtype=torch.float64, dense=False, restarts=1, first_rung=False, w=None):
+    """``(reg, step)``: the benchmark's model (8 inducing points, or dense)
+    conditioned on ``chain_data(100, 3)`` with every seventh row of output 2
+    missing and the weights ``w``, and a loaded
+    :class:`~gpar_torch.models.fused.ScanStep` of its fit on ``device``
+    (``restarts`` starts, the perturbations from seed 3)."""
+    from gpar_torch.models.fused import ScanStep, build_scan_fit_plan
+
+    x, y, _ = chain_data(n=100, p=3, seed=0)
+    y[::7, 2] = np.nan
+    kw = dict(bench_kwargs(n_ind=8), **({"x_ind": None} if dense else {}))
+    reg = TReg(**kw, device=device, dtype=dtype)
+    reg.condition(x, y, w)
+    reg._ensure_vars(reg.p)
+    names = reg.vs.select(None)
+    plan = build_scan_fit_plan(reg, names)
+    x_pad, rows = reg._bucket_fit_inputs(plan)
+    zi = x_pad.new_zeros((0, plan.m)) if dense else reg.x_ind
+    step = ScanStep(plan, x_pad.shape[0], zi.shape[0], dtype, device, restarts=restarts,
+                    first_rung=first_rung)
+    pert = torch.as_tensor(np.random.default_rng(3).normal(size=(plan.p, restarts - 1, plan.s_max)),
+                           dtype=dtype, device=device)
+    step.load(reg.vs.latent_vector(names), x_pad, rows, zi, pert)
+    return reg, step
 
 
 def bench_kwargs(n_ind=8, lo=0.0, hi=10.0):
