@@ -1297,6 +1297,7 @@ def phase_dense_evaluation(reg, device):
     from torch.profiler import ProfilerActivity, profile
 
     from gpar_torch.models.fused import ScanStep, _cusolver, _layer_nll_factors
+    from gpar_torch.ops.linalg import HOST
 
     names = reg.vs.select(None)
     plan = reg._scan_fit_plan(names)
@@ -1309,20 +1310,20 @@ def phase_dense_evaluation(reg, device):
         step.layer_init()  # layer 0's plan slice, and a first evaluation
         z = step.z_ext.index_select(0, step.lin["layer_gather"])
 
-        def evaluation(escalations):
+        def evaluation(jitter):
             zz = z.detach().requires_grad_(True)
             with torch.enable_grad():
                 nll = _layer_nll_factors(plan, step.lin, step._full(zz), step.x_aug, step.zi_aug,
-                                         escalations)[0]
+                                         jitter)[0]
                 torch.autograd.grad(nll, zz)
 
-        for ladder, esc in (("on-device ladder (scan step)", step.escalations),
-                            ("host ladder (per-layer driver)", None)):
-            evaluation(esc)
+        for ladder, jitter in (("on-device ladder (scan step)", step.finish),
+                               ("host ladder (per-layer driver)", HOST)):
+            evaluation(jitter)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                evaluation(esc)
+                evaluation(jitter)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             cuda = torch.autograd.DeviceType.CUDA

@@ -105,21 +105,21 @@ import torch.nn.functional as F
 from ..config import config
 from ..ops.kernels import EQ, RQ, Const, Linear, gram, kdiag
 from ..ops.linalg import (
+    HOST,
     LOG_2PI,
-    _cholesky,
-    FirstRung,
-    _mv,
+    Jitter,
+    cholesky_at,
     floor_noise,
+    matvec,
     psd_sample_factor,
     psd_sample_factor_batched,
     resolve_epsilon,
-    sample_factor_first_rung,
     solve_chol,
     solve_lower,
     titsias_factors,
 )
 from ..params.lbfgs import (
-    MAX_LINESEARCH, BatchedDeviceLBFGS, DeviceLBFGS, FirstRungFailed, best_of, iterate, new_stats,
+    MAX_LINESEARCH, BatchedDeviceLBFGS, DeviceLBFGS, best_of, iterate, new_stats,
 )
 from ..parallel.dense import _pad_geometry, chol_logpdf, masked_rows
 from ..parallel.mesh import all_gather, broadcast, devices_of, split_rows, to_device
@@ -512,15 +512,13 @@ def _layer_kernel(plan, lin, z_full):
     return kernel, nat(_NOISE, lin["noise"])
 
 
-def _masked_dense_factors(K, r, mask, noise_w, eps, escalations=None):
+def _masked_dense_factors(K, r, mask, noise_w, eps, jitter=HOST):
     """Exact masked marginal likelihood and posterior-mean weights:
     ``(logpdf, alpha, L)``.  Masked rows become identity rows, so they add
     exactly nothing to the logdet, the quadratic form or ``alpha``; the
     factorisation adds ``eps`` to the whole diagonal, so a masked diagonal
-    is set to ``1 - eps`` to land at 1.  With ``escalations`` the Cholesky
-    takes the jitter ladder on the device
-    (``ops.linalg.cholesky_ladder_on_device``), or with an
-    ``ops.linalg.FirstRung`` the first rung alone, else the host ladder.
+    is set to ``1 - eps`` to land at 1.  The Cholesky takes the rule
+    ``jitter`` (``ops.linalg.Jitter``; the jitter rule is that module's).
 
     ``K`` is (rows, rows): the masking multiplies by the two mask vectors
     (no (rows, rows) mask is formed or kept for the backward) and the
@@ -528,7 +526,7 @@ def _masked_dense_factors(K, r, mask, noise_w, eps, escalations=None):
     ``noise_w`` (B, rows), ``r`` and ``mask`` (rows,) or (B, rows)."""
     A = K * mask[..., :, None] * mask[..., None, :]
     torch.diagonal(A, dim1=-2, dim2=-1).add_(mask * noise_w + (1.0 - mask) * (1.0 - eps))
-    L = _cholesky(A, None, escalations)
+    L = jitter.cholesky(A)
     rm = r * mask
     if rm.ndim < L.ndim - 1:
         rm = rm.expand(L.shape[:-1])
@@ -539,28 +537,27 @@ def _masked_dense_factors(K, r, mask, noise_w, eps, escalations=None):
     return logpdf, solve_chol(L, rm), L
 
 
-def _layer_nll_factors(plan, lin, z_full, x_aug, zi_aug, escalations=None):
+def _layer_nll_factors(plan, lin, z_full, x_aug, zi_aug, jitter=HOST):
     """Layer NLL and posterior-mean factors at uniform shapes: the masked
     Titsias ELBO (sparse) or exact marginal likelihood (dense) of layer
     ``lin`` at parameters ``z_full``, and the factors of
     :func:`_est_from_factors`, ``(Kmm, Kmn, beta)`` or ``(K, alpha)``.
-    With ``escalations`` the factorisations take the jitter ladder on the
-    device (``ops.linalg.cholesky_ladder_on_device``), or with an
-    ``ops.linalg.FirstRung`` the first rung alone.  A batch of latents
-    ``z_full`` (B, n_z + 1) gives (B,) NLLs and batched factors."""
+    The factorisations take the rule ``jitter`` (``ops.linalg.Jitter``;
+    every caller passes it positionally).  A batch of latents ``z_full``
+    (B, n_z + 1) gives (B,) NLLs and batched factors."""
     kernel, noise = _layer_kernel(plan, lin, z_full)
     noise_w = floor_noise((noise if noise.ndim == 0 else noise[..., None]) / lin["w_col"])
     r = lin["y_col"]  # zero-filled; masked rows neutralised
     if not plan.sparse:
         K = gram(kernel, x_aug, x_aug)
         logpdf, alpha, _ = _masked_dense_factors(K, r, lin["obs_mask"], noise_w,
-                                                 resolve_epsilon(K.dtype), escalations)
+                                                 resolve_epsilon(K.dtype), jitter)
         return -logpdf, (K, alpha)
     Kmm = gram(kernel, zi_aug, zi_aug)
     Kmn = gram(kernel, zi_aug, x_aug)
     knn = kdiag(kernel, x_aug)
     elbo, _, _, beta = titsias_factors(Kmm, Kmn, knn, r, torch.zeros_like(r), noise_w,
-                                       mask=lin["obs_mask"], escalations=escalations)
+                                       mask=lin["obs_mask"], jitter=jitter)
     return -elbo, (Kmm, Kmn, beta)
 
 
@@ -569,9 +566,9 @@ def _est_from_factors(plan, factors):
     inducing inputs (``gpar/model.py:291-322``)."""
     if not plan.sparse:
         K, alpha = factors
-        return _mv(K, alpha), None
+        return matvec(K, alpha), None
     Kmm, Kmn, beta = factors
-    return _mv(Kmn.mT, beta), _mv(Kmm, beta)
+    return matvec(Kmn.mT, beta), matvec(Kmm, beta)
 
 
 def _next_column(plan, lin, est_rows):
@@ -615,7 +612,7 @@ def _augmented(plan, lin, y_next, est_ind, x_aug, zi_aug):
     return x_aug, zi_aug
 
 
-def _chain_nll(plan, z_ext, xs, x, zi, n_layers, escalations=None):
+def _chain_nll(plan, z_ext, xs, x, zi, n_layers, jitter=HOST):
     """The NLL of the chain's first ``n_layers`` layers from the raw inputs
     ``x`` (and inducing inputs ``zi``): per layer the masked layer NLL
     (:func:`_layer_nll_factors`), then one augmentation step out of place
@@ -627,7 +624,7 @@ def _chain_nll(plan, z_ext, xs, x, zi, n_layers, escalations=None):
     nlls = []
     for pi in range(n_layers):
         lin = {k: v[pi] for k, v in xs.items()}
-        nll, factors = _layer_nll_factors(plan, lin, z_ext, x_aug, zi_aug, escalations)
+        nll, factors = _layer_nll_factors(plan, lin, z_ext, x_aug, zi_aug, jitter)
         nlls.append(nll)
         if pi < n_layers - 1:
             est_rows, est_ind = _est_from_factors(plan, factors)
@@ -670,7 +667,7 @@ def _mesh_split(plan, x, xs, mesh):
     return x_parts, xs_parts, block
 
 
-def _mesh_layer_nll_factors(plan, lins, z_full, x_parts, zi_aug, block, escalations=None):
+def _mesh_layer_nll_factors(plan, lins, z_full, x_parts, zi_aug, block, jitter=HOST):
     """:func:`_layer_nll_factors` with the data rows sharded
     (``gpar_tpu/models/fused.py:664-720``): ``lins`` and ``x_parts`` hold one
     plan slice and one block of rows per shard, each on its device, and
@@ -689,7 +686,7 @@ def _mesh_layer_nll_factors(plan, lins, z_full, x_parts, zi_aug, block, escalati
     element: (B,) NLLs and no factors."""
     if z_full.ndim > 1:
         return torch.stack([_mesh_layer_nll_factors(plan, lins, z, x_parts, zi_aug, block,
-                                                    escalations)[0] for z in z_full]), None
+                                                    jitter)[0] for z in z_full]), None
     layer = [_layer_kernel(plan, lin, z_full.to(x.device)) for lin, x in zip(lins, x_parts)]
     kernels = [k for k, _ in layer]
     noise_w = [floor_noise(noise / lin["w_col"]) for (_, noise), lin in zip(layer, lins)]
@@ -699,7 +696,7 @@ def _mesh_layer_nll_factors(plan, lins, z_full, x_parts, zi_aug, block, escalati
         zis = broadcast(zi_aug, devices_of(x_parts))
         Kmn = [gram(k, zi, x) for k, zi, x in zip(kernels, zis, x_parts)]
         knn = [kdiag(k, x) for k, x in zip(kernels, x_parts)]
-        elbo, _, _, beta = sharded_titsias_panels(Kmm, Kmn, knn, rs, noise_w, masks, escalations)
+        elbo, _, _, beta = sharded_titsias_panels(Kmm, Kmn, knn, rs, noise_w, masks, jitter)
         return -elbo, (Kmm, Kmn, beta)
     eps = resolve_epsilon(z_full.dtype)
     x_full, mask_full = all_gather(x_parts), all_gather(masks)
@@ -716,9 +713,9 @@ def _mesh_est(plan, factors):
     inducing inputs."""
     if not plan.sparse:
         K_local, alpha = factors
-        return [_mv(K, alpha.to(K.device)) for K in K_local], None
+        return [matvec(K, alpha.to(K.device)) for K in K_local], None
     Kmm, Kmn, beta = factors
-    return [_mv(k.mT, beta.to(k.device)) for k in Kmn], _mv(Kmm, beta)
+    return [matvec(k.mT, beta.to(k.device)) for k in Kmn], matvec(Kmm, beta)
 
 
 def _mesh_augmented(plan, lins, est_rows, est_ind, x_parts, zi_aug):
@@ -731,19 +728,19 @@ def _mesh_augmented(plan, lins, est_rows, est_ind, x_parts, zi_aug):
     return x_parts, zi_aug
 
 
-def _mesh_chain_nll(plan, z_ext, xs_parts, x_parts, zi, n_layers, block, escalations=None):
+def _mesh_chain_nll(plan, z_ext, xs_parts, x_parts, zi, n_layers, block, jitter=HOST):
     """:func:`_chain_nll` with the rows sharded (``_mesh_split``'s
     ``xs_parts`` and ``x_parts``): the chain of the prior score and of the
     joint fit under a mesh (``gpar_tpu/models/fused.py:1293-1625``).  A batch
     of latents is evaluated element by element."""
     if z_ext.ndim > 1:
         return torch.stack([_mesh_chain_nll(plan, z, xs_parts, x_parts, zi, n_layers, block,
-                                            escalations) for z in z_ext])
+                                            jitter) for z in z_ext])
     x_aug, zi_aug = [_widen(x, plan.W) for x in x_parts], _widen(zi, plan.W)
     nlls = []
     for pi in range(n_layers):
         lins = [{k: v[pi] for k, v in xs.items()} for xs in xs_parts]
-        nll, factors = _mesh_layer_nll_factors(plan, lins, z_ext, x_aug, zi_aug, block, escalations)
+        nll, factors = _mesh_layer_nll_factors(plan, lins, z_ext, x_aug, zi_aug, block, jitter)
         nlls.append(nll)
         if pi < n_layers - 1:
             x_aug, zi_aug = _mesh_augmented(plan, lins, *_mesh_est(plan, factors), x_aug, zi_aug)
@@ -759,24 +756,19 @@ class ScanStep:
     arrays loaded per fit), the current layer's slice ``lin`` and its index
     ``layer`` (on the device), the latents ``z_ext`` (dummy slot last), the
     augmented inputs, the layer's L-BFGS (``opt``, a
-    :class:`~gpar_torch.params.lbfgs.DeviceLBFGS`), the per-layer results,
-    ``escalations``, the count of Cholesky factorisations that needed
-    more than the first jitter rung, and ``failures``, the count of the
-    layer's first-rung factorisations that failed.
-    The bodies read nothing back to the host.  ``layer_finish`` factors on
-    the jitter ladder on the device (``ops.linalg.cholesky_ladder_on_device``),
-    with the host ladder's value and gradient.  With ``first_rung`` (set
-    where a flags read follows every evaluation, :func:`new_step`),
-    ``layer_init``, ``step`` and ``trial`` factor each matrix once, at the
-    first rung (``ops.linalg.cholesky_first_rung``, through an
-    ``ops.linalg.FirstRung``), counting into ``failures``, which the
-    optimiser's flags carry: where every first-rung factorisation of a
-    layer holds, the ladder's trajectory bit for bit; where one fails,
-    :func:`run_scan_fit` runs that layer again on the ladder
-    (:meth:`on_the_ladder`), eagerly.  These bodies write only the
-    layer's slice ``lin``, the optimiser's buffers and ``failures``, and
-    ``layer_init`` sets all three anew, so the run again needs no snapshot.
-    Without ``first_rung`` every body takes the ladder.
+    :class:`~gpar_torch.params.lbfgs.DeviceLBFGS`), the per-layer results
+    and two jitter rules with their counts (``ops.linalg.Jitter``; what
+    each rule does is that module's docstring): ``finish``, the ladder on
+    the device, for ``layer_finish``, and ``evals`` for the evaluations of
+    ``layer_init``, ``step`` and ``trial``, of the rule ``rule``.  With
+    ``"device"`` it is ``finish`` itself; with ``"first_rung"``
+    (:func:`new_step`) its count of failures is the optimiser's status,
+    which every flags read carries, and :func:`run_scan_fit` runs a layer
+    with a failure again eagerly on the ladder (:meth:`on_the_ladder`).
+    The bodies read nothing back to the host; those before
+    ``layer_finish`` write only the layer's slice ``lin``, the optimiser's
+    buffers and the status, and ``layer_init`` sets all three anew, so the
+    run again needs no snapshot.
 
     - ``layer_init``: copy layer ``layer``'s plan slice, gather its
       latents, value and gradient there, an empty history;
@@ -802,11 +794,12 @@ class ScanStep:
     CAPTURE_SPAN = "gpar.fit.capture"
 
     def __init__(self, plan, n_rows, n_ind, dtype, device, gtol=1e-9, memory_size=10,
-                 restarts=1, first_rung=False):
+                 restarts=1, rule="device"):
         self.plan, self.n_rows, self.n_ind = plan, n_rows, n_ind
         self.dtype, self.device = dtype, torch.device(device)
         self.gtol, self.memory_size, self.restarts = gtol, memory_size, restarts
-        self.first_rung = first_rung
+        self.finish = Jitter("device", self.device)
+        self.evals = self.finish if rule == "device" else Jitter(rule, self.device)
 
         def zeros(*shape, dt=dtype):
             return torch.zeros(shape, dtype=dt, device=self.device)
@@ -819,23 +812,21 @@ class ScanStep:
         self.z_ext = zeros(plan.n_z + 1)
         self.x_aug = zeros(n_rows, plan.W)
         self.zi_aug = zeros(n_ind, plan.W)
-        self.escalations = zeros(dt=torch.int64)
-        self.failures = zeros(dt=torch.int64)
         self.pert = zeros(plan.p, restarts - 1, plan.s_max)
-        failures = self.failures if first_rung else None
+        status = None if self.evals is self.finish else self.evals.count
         if restarts > 1:
             self.opt = BatchedDeviceLBFGS(self._value_and_grad, self._value, restarts,
                                           plan.s_max, dtype, self.device, memory=memory_size,
-                                          gtol=gtol, failures=failures)
+                                          gtol=gtol, status=status)
         else:
             self.opt = DeviceLBFGS(self._value_and_grad, self._value, plan.s_max, dtype,
-                                   self.device, memory=memory_size, gtol=gtol, failures=failures)
+                                   self.device, memory=memory_size, gtol=gtol, status=status)
         self.out = zeros(3, plan.p)  # per layer: final NLL, initial NLL, iterations
 
     def _buffers(self):
         return [
             *self.xs.values(), *self.lin.values(), self.layer, self.z_ext, self.x_aug,
-            self.zi_aug, self.escalations, self.failures, self.pert, *self.opt.buffers(),
+            self.zi_aug, self.finish.count, self.evals.count, self.pert, *self.opt.buffers(),
             self.out,
         ]
 
@@ -843,7 +834,7 @@ class ScanStep:
         """A step with copies of every buffer (a CUDA graph's warm-up runs
         on one, so that it moves none of this step's state)."""
         other = ScanStep(self.plan, self.n_rows, self.n_ind, self.dtype, self.device,
-                         self.gtol, self.memory_size, self.restarts, self.first_rung)
+                         self.gtol, self.memory_size, self.restarts, self.evals.rule)
         for dst, src in zip(other._buffers(), self._buffers()):
             dst.copy_(src)
         return other
@@ -865,7 +856,7 @@ class ScanStep:
         if self.restarts > 1:
             self.pert.copy_(pert)
         self.layer.zero_()
-        self.escalations.zero_()
+        self.finish.count.zero_()
 
     # -- the layer objective ------------------------------------------------
 
@@ -874,13 +865,11 @@ class ScanStep:
         row per start): a scatter that carries the gradient back to ``z``."""
         return _with_span(self.z_ext, self.lin["layer_gather"], z)
 
-    def _nll_factors(self, z_full, escalations):
-        return _layer_nll_factors(self.plan, self.lin, z_full, self.x_aug, self.zi_aug,
-                                  escalations)
+    def _nll_factors(self, z_full, jitter):
+        return _layer_nll_factors(self.plan, self.lin, z_full, self.x_aug, self.zi_aug, jitter)
 
     def nll(self, z):
-        counter = FirstRung(self.failures) if self.first_rung else self.escalations
-        return self._nll_factors(self._full(z), counter)[0]
+        return self._nll_factors(self._full(z), self.evals)[0]
 
     def _value_and_grad(self, z):
         return _value_and_grad(self.nll, z)
@@ -893,17 +882,18 @@ class ScanStep:
 
     @contextlib.contextmanager
     def on_the_ladder(self):
-        """Inside, the bodies factor on the full ladder on the device: the
-        eager run again of a layer whose first rung failed (a captured
-        graph keeps the factorisation it was captured with)."""
-        first, self.first_rung = self.first_rung, False
+        """Inside, the evaluations take ``finish``'s rule, the ladder on the
+        device: the eager run again of a layer whose first rung failed (a
+        captured graph keeps the factorisation it was captured with)."""
+        evals, self.evals = self.evals, self.finish
         try:
             yield
         finally:
-            self.first_rung = first
+            self.evals = evals
 
     def layer_init(self):
-        self.failures.zero_()
+        if self.opt.status is not None:
+            self.opt.status.zero_()
         for k, buf in self.lin.items():
             buf.copy_(self.xs[k].index_select(0, self.layer)[0])
         z0 = self.z_ext.index_select(0, self.lin["layer_gather"])
@@ -925,7 +915,7 @@ class ScanStep:
         with torch.no_grad():
             # The output column written here is gated out of this layer's
             # kernel, so the estimates do not depend on it.
-            self._augment(self._nll_factors(self.z_ext, self.escalations)[1])
+            self._augment(self._nll_factors(self.z_ext, self.finish)[1])
         res = torch.stack([f, f0, it.to(f.dtype)])
         self.out.index_copy_(1, self.layer, res[:, None])
         self.layer.add_(1)
@@ -939,13 +929,11 @@ class ScanStep:
     def results(self, stats):
         """``(z_all, layer_nll, layer_iters, layer_nll0)`` after the last
         layer: the latents stay on the device; the per-layer results and
-        the escalation count come back in one read
+        ``finish``'s escalation count come back in one read
         (``stats["ladder_escalations"]``), under the span ``gpar.fit.read``."""
         stats["host_syncs"] += 1
         with span("gpar.fit.read"):
-            out = torch.cat([self.out.reshape(-1),
-                             self.escalations.to(self.out.dtype).reshape(1)]).cpu()
-        out, stats["ladder_escalations"] = out[:-1].numpy().reshape(3, -1), int(out[-1])
+            out, stats["ladder_escalations"] = self.finish.read(self.out)
         return self.z_ext[:-1].clone(), out[0], out[2].astype(np.int64), out[1]
 
 
@@ -958,7 +946,7 @@ class MeshScanStep(ScanStep):
     plan's row arrays, and its own layer slice, on its device; the L-BFGS
     state, the latents and the inducing inputs stay on shard 0's device.
     The layer objective is :func:`_mesh_layer_nll_factors`, every
-    factorisation on the ladder (no ``first_rung``: the dense objective's
+    factorisation on the ladder (rule ``"device"``: the dense objective's
     distributed Cholesky has no rungs, the sparse one's are of order m);
     the bodies read nothing back to the host, so on a mesh whose shards
     share one card they are captured as CUDA graphs like the one-device
@@ -1008,11 +996,11 @@ class MeshScanStep(ScanStep):
         if self.restarts > 1:
             self.pert.copy_(pert)
         self.layer.zero_()
-        self.escalations.zero_()
+        self.finish.count.zero_()
 
-    def _nll_factors(self, z_full, escalations):
+    def _nll_factors(self, z_full, jitter):
         return _mesh_layer_nll_factors(self.plan, self.lins, z_full, self.x_parts, self.zi_aug,
-                                       self.block, escalations)
+                                       self.block, jitter)
 
     def layer_init(self):
         for lin, st in zip(self.lins[1:], self.stacks[1:]):
@@ -1035,11 +1023,11 @@ def new_step(plan, n_rows, n_ind, dtype, device, gtol, memory_size, restarts=1, 
     """A :class:`ScanStep`, or a :class:`MeshScanStep` over ``mesh``.  With
     ``iters > 0`` a flags read follows every evaluation in
     :func:`run_scan_fit`'s layer, ``layer_init``'s in the first iteration's
-    read, so the one-device step factors at the first rung
-    (``first_rung``); with none, the ladder."""
+    read, so the one-device step's evaluations take the rule
+    ``"first_rung"``; with none, the ladder on the device."""
     if mesh is None:
         return ScanStep(plan, n_rows, n_ind, dtype, device, gtol, memory_size, restarts,
-                        first_rung=iters > 0)
+                        "first_rung" if iters > 0 else "device")
     return MeshScanStep(plan, n_rows, n_ind, dtype, device, gtol, memory_size, restarts, mesh)
 
 
@@ -1102,13 +1090,13 @@ def run_scan_fit(step, run, iters, stats=None):
     (eagerly or from its graph), each run under the span
     ``gpar.fit.launch``.  The host reads the L-BFGS
     flags once per iteration (and per backtracking trial) and the results
-    once at the end.  A read that finds a first-rung failure
-    (:class:`~gpar_torch.params.lbfgs.FirstRungFailed`) ends the layer's
-    iterations; ``layer_init`` and the iterations then run again eagerly
-    on the full ladder (:meth:`ScanStep.on_the_ladder`), under the span
-    ``gpar.fit.repair``, counted in ``stats["ladder_repairs"]``, and the
-    loop goes on at ``layer_finish``: the ladder's trajectory in every
-    case.  Returns :meth:`ScanStep.results`."""
+    once at the end.  A read whose status (the step's first-rung failures,
+    :class:`ScanStep`) is not 0 ends the layer's iterations; ``layer_init``
+    and the iterations then run again eagerly on the ladder
+    (:meth:`ScanStep.on_the_ladder`), under the span ``gpar.fit.repair``,
+    counted in ``stats["ladder_repairs"]``, and the loop goes on at
+    ``layer_finish``: the ladder's trajectory in every case (the rule of
+    ``ops.linalg``'s module docstring).  Returns :meth:`ScanStep.results`."""
     stats = new_stats() if stats is None else stats
     stats["ladder_repairs"] = 0
 
@@ -1118,9 +1106,7 @@ def run_scan_fit(step, run, iters, stats=None):
 
     for _ in range(step.plan.p):
         launch("layer_init")
-        try:
-            _iterations(launch, step.opt, iters, stats)
-        except FirstRungFailed:
+        if _iterations(launch, step.opt, iters, stats):
             stats["ladder_repairs"] += 1
             with span("gpar.fit.repair"), step.on_the_ladder():
                 eager = Eager(step)
@@ -1131,10 +1117,13 @@ def run_scan_fit(step, run, iters, stats=None):
 
 
 def _iterations(run, opt, iters, stats):
-    """Up to ``iters`` L-BFGS iterations of ``opt``, fewer if it converges."""
+    """Up to ``iters`` L-BFGS iterations of ``opt``, fewer if it converges
+    or a read finds its status other than 0; returns that status, else 0."""
     for _ in range(iters):
-        if iterate(run, opt, MAX_LINESEARCH, stats):
-            break
+        done, status = iterate(run, opt, MAX_LINESEARCH, stats)
+        if done or status:
+            return status
+    return 0
 
 
 def _inducing(x_ind, m, dtype, device):
@@ -1280,13 +1269,13 @@ def make_scan_free_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1,
             gathers = torch.as_tensor(prefix, device=device)
             pert = _perturbations(normals, restarts, restart_scale,
                                   (plan.p, restarts - 1, plan.n_z), x)
-            escalations = torch.zeros((), dtype=torch.int64, device=device)
+            jitter = Jitter("device", device)
             position = [0]
             chain = _chain(plan, x, xs, zi, mesh)
 
             def nll(z_sub):
                 pi = position[0]
-                return chain(_with_span(z_ext, gathers[pi], z_sub), pi + 1, escalations)
+                return chain(_with_span(z_ext, gathers[pi], z_sub), pi + 1, jitter)
 
             def value(z):
                 with torch.no_grad():
@@ -1309,8 +1298,7 @@ def make_scan_free_fit_body(plan, x_ind, iters, gtol, memory_size, restarts=1,
                 out[:, pi] = torch.stack([f, f0, it.to(dtype)])
             stats["host_syncs"] += 1
             with span("gpar.fit.read"):
-                res = torch.cat([out.reshape(-1), escalations.to(dtype).reshape(1)]).cpu()
-        per_pos, stats["ladder_escalations"] = res[:-1].numpy().reshape(3, -1), int(res[-1])
+                per_pos, stats["ladder_escalations"] = jitter.read(out)
         stats.update(graph_replays=0, capture_s=0.0)
         return z_ext[:-1].clone(), per_pos[0], per_pos[2].astype(np.int64), per_pos[1]
 
@@ -1361,11 +1349,11 @@ def make_batched_fit_body(plan, iters, gtol, memory_size, restarts=1, restart_sc
             pert = _perturbations(normals, R, restart_scale, (p, R - 1, s_max), x)
             z0 = z_ext[xs["layer_gather"]]  # (p, s_max)
             starts = torch.cat([z0[:, None], z0[:, None] + pert], dim=1).reshape(p * R, s_max)
-            escalations = torch.zeros((), dtype=torch.int64, device=device)
+            jitter = Jitter("device", device)
 
             def nll(z):
                 z_full = z_ext.expand(p * R, -1).scatter(1, gather, z)
-                return _layer_nll_factors(plan, lin, z_full, x_aug, zi_aug, escalations)[0]
+                return _layer_nll_factors(plan, lin, z_full, x_aug, zi_aug, jitter)[0]
 
             def value(z):
                 with torch.no_grad():
@@ -1386,8 +1374,7 @@ def make_batched_fit_body(plan, iters, gtol, memory_size, restarts=1, restart_sc
             out = torch.stack([f[rows, best], opt.f0.reshape(p, R)[:, 0], its.to(dtype)])
             stats["host_syncs"] += 1
             with span("gpar.fit.read"):
-                res = torch.cat([out.reshape(-1), escalations.to(dtype).reshape(1)]).cpu()
-        per_layer, stats["ladder_escalations"] = res[:-1].numpy().reshape(3, -1), int(res[-1])
+                per_layer, stats["ladder_escalations"] = jitter.read(out)
         stats.update(graph_replays=0, capture_s=0.0)
         return z_ext[:-1].clone(), per_layer[0], per_layer[2].astype(np.int64), per_layer[1]
 
@@ -1498,15 +1485,15 @@ def _stack_layout(*ts):
 
 
 def _chain(plan, x, xs, zi, mesh):
-    """``chain(z_ext, n_layers, escalations=None)``: the NLL of the chain's
+    """``chain(z_ext, n_layers, jitter=HOST)``: the NLL of the chain's
     first layers (:func:`_chain_nll`), or with ``mesh`` of its sharded form
     (:func:`_mesh_chain_nll`, the rows split once here)."""
     if mesh is None:
-        return lambda z_ext, n_layers, escalations=None: _chain_nll(
-            plan, z_ext, xs, x, zi, n_layers, escalations)
+        return lambda z_ext, n_layers, jitter=HOST: _chain_nll(
+            plan, z_ext, xs, x, zi, n_layers, jitter)
     x_parts, xs_parts, block = _mesh_split(plan, x, xs, mesh)
-    return lambda z_ext, n_layers, escalations=None: _mesh_chain_nll(
-        plan, z_ext, xs_parts, x_parts, zi, n_layers, block, escalations)
+    return lambda z_ext, n_layers, jitter=HOST: _mesh_chain_nll(
+        plan, z_ext, xs_parts, x_parts, zi, n_layers, block, jitter)
 
 
 def make_scan_logpdf_body(plan, x_ind, rows_traced=False, mesh=None):
@@ -1732,24 +1719,32 @@ def make_scan_cached_tail(plan, latent, rows_traced=False):
     def tail(z_all, factors, x_test, w_test_T, normals, xs_rows=None, mt=None):
         with torch.no_grad(), _cusolver(x_test.device):
             xs, z_ext = _serving_inputs(plan, z_all, x_test, xs_rows, rows_traced)
-            layers = ((*layer, fac) for layer, fac in zip(_layer_kernels(plan, z_ext, xs),
-                                                          factor_slices(factors)))
+            layers = _cached_layers(plan, z_ext, xs, factors)
             return _predict_chain(plan, latent, layers, x_test, w_test_T, normals, mt)
 
     return tail
 
 
-def _predict_chain(plan, latent, layers, x_test, w_test_T, normals, mt):
-    """The ``replace=True`` draws of both predict tails: per layer of
+def _cached_layers(plan, z_ext, xs, factors):
+    """:func:`_predict_chain`'s layers from a stacked factor dict: each
+    layer's plan slice, kernel and noise with its slice of ``factors``."""
+    return ((*layer, fac) for layer, fac in zip(_layer_kernels(plan, z_ext, xs),
+                                                factor_slices(factors)))
+
+
+def _predict_chain(plan, latent, layers, x_test, w_test_T, normals, mt,
+                   factor=psd_sample_factor):
+    """The ``replace=True`` draws of every predict tail: per layer of
     ``layers`` (``(lin, kernel, noise, factors)``) the posterior at the
-    test rows, one sampling factor, all draws as one matmul, and the
-    posterior mean fed forward to the test inputs."""
+    test rows, one sampling factor ``factor(cov)`` (the host ladder's, or
+    in :class:`CachedTailBody`'s graph its first rung), all draws as one
+    matmul, and the posterior mean fed forward to the test inputs."""
     xt_aug = _widen(x_test, plan.W)
     ys, means = [], []
     for pi, (lin, kernel, noise, fac) in enumerate(layers):
         mean_t, cov_t = _draw_posterior(plan, latent, lin, kernel, noise, fac, xt_aug,
                                         w_test_T[pi], mt)
-        ys.append(_draws(mean_t, psd_sample_factor(cov_t), normals[pi]))
+        ys.append(_draws(mean_t, factor(cov_t), normals[pi]))
         means.append(mean_t)
         _feed_mean(plan, lin["col"], xt_aug, mean_t)
     return torch.stack(ys, dim=-1), torch.stack(means, dim=-1)
@@ -1789,14 +1784,13 @@ class CachedTailBody:
     copied by every :meth:`load`), the stacked ``factors``, ``x_test``,
     ``w_test_T``, ``normals`` and ``mt``.
 
-    ``tail`` returns ``(batch, mean_chain, info)``: per layer the eager
-    tail's posterior and covariance, the first rung of its sampling factor
-    (``ops.linalg.sample_factor_first_rung``, the very call
-    ``psd_sample_factor`` makes first), the draws and the mean fed
-    forward; ``info`` (p,) the first rung's ``cholesky_ex`` flag per layer.
-    A layer whose flag is not 0 has draws from a failed factor;
-    :meth:`repair` makes them anew.  The body moves none of the buffers,
-    so a run before the capture needs no copy of them."""
+    ``tail`` returns ``(batch, mean_chain, info)``: the eager tail's chain
+    (:func:`_predict_chain`) with each layer's sampling factor at its first
+    rung (``ops.linalg.cholesky_at``, the very call ``psd_sample_factor``
+    makes first); ``info`` (p,) that call's flag per layer.  A layer whose
+    flag is not 0 has draws from a failed factor; :meth:`repair` makes them
+    anew (the rule of ``ops.linalg``'s module docstring).  The body moves
+    none of the buffers, so a run before the capture needs no copy of them."""
 
     BODIES = ("tail",)
     CAPTURE_SPAN = "gpar.predict.capture"
@@ -1825,20 +1819,18 @@ class CachedTailBody:
             buf.copy_(a)
 
     def tail(self):
-        plan = self.plan
+        infos = []
+
+        def first_rung(cov_t):
+            L, info = cholesky_at(cov_t[None], resolve_epsilon(cov_t.dtype), split=False)
+            infos.append(info)
+            return L[0]
+
         with torch.no_grad(), _cusolver(self.device):
-            xt_aug = _widen(self.x_test, plan.W)
-            ys, means, infos = [], [], []
-            layers = zip(_layer_kernels(plan, self.z_ext, self.xs), factor_slices(self.factors))
-            for pi, ((lin, kernel, noise), fac) in enumerate(layers):
-                mean_t, cov_t = _draw_posterior(plan, self.latent, lin, kernel, noise, fac,
-                                                xt_aug, self.w_test_T[pi], self.mt)
-                L, info = sample_factor_first_rung(cov_t[None])
-                ys.append(_draws(mean_t, L[0], self.normals[pi]))
-                means.append(mean_t)
-                infos.append(info)
-                _feed_mean(plan, lin["col"], xt_aug, mean_t)
-            return torch.stack(ys, dim=-1), torch.stack(means, dim=-1), torch.cat(infos)
+            layers = _cached_layers(self.plan, self.z_ext, self.xs, self.factors)
+            batch, mean_chain = _predict_chain(self.plan, self.latent, layers, self.x_test,
+                                               self.w_test_T, self.normals, self.mt, first_rung)
+            return batch, mean_chain, torch.cat(infos)
 
     def repair(self, pi, batch, mean_chain):
         """Layer ``pi``'s draws in ``batch`` made anew, eagerly: its test

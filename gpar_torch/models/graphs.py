@@ -25,15 +25,10 @@ launches on the same stream.  A mesh over distinct cards runs eagerly
   side stream, as ``torch.cuda.graph`` requires (it creates the cuBLAS and
   cuSOLVER handles and the autograd state); the clone keeps that warm-up
   from moving the fit's state.
-- A replay computes what the eager step computes.  Where a flags read
-  follows every evaluation (``iters > 0``), ``layer_init``, ``step`` and
-  ``trial`` factor each matrix once, at the first jitter rung
-  (``ops.linalg.cholesky_first_rung``), and the flags carry the count of
-  those that failed; a layer with a failure is run again eagerly on the
-  full ladder and the fit goes on at its captured ``layer_finish``
-  (``fused.run_scan_fit``), which factors on the ladder on the device
-  (``ops.linalg.cholesky_ladder_on_device``), as every body does with
-  ``iters = 0`` (a key of its own).
+- A replay computes what the eager step computes, each body with the
+  jitter rule the step gives it (``fused.ScanStep``; the rules and their
+  replay, read and repair are ``ops.linalg``'s module docstring's).
+  ``iters`` is in the key, so the rule of a step's evaluations is too.
 - Launch counters: a capture runs the kernel wrappers' Python once and a
   replay runs none, so :class:`GraphedStep` records what each capture
   added to the counters of ``ops.gram_kernel``, takes it back out, and
@@ -70,19 +65,15 @@ span ``gpar.predict.capture``.
   the jitter settings and ``config.mesh_descriptor()``.
 - A call copies, on the device, the latents, the stacked factors, the
   bucketed training row arrays, the test inputs, weights, mask and
-  normals into the body's buffers, and replays: per layer the posterior at
-  the test rows, the first rung of the sampling factor
-  (``ops.linalg.sample_factor_first_rung``), the draws and the mean fed
-  forward, and each layer's ``cholesky_ex`` flag into a (p,) tensor.  The
-  replay writes the draws, the means and the flags into the graph's own
-  outputs, which the call copies.
+  normals into the body's buffers, and replays the eager tail's chain with
+  each sampling factor at its first rung, writing the draws, the means and
+  each layer's ``cholesky_ex`` flag, (p,), into the graph's own outputs,
+  which the call copies.
 - Then one host read of the (p,) flags, in place of one a layer (span
-  ``gpar.predict.replay``, with the replay).  Where a layer's first rung
-  failed, its draws are made anew eagerly from the replay's means, through
-  ``ops.linalg.psd_sample_factor``'s later rungs and its clamped
-  eigendecomposition (span ``gpar.predict.repair``); later layers feed
-  forward the mean, not the draws, and need nothing.  The answer is the
-  eager tail's in every case.
+  ``gpar.predict.replay``, with the replay), and the repair of each layer
+  whose first rung failed, eagerly (span ``gpar.predict.repair``;
+  ``fused.run_cached_tail``); later layers feed forward the mean, not the
+  draws, and need nothing.  The answer is the eager tail's in every case.
 - A cached tail is shared mutable state too: it serves one predict at a
   time.
 """
@@ -95,6 +86,7 @@ import torch
 
 from ..config import config, mesh_descriptor
 from ..ops import gram_kernel as GK
+from ..ops.linalg import jitter_key
 from ..utils.spans import span
 from .fused import CachedTailBody, new_step, plan_static_fingerprint, run_cached_tail
 
@@ -197,8 +189,7 @@ class GraphedStep:
 def _key(plan, n_rows, n_ind, dtype, device, iters, gtol, memory_size, restarts=1, mesh=None):
     return (
         plan_static_fingerprint(plan), n_rows, n_ind, str(dtype), str(device), iters, gtol,
-        memory_size, restarts, config.epsilon, config.epsilon_f32,
-        tuple(config.cholesky_retry_factors), mesh, mesh_descriptor(), config.dense_shard_block,
+        memory_size, restarts, *jitter_key(), mesh, mesh_descriptor(), config.dense_shard_block,
     )
 
 
@@ -222,8 +213,8 @@ def graphed_tail(plan, latent, z_all, factors, x_test, w_test_T, normals, xs_row
     n_rows = xs_rows["obs_mask"].shape[-1]
     n_ind = factors["zi_aug"].shape[1] if plan.sparse else 0
     key = ("tail", plan_static_fingerprint(plan), n_rows, n_ind, plan.p, normals.shape[1],
-           x_test.shape[0], latent, str(x_test.dtype), str(x_test.device), config.epsilon,
-           config.epsilon_f32, tuple(config.cholesky_retry_factors), mesh_descriptor())
+           x_test.shape[0], latent, str(x_test.dtype), str(x_test.device), *jitter_key(),
+           mesh_descriptor())
     args = (z_all, factors, x_test, w_test_T, normals, xs_rows, mt)
     body, graphs, _ = _cached(key, x_test.device, args, lambda: CachedTailBody(plan, latent, *args))
     return run_cached_tail(body, graphs)

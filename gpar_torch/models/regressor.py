@@ -822,7 +822,7 @@ class GPARRegressor:
         cand = [[a] for a in (y_t, w_t, mask)] if mesh is None else [
             split_rows(a, mesh) for a in (y_t, w_t, mask)]
         shards = [dict(y=y, w=w, mask=mk, x=x_t.to(d), z_aug=to_device(z_aug, d),
-                       esc=torch.zeros((), dtype=torch.int64, device=d))
+                       jitter=linalg.Jitter("device", d))
                   for d, y, w, mk in zip(devices, *cand)]
 
         def shard_nll(z, sh):
@@ -834,10 +834,10 @@ class GPARRegressor:
             if self.sparse:
                 return -titsias_factors(gram(kern, zz, zz), gram(kern, zz, x), kdiag(kern, x), r,
                                         torch.zeros_like(r), noise_w, mask=sh["mask"],
-                                        escalations=sh["esc"])[0]
+                                        jitter=sh["jitter"])[0]
             K = gram(kern, x, x)
             return -_masked_dense_factors(K, r, sh["mask"], noise_w, resolve_epsilon(K.dtype),
-                                          sh["esc"])[0]
+                                          sh["jitter"])[0]
 
         def nll(z):
             if mesh is None:
@@ -848,15 +848,14 @@ class GPARRegressor:
         z0 = vs.latent_vector(names).expand(ys.shape[0], -1)
         _, f, its, _ = lbfgs_minimize_batched(nll, z0, iters=iters, gtol=gtol, memory=memory_size,
                                               stats=stats)
-        escalations = sum(sh["esc"].to(self.device) for sh in shards)
-        f, its = f[:C], its[:C]
         with span("gpar.fit.read"):
-            out = torch.cat([f, its.to(f.dtype), escalations.to(f.dtype).reshape(1)]).cpu().numpy()
+            out, escalations = shards[0]["jitter"].read(torch.stack([f[:C], its[:C].to(f.dtype)]),
+                                                        *[sh["jitter"] for sh in shards[1:]])
         if stats is not None:
             stats["host_syncs"] += 1
-            stats["iterations"] = out[C:2 * C].astype(np.int64).tolist()
-            stats["ladder_escalations"] = int(out[-1])
-        return out[:C]
+            stats["iterations"] = out[1].astype(np.int64).tolist()
+            stats["ladder_escalations"] = escalations
+        return out[0]
 
     def _greedy_layer_nll(self, pi, x_aug, y_t, w_t, iters, gtol, memory_size):
         """Optimised single-layer NLL of one greedy candidate on its own
@@ -1438,8 +1437,7 @@ class GPARRegressor:
         from .fused import make_scan_posterior_factors
 
         key = (bucket_rows(plan.n), self.p, str(self.dtype), str(self.device),
-               z.detach().cpu().numpy().tobytes(), config.epsilon, config.epsilon_f32,
-               tuple(config.cholesky_retry_factors), mesh_descriptor())
+               z.detach().cpu().numpy().tobytes(), *linalg.jitter_key(), mesh_descriptor())
         if self._factor_cache is not None and self._factor_cache[0] == key:
             return self._factor_cache[1]
         self._factor_cache = None  # the old stack goes before the new one is made

@@ -20,7 +20,7 @@ import torch
 
 from ..config import check_single_process
 from ..ops.kernels import gram, kdiag
-from ..ops.linalg import _cholesky, _mv, solve_lower, titsias_assemble, titsias_solve
+from ..ops.linalg import HOST, matvec, solve_lower, titsias_assemble, titsias_solve
 from .mesh import Mesh, broadcast, canonical, devices_of, psum, split_rows, to_device
 
 __all__ = [
@@ -75,7 +75,7 @@ def pad_rows(arr, multiple, value=0.0):
     return torch.cat([arr, fill]), mask
 
 
-def titsias_psum_body(Lm, A0, knn_local, y, noise_diag, mask, escalations=None):
+def titsias_psum_body(Lm, A0, knn_local, y, noise_diag, mask, jitter=HOST):
     """The shard-summed collapsed Titsias ELBO and posterior factors from
     each shard's panels (``gpar_tpu/parallel/sharded.py:98-146``): every
     argument but ``Lm`` is a list with one tensor per shard.
@@ -93,7 +93,7 @@ def titsias_psum_body(Lm, A0, knn_local, y, noise_diag, mask, escalations=None):
         A0: per shard (m, n_local) ``Lm^-1 Kmn``.
         knn_local / y / noise_diag / mask: per shard (n_local,) prior
             variances, residuals, per-point noise and 0/1 validity.
-        escalations: as in ``ops.linalg.titsias_factors``.
+        jitter: as in ``ops.linalg.titsias_factors``.
 
     Returns ``(elbo, LB, beta)`` on shard 0's device."""
     stats = []
@@ -103,30 +103,30 @@ def titsias_psum_body(Lm, A0, knn_local, y, noise_diag, mask, escalations=None):
         qnn = torch.sum(a0 * a0, dim=-2)
         stats.append((
             (a0 * d_inv[..., None, :]) @ a0.mT,
-            _mv(a0, r * d_inv),
+            matvec(a0, r * d_inv),
             torch.sum(torch.log(noise) * mk, dim=-1),
             torch.sum(torch.clamp_min(knn - qnn, 0.0) * d_inv, dim=-1),
             torch.sum(mk, dim=-1),
         ))
     G, u, logdet_d, trace_num, n_total = (psum(list(s)) for s in zip(*stats))
-    LB, w, beta = titsias_solve(G, u, Lm, escalations)
+    LB, w, beta = titsias_solve(G, u, Lm, jitter)
     quads = []
     for a0, yy, noise, mk, w_s in zip(A0, y, noise_diag, mask, broadcast(w, devices_of(A0))):
         r = yy * mk
-        quads.append(torch.sum(r * (r - _mv(a0.mT, w_s)) * (mk / noise), dim=-1))
+        quads.append(torch.sum(r * (r - matvec(a0.mT, w_s)) * (mk / noise), dim=-1))
     elbo = titsias_assemble(logdet_d, LB, psum(quads), trace_num, n_total)
     return elbo, LB, beta
 
 
-def sharded_titsias_panels(Kmm, Kmn, knn, y, noise_diag, mask, escalations=None):
+def sharded_titsias_panels(Kmm, Kmn, knn, y, noise_diag, mask, jitter=HOST):
     """``(elbo, Lm, LB, beta)`` of ``ops.linalg.titsias_factors`` from
     per-shard panels: ``Kmm`` (m, m) on shard 0's device, and per shard
     ``Kmn`` (m, n_local), ``knn``, ``y`` (the residual), ``noise_diag`` and
     ``mask``.  The factorisation of ``Kmm`` and the O(m^3) solve run once;
-    ``escalations`` as in ``titsias_factors``."""
-    Lm = _cholesky(Kmm, None, escalations)
+    ``jitter`` as in ``titsias_factors``."""
+    Lm = jitter.cholesky(Kmm)
     A0 = [solve_lower(L_s, k) for L_s, k in zip(broadcast(Lm, devices_of(Kmn)), Kmn)]
-    elbo, LB, beta = titsias_psum_body(Lm, A0, knn, y, noise_diag, mask, escalations)
+    elbo, LB, beta = titsias_psum_body(Lm, A0, knn, y, noise_diag, mask, jitter)
     return elbo, Lm, LB, beta
 
 

@@ -28,11 +28,11 @@ there.  :func:`iterate` drives one iteration from the host with one read of
 a two-entry flags tensor after ``step`` (and one after each backtracking
 trial and episode).  The bodies are plain functions of the buffers: the
 same code runs eagerly or replays as CUDA graphs (``models/fused.py``,
-``models/graphs.py``).  An optimiser given a ``failures`` counter (the scan
-fit's, which factors at the first jitter rung alone) writes it into a third
-entry of the flags, and :func:`read_flags` raises :class:`FirstRungFailed`
-where it is not zero: the same read says whether every factorisation since
-the counter was zeroed held.
+``models/graphs.py``).  An optimiser given a ``status`` (an int64 device
+tensor that the objective's owner keeps and the optimiser never reads)
+writes it into a third entry of the flags, so that it comes back in the
+same read: :func:`iterate` ends an iteration at a read that finds it
+other than 0, commits nothing, and hands the value back.
 
 :class:`BatchedDeviceLBFGS` runs B independent optimisations at once (the
 JAX package's ``vmap`` of ``lbfgs_minimize`` over restarts and layers,
@@ -61,7 +61,6 @@ __all__ = [
     "two_loop",
     "iterate",
     "read_flags",
-    "FirstRungFailed",
     "new_stats",
     "lbfgs_minimize",
     "lbfgs_minimize_batched",
@@ -176,13 +175,13 @@ class DeviceLBFGS:
     objective at a (d,) point.  Every body reports in ``flags = [accepted,
     done]``.  ``mode`` tells ``step`` what to evaluate: 0 the first trial
     at ``t0``, 1 the point backtracking accepted at ``t``, 2 none (the line
-    search failed).  With ``failures`` (an integer device tensor that the
-    objective counts into) the flags are ``[accepted, done, failures]``."""
+    search failed).  With ``status`` (an int64 device tensor of the
+    objective's owner) the flags are ``[accepted, done, status]``."""
 
     def __init__(self, value_and_grad, value, d, dtype, device, memory=10,
-                 gtol=1e-9, ftol=1e-12, c1=1e-4, failures=None):
+                 gtol=1e-9, ftol=1e-12, c1=1e-4, status=None):
         self.value_and_grad, self.value = value_and_grad, value
-        self.failures = failures
+        self.status = status
         self.gtol, self.ftol, self.c1 = gtol, ftol, c1
         self.state = _zero_state(d, memory, dtype, device)
         self.cand = _zero_state(d, memory, dtype, device)
@@ -192,12 +191,12 @@ class DeviceLBFGS:
         self.dg = torch.zeros((), dtype=dtype, device=device)
         self.t = torch.zeros((), dtype=dtype, device=device)
         self.mode = torch.zeros((), dtype=torch.int64, device=device)
-        self.flags = torch.zeros(2 if failures is None else 3, dtype=torch.int64, device=device)
+        self.flags = torch.zeros(2 if status is None else 3, dtype=torch.int64, device=device)
 
     def _flags(self, ok, done):
         flags = torch.stack([ok, done]).to(torch.int64)
-        if self.failures is not None:
-            flags = torch.cat([flags, self.failures.reshape(1)])
+        if self.status is not None:
+            flags = torch.cat([flags, self.status.reshape(1)])
         self.flags.copy_(flags)
 
     def buffers(self):
@@ -345,13 +344,13 @@ class BatchedDeviceLBFGS:
     iteration's first trial and anything else for the evaluation after a
     search; which elements searched (``needs_ls``) and which are still
     searching, so failed, (``searching``) is kept on the device.  With
-    ``failures`` every row of the flags carries the counter, (B, 3), as in
+    ``status`` every row of the flags carries it, (B, 3), as in
     :class:`DeviceLBFGS`."""
 
     def __init__(self, value_and_grad, value, batch, d, dtype, device, memory=10,
-                 gtol=1e-9, ftol=1e-12, c1=1e-4, failures=None):
+                 gtol=1e-9, ftol=1e-12, c1=1e-4, status=None):
         self.value_and_grad, self.value = value_and_grad, value
-        self.failures = failures
+        self.status = status
         self.gtol, self.ftol, self.c1 = gtol, ftol, c1
         B = batch
 
@@ -374,7 +373,7 @@ class BatchedDeviceLBFGS:
         self.needs_ls = torch.zeros(B, dtype=torch.bool, device=device)
         self.searching = torch.zeros(B, dtype=torch.bool, device=device)
         self.mode = torch.zeros((), dtype=torch.int64, device=device)
-        self.flags = torch.zeros((B, 2 if failures is None else 3), dtype=torch.int64,
+        self.flags = torch.zeros((B, 2 if status is None else 3), dtype=torch.int64,
                                  device=device)
 
     def buffers(self):
@@ -383,8 +382,8 @@ class BatchedDeviceLBFGS:
 
     def _flags(self, ok, done):
         flags = torch.stack([ok, done], dim=1).to(torch.int64)
-        if self.failures is not None:
-            flags = torch.cat([flags, self.failures.expand(flags.shape[0], 1)], dim=1)
+        if self.status is not None:
+            flags = torch.cat([flags, self.status.expand(flags.shape[0], 1)], dim=1)
         self.flags.copy_(flags)
 
     def start(self, z0):
@@ -456,25 +455,16 @@ def new_stats():
     return {"host_syncs": 0, "linesearch_episodes": 0, "linesearch_trials": 0}
 
 
-class FirstRungFailed(Exception):
-    """A flags read found factorisations whose first jitter rung failed
-    (the flags' third entry, their count): the evaluations since the
-    counter was zeroed are not those of the full ladder."""
-
-
 def read_flags(flags, stats):
-    """The one host read: ``flags`` as Python ints, ``[accepted, done]``
-    (of a batch: whether every element accepted, whether every element is
-    done), under the span ``gpar.fit.read``.  Raises
-    :class:`FirstRungFailed` where the flags carry a count of first-rung
-    failures that is not zero."""
+    """The one host read: ``flags`` as Python ints, ``(accepted, done,
+    status)`` (of a batch: whether every element accepted, whether every
+    element is done), under the span ``gpar.fit.read``; ``status`` the value
+    of the optimiser's status tensor, 0 without one."""
     stats["host_syncs"] += 1
     with span("gpar.fit.read"):
         out = flags.tolist()
     rows = out if flags.ndim == 2 else [out]
-    if len(rows[0]) > 2 and rows[0][2]:
-        raise FirstRungFailed(rows[0][2])
-    return [all(r[0] for r in rows), all(r[1] for r in rows)]
+    return all(r[0] for r in rows), all(r[1] for r in rows), rows[0][2] if len(rows[0]) > 2 else 0
 
 
 def iterate(run, opt, max_linesearch, stats):
@@ -485,25 +475,34 @@ def iterate(run, opt, max_linesearch, stats):
     One read after the first trial; when Armijo rejects it, one per
     backtracking trial and one after the accepted point's evaluation.
     The candidate state is committed only after its flags are read.
-    Returns whether the optimiser has converged (a batch: every element).
+    Returns ``(done, status)``: whether the optimiser has converged (a
+    batch: every element), and 0; or, where a read finds a status other
+    than 0 (:func:`read_flags`), ``(False, status)`` at once, the iteration
+    ended there and nothing committed.
     """
     opt.mode.fill_(0)
     run("step")
-    accepted, done = read_flags(opt.flags, stats)
+    accepted, done, status = read_flags(opt.flags, stats)
+    if status:
+        return False, status
     if not accepted:
         stats["linesearch_episodes"] += 1
         ok = 0
         for _ in range(max_linesearch):
             run("trial")
             stats["linesearch_trials"] += 1
-            ok, _ = read_flags(opt.flags, stats)
+            ok, _, status = read_flags(opt.flags, stats)
+            if status:
+                return False, status
             if ok:
                 break
         opt.mode.fill_(1 if ok else 2)
         run("step")
-        _, done = read_flags(opt.flags, stats)
+        _, done, status = read_flags(opt.flags, stats)
+        if status:
+            return False, status
     run("commit")
-    return bool(done)
+    return bool(done), 0
 
 
 def lbfgs_minimize(
@@ -543,7 +542,7 @@ def lbfgs_minimize(
 
     it = 0
     while it < iters:
-        done = iterate(run, opt, max_linesearch, stats)
+        done, _ = iterate(run, opt, max_linesearch, stats)
         it += 1
         if done:
             break
@@ -593,7 +592,7 @@ def lbfgs_minimize_batched(
         getattr(opt, name)()
 
     for _ in range(iters):
-        if iterate(run, opt, max_linesearch, stats):
+        if iterate(run, opt, max_linesearch, stats)[0]:
             break
     z, f = opt.final()
     return z, f, opt.state.it.clone(), opt.f0.clone()

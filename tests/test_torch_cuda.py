@@ -265,10 +265,11 @@ def test_cuda_graphed_fit_equals_eager_fit():
         np.testing.assert_array_equal(graphed[1][k], v)
 
 
-def _card_scan_fit(dense, first_rung, graphed, eps=None, w=None, restarts=1):
+def _card_scan_fit(dense, rule, graphed, eps=None, w=None, restarts=1):
     """``(results, stats)`` of the float64 scan fit of :func:`scan_step`'s
-    model on the card, 5 iterations a layer: graphed or eager, at the first
-    rung or on the ladder, with the first jitter ``eps``."""
+    model on the card, 5 iterations a layer: graphed or eager, its
+    evaluations on the jitter rule ``rule`` (``"first_rung"`` or the ladder,
+    ``"device"``), with the first jitter ``eps``."""
     import gpar_torch
     from gpar_torch.models.fused import _cusolver, run_scan_fit
     from gpar_torch.models.graphs import GraphedStep
@@ -277,7 +278,7 @@ def _card_scan_fit(dense, first_rung, graphed, eps=None, w=None, restarts=1):
     old = gpar_torch.config.epsilon
     gpar_torch.config.epsilon = old if eps is None else eps
     try:
-        _, step = scan_step("cuda", torch.float64, dense, restarts, first_rung, w)
+        _, step = scan_step("cuda", torch.float64, dense, restarts, rule, w)
         stats = new_stats()
         with _cusolver("cuda"):
             run = GraphedStep(step) if graphed else Eager(step)
@@ -305,8 +306,8 @@ def test_cuda_graphed_first_rung_fit_equals_the_eager_ladder_fit(dense, restarts
         if dense:
             w = np.ones((100, 3))
             w[:, 1] = 1e30
-    got, stats = _card_scan_fit(dense, True, True, eps, w, restarts)
-    want, ladder = _card_scan_fit(dense, False, False, eps, w, restarts)
+    got, stats = _card_scan_fit(dense, "first_rung", True, eps, w, restarts)
+    want, ladder = _card_scan_fit(dense, "device", False, eps, w, restarts)
     assert (stats["ladder_repairs"] > 0) == forced and ladder["ladder_repairs"] == 0
     assert stats["ladder_escalations"] == ladder["ladder_escalations"]
     for a, b in zip(got, want):

@@ -40,6 +40,7 @@ from gpar_tpu.models.regressor import _construct_gpar as j_construct  # noqa: E4
 
 import gpar_torch.gp.core as TC  # noqa: E402
 import gpar_torch.models.fused as TF  # noqa: E402
+import gpar_torch.ops.linalg as TL  # noqa: E402
 from gpar_torch import GPARRegressor as TReg  # noqa: E402
 from gpar_torch.config import bucket_rows  # noqa: E402
 from gpar_torch.models.regressor import _construct_gpar as t_construct  # noqa: E402
@@ -135,12 +136,12 @@ def test_masked_dense_factors_match_jax(ladder):
     res = r.normal(size=n)
     eps = JL.resolve_epsilon(jnp.float64)
     want = JF._masked_dense_factors(*map(jnp.asarray, (K, res, mask, noise_w)), eps)
-    esc = None if ladder == "host" else torch.zeros((), dtype=torch.int64)
-    got = TF._masked_dense_factors(*map(torch.as_tensor, (K, res, mask, noise_w)), eps, esc)
+    jitter = TL.Jitter(ladder)
+    got = TF._masked_dense_factors(*map(torch.as_tensor, (K, res, mask, noise_w)), eps, jitter)
     for a, b in zip(got, want):
         close(a, b, rtol=1e-10, atol=1e-13)
-    if esc is not None:
-        assert int(esc) == 0
+    if jitter.count is not None:
+        assert int(jitter.count) == 0
         host = TF._masked_dense_factors(*map(torch.as_tensor, (K, res, mask, noise_w)), eps)
         for a, b in zip(got, host):
             np.testing.assert_array_equal(np_(a), np_(b))

@@ -1,5 +1,5 @@
-"""The scan fit's first-rung factorisations (``ops.linalg.cholesky_first_rung``)
-against the on-device jitter ladder (``ops.linalg.cholesky_ladder_on_device``),
+"""The scan fit's first-rung factorisations (``ops.linalg.Jitter("first_rung")``)
+against the on-device jitter ladder (``ops.linalg.Jitter("device")``),
 float64, on the CPU.
 
 - Where the first rung holds, the first-rung factor's value and gradient
@@ -38,28 +38,24 @@ def _spd(rng, n, batch=()):
     return torch.as_tensor(A @ np.swapaxes(A, -1, -2) / n + 0.5 * np.eye(n))
 
 
-def _counter():
-    return torch.zeros((), dtype=torch.int64)
-
-
-def _dense(K, noise, escalations):
+def _dense(K, noise, jitter):
     n = K.shape[-1]
     mask = torch.as_tensor((np.arange(n) % 5 != 3).astype(float))
     r = torch.as_tensor(np.random.default_rng(8).normal(size=n))
-    return TF._masked_dense_factors(K, r, mask, noise, 1e-6, escalations)
+    return TF._masked_dense_factors(K, r, mask, noise, 1e-6, jitter)
 
 
-def _titsias(Kmm, Kmn, noise, escalations):
+def _titsias(Kmm, Kmn, noise, jitter):
     n = Kmn.shape[-1]
     mask = torch.as_tensor((np.arange(n) % 4 != 1).astype(float))
     y = torch.as_tensor(np.random.default_rng(9).normal(size=n))
     knn = torch.sum(Kmn * Kmn, dim=-2) + 1.0
     return TL.titsias_factors(Kmm, Kmn, knn, y, torch.zeros_like(y), noise, mask=mask,
-                              escalations=escalations)
+                              jitter=jitter)
 
 
 def _case(kind, batch):
-    """``(f, inputs)``: ``f(*inputs, escalations)`` and its inputs, which
+    """``(f, inputs)``: ``f(*inputs, jitter)`` and its inputs, which
     require a gradient."""
     rng = np.random.default_rng(5)
     B = (3,) if batch else ()
@@ -78,17 +74,17 @@ def test_first_rung_equals_the_ladder_where_it_holds(kind, batch):
     # of a random projection of them, bit for bit.
     f, inputs = _case(kind, batch)
 
-    def run(counter):
+    def run(jitter):
         xs = [a.clone().requires_grad_(True) for a in inputs]
-        outs = f(*xs, counter)
+        outs = f(*xs, jitter)
         R = np.random.default_rng(1)
         loss = sum(torch.sum(o * torch.as_tensor(R.normal(size=o.shape))) for o in outs)
         return [o.detach() for o in outs], torch.autograd.grad(loss, xs)
 
-    failures, escalations = _counter(), _counter()
-    got = run(TL.FirstRung(failures))
-    want = run(escalations)
-    assert int(failures) == int(escalations) == 0
+    first, ladder = TL.Jitter("first_rung"), TL.Jitter("device")
+    got = run(first)
+    want = run(ladder)
+    assert int(first.count) == int(ladder.count) == 0
     for a, b in zip(got[0] + list(got[1]), want[0] + list(want[1])):
         assert a.shape == b.shape and torch.equal(a, b)
 
@@ -100,10 +96,10 @@ def test_a_failed_first_rung_is_nan_and_counted_per_element():
         np.array([[2.0, 0.3], [0.3, 1.0]]),
         np.array([[1.0, 0.3], [0.3, 0.09 - 1e-10]]),
     ]))
-    failures = _counter()
-    L = TL.cholesky_first_rung(K, failures)
-    assert int(failures) == 1 and torch.isnan(L[1]).all()
-    assert torch.equal(L[0], TL.cholesky_ladder_on_device(K[0], _counter()))
+    first = TL.Jitter("first_rung")
+    L = first.cholesky(K)
+    assert int(first.count) == 1 and torch.isnan(L[1]).all()
+    assert torch.equal(L[0], TL.Jitter("device").cholesky(K[0]))
 
 
 class _Spy(TF.Eager):
@@ -116,7 +112,7 @@ class _Spy(TF.Eager):
 
     def __call__(self, name):
         if name in ("layer_init", "layer_finish"):
-            self.log.append((name, int(self.step.layer), int(self.step.escalations)))
+            self.log.append((name, int(self.step.layer), int(self.step.finish.count)))
         return super().__call__(name)
 
 
@@ -130,9 +126,9 @@ def _jitter(eps):
         gpar_torch.config.epsilon = old
 
 
-def _fit(first_rung, dense, restarts, eps, w, monkeypatch=None):
+def _fit(rule, dense, restarts, eps, w, monkeypatch=None):
     """The scan fit through ``Eager``: ``(results, stats, log, repaired)``."""
-    _, step = scan_step("cpu", dense=dense, restarts=restarts, first_rung=first_rung, w=w)
+    _, step = scan_step("cpu", dense=dense, restarts=restarts, rule=rule, w=w)
     repaired = []
     if monkeypatch is not None:
         real = TF.ScanStep.on_the_ladder
@@ -164,8 +160,8 @@ def test_a_failed_first_rung_gives_the_ladders_fit(monkeypatch, dense, restarts,
     if heavy is not None:
         w = np.ones((100, 3))
         w[:, heavy] = 1e30
-    got, stats, _, repaired = _fit(True, dense, restarts, eps, w, monkeypatch)
-    want, ladder_stats, log, _ = _fit(False, dense, restarts, eps, w)
+    got, stats, _, repaired = _fit("first_rung", dense, restarts, eps, w, monkeypatch)
+    want, ladder_stats, log, _ = _fit("device", dense, restarts, eps, w)
     escalated = [pi for (_, pi, a), (_, _, b) in zip(log[::2], log[1::2]) if b > a]
     assert repaired == escalated and escalated
     assert stats["ladder_repairs"] == len(escalated) and ladder_stats["ladder_repairs"] == 0
@@ -179,7 +175,7 @@ def test_one_factorisation_per_factor_per_evaluation(monkeypatch, dense):
     # Two factors an evaluation (Kmm and LB) sparse, one dense: layer_init,
     # step and trial each factor that many matrices, once each; the ladder
     # (layer_finish) probes four rungs and factors once more.
-    _, step = scan_step("cpu", dense=dense, first_rung=True)
+    _, step = scan_step("cpu", dense=dense, rule="first_rung")
     calls = []
     real = torch.linalg.cholesky_ex
 
@@ -201,13 +197,15 @@ def test_one_factorisation_per_factor_per_evaluation(monkeypatch, dense):
 @pytest.mark.parametrize("restarts", [1, 3])
 def test_bodies_before_a_repair_move_nothing_layer_init_keeps(restarts):
     # layer_init, step, trial and commit write only the layer's slice, the
-    # optimiser's buffers and the failure count; after any of them,
-    # layer_init and a step give the buffers of a step that never ran them.
-    _, step = scan_step("cpu", dense=True, restarts=restarts, first_rung=True)
+    # optimiser's buffers and the failure count (the status); after any of
+    # them, layer_init and a step give the buffers of a step that never ran
+    # them.
+    _, step = scan_step("cpu", dense=True, restarts=restarts, rule="first_rung")
     fresh = step.clone()
     run = TF.Eager(step)
     run("layer_init")
-    allowed = {id(b) for b in [*step.lin.values(), *step.opt.buffers(), step.failures]}
+    assert step.opt.status is step.evals.count
+    allowed = {id(b) for b in [*step.lin.values(), *step.opt.buffers(), step.evals.count]}
     before = [b.clone() for b in step._buffers()]
     for name in ("step", "commit", "step", "trial", "trial", "commit", "step"):
         run(name)
@@ -222,10 +220,10 @@ def test_bodies_before_a_repair_move_nothing_layer_init_keeps(restarts):
 
 def test_first_rung_bodies_read_nothing_back_to_the_host():
     # As tests/test_torch_fused.py's meta-device test, with the first rung.
-    _, cpu = scan_step("cpu", first_rung=True)
+    _, cpu = scan_step("cpu", rule="first_rung")
     for restarts in (1, 3):
         step = TF.ScanStep(cpu.plan, cpu.n_rows, cpu.n_ind, torch.float64, "meta",
-                           restarts=restarts, first_rung=True)
+                           restarts=restarts, rule="first_rung")
         assert tuple(step.opt.flags.shape) == ((3,) if restarts == 1 else (restarts, 3))
         run = TF.Eager(step)
         for name in step.BODIES:
@@ -239,8 +237,10 @@ def test_routes_without_a_read_each_evaluation_keep_the_ladder():
 
     _, cpu = scan_step("cpu")
     args = (cpu.plan, cpu.n_rows, cpu.n_ind, torch.float64, "cpu", 1e-9, 10)
-    assert TF.new_step(*args, iters=3).first_rung
-    assert not TF.new_step(*args, iters=0).first_rung
-    assert tuple(TF.new_step(*args, iters=0).opt.flags.shape) == (2,)
-    mesh = make_mesh(2, devices=[torch.device("cpu")] * 2)
-    assert not TF.new_step(*args, mesh=mesh, iters=3).first_rung
+    graphed = TF.new_step(*args, iters=3)
+    assert graphed.evals.rule == "first_rung" and graphed.finish.rule == "device"
+    assert graphed.opt.status is graphed.evals.count
+    for step in (TF.new_step(*args, iters=0),
+                 TF.new_step(*args, mesh=make_mesh(2, devices=[torch.device("cpu")] * 2), iters=3)):
+        assert step.evals is step.finish and step.finish.rule == "device"
+        assert step.opt.status is None and tuple(step.opt.flags.shape) == (2,)

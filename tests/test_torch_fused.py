@@ -258,9 +258,9 @@ def test_ladder_on_device_equals_the_host_ladder(case):
         return L, torch.autograd.grad(torch.sum(L * R), Kt)[0]
 
     want = run(TL.safe_cholesky)
-    esc = torch.zeros((), dtype=torch.int64)
-    got = run(lambda Kt: TL.cholesky_ladder_on_device(Kt, esc))
-    assert int(esc) == (case != "holds")
+    ladder = TL.Jitter("device")
+    got = run(ladder.cholesky)
+    assert int(ladder.count) == (case != "holds")
     np.testing.assert_array_equal(np_(got[0]), np_(want[0]))
     if case == "every-rung-fails":
         assert np.isnan(np_(got[0])).all()
@@ -282,7 +282,7 @@ def test_runner_commits_only_accepted_states_on_the_cpu(fits):
     start = [b.clone() for b in step.opt.state]
     step.opt.c1 = 1e12  # no step can pass Armijo
     stats = new_stats()
-    assert iterate(run, step.opt, 25, stats) is True
+    assert iterate(run, step.opt, 25, stats) == (True, 0)
     assert (stats["host_syncs"], stats["linesearch_episodes"], stats["linesearch_trials"]) == (27, 1, 25)
     st = step.opt.state
     np.testing.assert_array_equal(np_(st.z), np_(start[0]))
@@ -290,7 +290,7 @@ def test_runner_commits_only_accepted_states_on_the_cpu(fits):
     assert int(st.it) == 1 and int(st.count) == 0
     step.opt.c1 = 1e-4
     run("layer_init")
-    assert iterate(run, step.opt, 25, stats) is False
+    assert iterate(run, step.opt, 25, stats) == (False, 0)
     assert float(step.opt.state.f) < float(start[1]) and int(step.opt.state.count) == 1
     for a, b in zip(step.opt.state, step.opt.cand):
         np.testing.assert_array_equal(np_(a), np_(b))

@@ -196,3 +196,33 @@ def test_titsias_trace_clamp_blocks_f32_variance_blowup():
         y64, torch.zeros_like(y64), torch.full((64,), 0.01, dtype=torch.float64),
     )
     assert np.isfinite(float(e1))
+
+
+def test_the_jitter_rule_lives_in_ops_linalg_alone():
+    # One module decides which rung a factorisation takes: no other module
+    # of the port imports or reads a private name of ops.linalg, only
+    # ops.linalg reads the retry factors (config.py sets them), and the
+    # optimiser knows nothing of rungs, jitter or Cholesky factors.
+    import ast
+    import pathlib
+    import re
+
+    root = pathlib.Path(TL.__file__).resolve().parents[1]
+    linalg, cfg = root / "ops" / "linalg.py", root / "config.py"
+    private, retry = [], []
+    for path in sorted(root.rglob("*.py")):
+        if path == linalg:
+            continue
+        text = path.read_text()
+        for node in ast.walk(ast.parse(text)):
+            if isinstance(node, ast.ImportFrom) and (node.module or "").endswith("linalg"):
+                private += [(path.name, a.name) for a in node.names if a.name.startswith("_")]
+            if (isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name)
+                    and node.value.id == "linalg" and node.attr.startswith("_")):
+                private.append((path.name, node.attr))
+        if path != cfg and "cholesky_retry_factors" in text:
+            retry.append(path.name)
+    assert private == [] and retry == []
+    params = {p.name: re.findall(r"(?i)rung|jitter|cholesky", p.read_text())
+              for p in sorted((root / "params").glob("*.py"))}
+    assert params and not any(params.values()), params

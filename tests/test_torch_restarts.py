@@ -263,10 +263,10 @@ def test_batched_layer_objective_matches_per_element_and_jax(sparse):
     zi_aug = (np.concatenate([np.linspace(0, 10, 6)[:, None], r.normal(size=(6, P))], axis=1)
               if sparse else np.zeros((0, pt.W)))
     xa, za = torch.as_tensor(x_aug), torch.as_tensor(zi_aug)
-    esc = torch.zeros((), dtype=torch.int64)
+    ladder = TL.Jitter("device")
 
     def nll(z):
-        return TF._layer_nll_factors(pt, lin_t, z, xa, za, esc)[0]
+        return TF._layer_nll_factors(pt, lin_t, z, xa, za, ladder)[0]
 
     Zt = torch.as_tensor(Z).requires_grad_(True)
     f = nll(Zt)
@@ -294,14 +294,14 @@ def test_on_device_ladder_picks_its_rung_per_element():
         np.array([[2.0, 0.3], [0.3, 1.0]]),
         np.array([[1.0, 0.3], [0.3, 0.09 - 1e-10]]),
     ]))
-    esc = torch.zeros((), dtype=torch.int64)
-    L = TL.cholesky_ladder_on_device(K, esc)
-    assert int(esc) == 1
+    ladder = TL.Jitter("device")
+    L = ladder.cholesky(K)
+    assert int(ladder.count) == 1
     for b in range(2):
-        one = torch.zeros((), dtype=torch.int64)
-        close(L[b], TL.cholesky_ladder_on_device(K[b], one), rtol=1e-15, atol=1e-15)
+        one = TL.Jitter("device")
+        close(L[b], one.cholesky(K[b]), rtol=1e-15, atol=1e-15)
         close(L[b], JL.safe_cholesky(jnp.asarray(K[b].numpy())), rtol=0, atol=1e-12)
-        assert int(one) == b
+        assert int(one.count) == b
 
 
 def test_step_bodies_with_restarts_read_nothing_back_to_the_host():

@@ -33,12 +33,13 @@ def chain_data(n=100, p=3, seed=0, n_test=20):
     return x, y, x_test
 
 
-def scan_step(device, dtype=torch.float64, dense=False, restarts=1, first_rung=False, w=None):
+def scan_step(device, dtype=torch.float64, dense=False, restarts=1, rule="device", w=None):
     """``(reg, step)``: the benchmark's model (8 inducing points, or dense)
     conditioned on ``chain_data(100, 3)`` with every seventh row of output 2
     missing and the weights ``w``, and a loaded
     :class:`~gpar_torch.models.fused.ScanStep` of its fit on ``device``
-    (``restarts`` starts, the perturbations from seed 3)."""
+    (``restarts`` starts, the perturbations from seed 3, its evaluations
+    on the jitter rule ``rule``)."""
     from gpar_torch.models.fused import ScanStep, build_scan_fit_plan
 
     x, y, _ = chain_data(n=100, p=3, seed=0)
@@ -51,8 +52,7 @@ def scan_step(device, dtype=torch.float64, dense=False, restarts=1, first_rung=F
     plan = build_scan_fit_plan(reg, names)
     x_pad, rows = reg._bucket_fit_inputs(plan)
     zi = x_pad.new_zeros((0, plan.m)) if dense else reg.x_ind
-    step = ScanStep(plan, x_pad.shape[0], zi.shape[0], dtype, device, restarts=restarts,
-                    first_rung=first_rung)
+    step = ScanStep(plan, x_pad.shape[0], zi.shape[0], dtype, device, restarts=restarts, rule=rule)
     pert = torch.as_tensor(np.random.default_rng(3).normal(size=(plan.p, restarts - 1, plan.s_max)),
                            dtype=dtype, device=device)
     step.load(reg.vs.latent_vector(names), x_pad, rows, zi, pert)
