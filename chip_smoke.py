@@ -2447,15 +2447,16 @@ def cached_against_uncached(P, tag, reg, fn, saved, reps=3):
     ``reps`` times with ``config.posterior_cache = False``, each call's
     wall-clock and Gram launches printed: the results must be the same bits
     and every cached call must launch ``saved`` Grams fewer (the
-    factorisation's Grams).  One cached call comes first, untimed: a cached
-    ``replace=True`` predict captures its tail's CUDA graph there, whose
-    warm-up run launches the Grams once more.  Returns the numbers."""
+    factorisation's Grams).  One call of each route comes first, untimed: a
+    ``replace=True`` predict captures its route's tail CUDA graph there,
+    whose warm-up run launches the Grams once more.  Returns the numbers."""
     import gpar_torch
 
     fn()
     cached = timed_calls(f"{tag} cached", fn, reps)
     gpar_torch.config.posterior_cache = False
     try:
+        fn()
         plain = timed_calls(f"{tag} uncached", fn, reps)
     finally:
         gpar_torch.config.posterior_cache = True

@@ -43,9 +43,9 @@ standard normals:
 - :func:`make_scan_predict_tail` (``replace=True``): per layer the
   Titsias or exact factors, the posterior at the bucketed and masked test
   rows, one sampling factor and all Monte-Carlo draws as one matmul;
-  :func:`make_scan_cached_tail` the same from cached factors, which on the
-  card the estimator replays as one CUDA graph (:class:`CachedTailBody`,
-  ``models/graphs.py``);
+  :func:`make_scan_cached_tail` the same from cached factors.  On the card
+  the estimator replays either as one CUDA graph (:class:`UncachedTailBody`,
+  :class:`CachedTailBody`, ``models/graphs.py``);
 - :func:`make_scan_ancestral_tail` (``replace=False``, posterior
   ``sample``) and :func:`make_scan_prior_tail` (prior ``sample``):
   per-sample chains, each sample with its own augmented test inputs, so a
@@ -132,7 +132,8 @@ __all__ = [
     "ScanStep",
     "MeshScanStep",
     "CachedTailBody",
-    "run_cached_tail",
+    "UncachedTailBody",
+    "run_tail",
     "new_step",
     "Eager",
     "build_scan_data_plan",
@@ -1402,14 +1403,16 @@ def _layer_kernels(plan, z_ext, xs):
         yield (lin, *_layer_kernel(plan, lin, z_ext))
 
 
-def _condition_layers(plan, x_ind, z_ext, x, xs):
+def _condition_layers(plan, x_ind, z_ext, x, xs, jitter=HOST):
     """The training chain of the serving tails, one layer at a time: the
     layer's posterior factors on its masked training rows at the final
     hyperparameters, then one augmentation step (impute/replace rules).
     Yields ``(lin, kernel, noise, factors)``, the factors those of
     ``gpar_tpu/models/fused.py:1858-1950``: sparse ``{zi_aug, Lm, LB,
     beta}`` (the augmented inducing inputs at the layer's entry), dense
-    ``{x_aug, alpha, L}`` (the augmented training rows at its entry)."""
+    ``{x_aug, alpha, L}`` (the augmented training rows at its entry).  The
+    factorisations take the rule ``jitter`` (``ops.linalg.Jitter``; the
+    host ladder but in :class:`UncachedTailBody`'s graph)."""
     dtype, device = x.dtype, x.device
     x_aug, zi_aug = _widen(x, plan.W), _widen(_inducing(x_ind, plan.m, dtype, device), plan.W)
     eps = resolve_epsilon(dtype)
@@ -1421,12 +1424,12 @@ def _condition_layers(plan, x_ind, z_ext, x, xs):
             Kmn = gram(kernel, zi_aug, x_aug)
             knn = kdiag(kernel, x_aug)
             _, Lm, LB, beta = titsias_factors(Kmm, Kmn, knn, r, torch.zeros_like(r), noise_w,
-                                              mask=omask)
+                                              mask=omask, jitter=jitter)
             fac = {"zi_aug": zi_aug.clone(), "Lm": Lm, "LB": LB, "beta": beta}
             est_rows, est_ind = Kmn.T @ beta, Kmm @ beta
         else:
             K = gram(kernel, x_aug, x_aug)
-            _, alpha, L = _masked_dense_factors(K, r, omask, noise_w, eps)
+            _, alpha, L = _masked_dense_factors(K, r, omask, noise_w, eps, jitter)
             fac = {"x_aug": x_aug.clone(), "alpha": alpha, "L": L}
             est_rows, est_ind = K @ alpha, None
             del K
@@ -1676,7 +1679,11 @@ def make_scan_predict_tail(plan, x_ind, latent, rows_traced=False):
     rows, one sampling factor, all draws as one matmul, then one
     augmentation step of the training inputs (impute/replace rules) and of
     the test inputs (the posterior mean).  On the card the factorisations
-    are cuSOLVER's, as in the fit.
+    are cuSOLVER's, as in the fit, and the estimator's predict (no mesh)
+    replays this computation as one CUDA graph instead:
+    :class:`UncachedTailBody`, captured once per key by
+    ``models/graphs.graphed_uncached_tail``, one host read a call in place
+    of two a layer.
 
     Returns ``tail(z_all, x, x_test, w_test_T, normals, xs_rows=None,
     mt=None) -> (batch, mean_chain)``: ``normals`` (p, S, n_test) are the
@@ -1737,8 +1744,9 @@ def _predict_chain(plan, latent, layers, x_test, w_test_T, normals, mt,
     """The ``replace=True`` draws of every predict tail: per layer of
     ``layers`` (``(lin, kernel, noise, factors)``) the posterior at the
     test rows, one sampling factor ``factor(cov)`` (the host ladder's, or
-    in :class:`CachedTailBody`'s graph its first rung), all draws as one
-    matmul, and the posterior mean fed forward to the test inputs."""
+    in the tail graphs its first rung, :func:`_first_rung_chain`), all
+    draws as one matmul, and the posterior mean fed forward to the test
+    inputs."""
     xt_aug = _widen(x_test, plan.W)
     ys, means = [], []
     for pi, (lin, kernel, noise, fac) in enumerate(layers):
@@ -1770,69 +1778,98 @@ def _feed_mean(plan, col, xt_aug, mean_t):
     xt_aug.index_copy_(1, (plan.m + col).reshape(1), mean_t[:, None])
 
 
-class CachedTailBody:
-    """:func:`make_scan_cached_tail`'s computation at fixed shapes, the form
-    ``models/graphs.py`` captures as one CUDA graph: static buffers and one
-    body, ``tail``, that reads only them and reads nothing back to the host.
-
-    Buffers, each shaped and laid out as the first call's argument (so a
-    replayed solve or matmul takes the library path, and gives the bits,
-    of the eager tail's): the latents ``z_ext`` (dummy slot last), the
-    plan's arrays ``xs`` (the model structure uploaded once, fixed by
-    :func:`plan_static_fingerprint`; the row arrays of
-    :data:`_ROW_KEYS`, the only ones that vary under one fingerprint,
-    copied by every :meth:`load`), the stacked ``factors``, ``x_test``,
-    ``w_test_T``, ``normals`` and ``mt``.
-
-    ``tail`` returns ``(batch, mean_chain, info)``: the eager tail's chain
-    (:func:`_predict_chain`) with each layer's sampling factor at its first
+def _first_rung_chain(plan, latent, layers, x_test, w_test_T, normals, mt):
+    """:func:`_predict_chain` with each layer's sampling factor at its first
     rung (``ops.linalg.cholesky_at``, the very call ``psd_sample_factor``
-    makes first); ``info`` (p,) that call's flag per layer.  A layer whose
-    flag is not 0 has draws from a failed factor; :meth:`repair` makes them
-    anew (the rule of ``ops.linalg``'s module docstring).  The body moves
-    none of the buffers, so a run before the capture needs no copy of them."""
+    makes first), the chain of both tail graphs: ``(batch, mean_chain,
+    info)``, ``info`` (p,) that call's flag per layer.  A layer whose flag
+    is not 0 has draws from a failed factor."""
+    infos = []
+
+    def first_rung(cov_t):
+        L, info = cholesky_at(cov_t[None], resolve_epsilon(cov_t.dtype), split=False)
+        infos.append(info)
+        return L[0]
+
+    batch, mean_chain = _predict_chain(plan, latent, layers, x_test, w_test_T, normals, mt,
+                                       first_rung)
+    return batch, mean_chain, torch.cat(infos)
+
+
+class _TailBody:
+    """What the two tail graphs' bodies share: the buffers of the test-point
+    half, each shaped and laid out as the first call's argument (so a
+    replayed solve or matmul takes the library path, and gives the bits, of
+    the eager tail's): the latents ``z_ext`` (dummy slot last), the plan's
+    arrays ``xs`` (the model structure uploaded once, fixed by
+    :func:`plan_static_fingerprint`; the row arrays of :data:`_ROW_KEYS`,
+    the only ones that vary under one fingerprint, copied by every load),
+    ``x_test``, ``w_test_T``, ``normals`` and ``mt``.  A body moves none of
+    the buffers, so a run before the capture needs no copy of them."""
 
     BODIES = ("tail",)
     CAPTURE_SPAN = "gpar.predict.capture"
 
-    def __init__(self, plan, latent, z_all, factors, x_test, w_test_T, normals, xs_rows, mt):
+    def __init__(self, plan, latent, z_all, x_test, w_test_T, normals, xs_rows, mt):
         self.plan, self.latent, self.device = plan, latent, x_test.device
         self.z_ext = z_all.new_zeros(plan.n_z + 1)
         self.xs = {k: torch.empty_like(v) if k in _ROW_KEYS else v
                    for k, v in plan_tensors(plan, x_test.dtype, self.device, xs_rows).items()}
-        self.factors = {k: torch.empty_like(v) for k, v in factors.items()}
         self.x_test, self.w_test_T, self.normals, self.mt = (
             torch.empty_like(a) for a in (x_test, w_test_T, normals, mt))
 
     def clone(self):
         return self  # the body writes none of the buffers
 
-    def load(self, z_all, factors, x_test, w_test_T, normals, xs_rows, mt):
-        """A call's arguments, copied on the device into the buffers."""
+    def _load(self, z_all, x_test, w_test_T, normals, xs_rows, mt):
         self.z_ext[:-1].copy_(z_all)
         for k in _ROW_KEYS:
             self.xs[k].copy_(xs_rows[k])
-        for k, buf in self.factors.items():
-            buf.copy_(factors[k])
         for buf, a in ((self.x_test, x_test), (self.w_test_T, w_test_T),
                        (self.normals, normals), (self.mt, mt)):
             buf.copy_(a)
 
+    def _chain(self, layers):
+        return _first_rung_chain(self.plan, self.latent, layers, self.x_test, self.w_test_T,
+                                 self.normals, self.mt)
+
+
+class CachedTailBody(_TailBody):
+    """:func:`make_scan_cached_tail`'s computation at fixed shapes, the form
+    ``models/graphs.py`` captures as one CUDA graph: the buffers of
+    :class:`_TailBody` and the stacked ``factors``, and one body, ``tail``,
+    that reads only them and reads nothing back to the host.
+
+    ``tail`` returns ``(batch, mean_chain, info)``: the eager tail's chain
+    with each layer's sampling factor at its first rung
+    (:func:`_first_rung_chain`); ``info`` (p,) that factor's flag per
+    layer.  :meth:`repair` makes a failed layer's draws anew (the rule of
+    ``ops.linalg``'s module docstring)."""
+
+    def __init__(self, plan, latent, z_all, factors, x_test, w_test_T, normals, xs_rows, mt):
+        super().__init__(plan, latent, z_all, x_test, w_test_T, normals, xs_rows, mt)
+        self.factors = {k: torch.empty_like(v) for k, v in factors.items()}
+
+    def load(self, z_all, factors, x_test, w_test_T, normals, xs_rows, mt):
+        """A call's arguments, copied on the device into the buffers."""
+        self._load(z_all, x_test, w_test_T, normals, xs_rows, mt)
+        for k, buf in self.factors.items():
+            buf.copy_(factors[k])
+
     def tail(self):
-        infos = []
-
-        def first_rung(cov_t):
-            L, info = cholesky_at(cov_t[None], resolve_epsilon(cov_t.dtype), split=False)
-            infos.append(info)
-            return L[0]
-
         with torch.no_grad(), _cusolver(self.device):
-            layers = _cached_layers(self.plan, self.z_ext, self.xs, self.factors)
-            batch, mean_chain = _predict_chain(self.plan, self.latent, layers, self.x_test,
-                                               self.w_test_T, self.normals, self.mt, first_rung)
-            return batch, mean_chain, torch.cat(infos)
+            return self._chain(_cached_layers(self.plan, self.z_ext, self.xs, self.factors))
 
-    def repair(self, pi, batch, mean_chain):
+    def repair(self, flags, batch, mean_chain):
+        """``(batch, mean_chain)`` with the draws of each layer whose flag
+        in ``flags`` (the replay's ``info``, read) is not 0 made anew
+        (:meth:`repair_layer`); later layers feed forward the mean, not the
+        draws, and need nothing."""
+        for pi in torch.nonzero(flags).flatten().tolist():
+            self.repair_layer(pi, batch, mean_chain)
+        return batch, mean_chain
+
+    def repair_layer(self, pi, batch, mean_chain):
         """Layer ``pi``'s draws in ``batch`` made anew, eagerly: its test
         inputs rebuilt from ``mean_chain``'s earlier columns (a
         ``replace=True`` chain feeds forward the means, never the draws),
@@ -1851,21 +1888,69 @@ class CachedTailBody:
             batch[..., pi] = _draws(mean_t, psd_sample_factor(cov_t), self.normals[pi])
 
 
-def run_cached_tail(body, run):
-    """``(batch, mean_chain)`` of a :class:`CachedTailBody` whose call is
-    loaded: ``run("tail")`` (a graph replay, or :class:`Eager`) and one host
-    read of the layers' first-rung flags, the span ``gpar.predict.replay``;
-    then each layer whose first rung failed repaired
-    (:meth:`CachedTailBody.repair`), each the span ``gpar.predict.repair``.
-    The outputs are copies: a replay's own buffers are the next replay's."""
+def run_tail(body, run):
+    """``(batch, mean_chain)`` of a tail body (:class:`CachedTailBody`,
+    :class:`UncachedTailBody`) whose call is loaded: ``run("tail")`` (a
+    graph replay, or :class:`Eager`), the outputs' copies (a replay's own
+    buffers are the next replay's) and one host read of the first rungs'
+    flags, the span ``gpar.predict.replay``; where any flag is not 0, the
+    body's ``repair(flags, batch, mean_chain)``, the span
+    ``gpar.predict.repair``.  The answer is the eager tail's in every case."""
     with span("gpar.predict.replay"):
-        batch, mean_chain, info = run("tail")
+        batch, mean_chain, flags = run("tail")
         batch, mean_chain = batch.clone(), mean_chain.clone()
-        bad = torch.nonzero(info.cpu()).flatten().tolist()
-    for pi in bad:
+        flags = flags.cpu()
+    if flags.any():
         with span("gpar.predict.repair"):
-            body.repair(pi, batch, mean_chain)
+            return body.repair(flags, batch, mean_chain)
     return batch, mean_chain
+
+
+class UncachedTailBody(_TailBody):
+    """:func:`make_scan_predict_tail`'s computation at fixed shapes, the
+    tail that conditions every layer inside the predict, as one CUDA graph
+    (``models/graphs.graphed_uncached_tail``): the buffers of
+    :class:`_TailBody`, the bucketed training inputs ``x`` and the inducing
+    inputs ``x_ind`` ((0, m) for a dense plan), both copied by every
+    :meth:`load`, and one body, ``tail``, that reads nothing back to the
+    host.
+
+    ``tail`` returns ``(batch, mean_chain, failures)``: the eager tail's
+    chain with each layer's training factors at the first rung
+    (``ops.linalg.Jitter("first_rung")`` through :func:`_condition_layers`)
+    and each sampling factor at its first rung (:func:`_first_rung_chain`);
+    ``failures`` (p + 1,) int64, the sampling factors' flags and the rule's
+    count last.  Where all are 0 the draws are the eager tail's bits.  A
+    failed training factor poisons every later layer, and the graph keeps no
+    layer's factors, so :meth:`repair` runs the whole eager tail again."""
+
+    def __init__(self, plan, latent, z_all, x, x_ind, x_test, w_test_T, normals, xs_rows, mt):
+        super().__init__(plan, latent, z_all, x_test, w_test_T, normals, xs_rows, mt)
+        self.x = torch.empty_like(x)
+        self.x_ind = _inducing(x_ind, plan.m, x.dtype, self.device).clone()
+
+    def load(self, z_all, x, x_ind, x_test, w_test_T, normals, xs_rows, mt):
+        """A call's arguments, copied on the device into the buffers."""
+        self._load(z_all, x_test, w_test_T, normals, xs_rows, mt)
+        self.x.copy_(x)
+        self.x_ind.copy_(_inducing(x_ind, self.plan.m, x.dtype, self.device))
+
+    def tail(self):
+        with torch.no_grad(), _cusolver(self.device):
+            jitter = Jitter("first_rung", self.device)
+            layers = _condition_layers(self.plan, self.x_ind, self.z_ext, self.x, self.xs, jitter)
+            batch, mean_chain, info = self._chain(layers)
+            return batch, mean_chain, torch.cat([info.to(jitter.count.dtype),
+                                                 jitter.count.reshape(1)])
+
+    def repair(self, flags, batch, mean_chain):
+        """The whole eager tail (:func:`make_scan_predict_tail`, every
+        factorisation on the host ladder) of the loaded call, in place of
+        the replay's ``batch`` and ``mean_chain`` whatever ``flags`` holds."""
+        tail = make_scan_predict_tail(self.plan, self.x_ind, self.latent, rows_traced=True)
+        rows = {k: self.xs[k] for k in _ROW_KEYS}
+        return tail(self.z_ext[:-1], self.x, self.x_test, self.w_test_T, self.normals, rows,
+                    self.mt)
 
 
 def resolve_sample_chunk(sample_chunk, num_samples, n_test, dtype, budget):

@@ -1,4 +1,4 @@
-"""CUDA graphs of the scan-fused layer step and of the cached predictive tail.
+"""CUDA graphs of the scan-fused layer step and of the predictive tails.
 
 The port's counterpart of ``jax.jit`` of the scan body and of the JAX
 package's cross-instance program cache (``regressor._shared_jit``,
@@ -70,12 +70,39 @@ span ``gpar.predict.capture``.
   each layer's ``cholesky_ex`` flag, (p,), into the graph's own outputs,
   which the call copies.
 - Then one host read of the (p,) flags, in place of one a layer (span
-  ``gpar.predict.replay``, with the replay), and the repair of each layer
-  whose first rung failed, eagerly (span ``gpar.predict.repair``;
-  ``fused.run_cached_tail``); later layers feed forward the mean, not the
+  ``gpar.predict.replay``, with the replay; ``fused.run_tail``), and the
+  repair of each layer whose first rung failed, eagerly (one span
+  ``gpar.predict.repair``); later layers feed forward the mean, not the
   draws, and need nothing.  The answer is the eager tail's in every case.
 - A cached tail is shared mutable state too: it serves one predict at a
   time.
+
+The estimator's uncached ``replace=True`` predict on the card with no mesh
+(a dense stack over ``config.posterior_cache_max_bytes``, or
+``config.posterior_cache`` off: the route that conditions every layer
+inside the predict) replays an uncached tail graph instead of
+``fused.make_scan_predict_tail``'s eager loop
+(:func:`graphed_uncached_tail`): a
+:class:`~gpar_torch.models.fused.UncachedTailBody` in the same cache,
+under the same budget, cap and eviction, its capture the same span.
+
+- Its key is tagged ``"uncached_tail"`` and covers the plan's
+  fingerprint, the training row bucket, the number of inducing points (0
+  dense), p, the number of samples, the test bucket, ``latent``, the
+  dtype, the device, the jitter settings and ``config.mesh_descriptor()``.
+- A call copies the latents, the bucketed training inputs and row arrays,
+  the inducing inputs, the test inputs, weights, mask and normals into the
+  body's buffers; the replay runs the eager tail's chain with every
+  layer's training factors (``ops.linalg.Jitter("first_rung")``) and
+  sampling factor at the first rung, and writes the draws, the means and
+  the failures: each sampling factor's flag and the rule's count.
+- Then one host read of the failures (span ``gpar.predict.replay``, with
+  the replay and the outputs' copies) in place of two a layer.  Where any
+  is not 0 the whole eager tail runs again on the host ladders (span
+  ``gpar.predict.repair``; ``fused.run_tail`` as above): a failed training
+  factor poisons every later layer, and keeping each layer's factors for a
+  repair by layer would pin the stack the factor cache refused.  The
+  answer is the eager tail's in every case.
 """
 
 import collections
@@ -88,10 +115,12 @@ from ..config import config, mesh_descriptor
 from ..ops import gram_kernel as GK
 from ..ops.linalg import jitter_key
 from ..utils.spans import span
-from .fused import CachedTailBody, new_step, plan_static_fingerprint, run_cached_tail
+from .fused import (
+    CachedTailBody, UncachedTailBody, new_step, plan_static_fingerprint, run_tail,
+)
 
-__all__ = ["GraphedStep", "graphed_step", "graphed_tail", "on_card", "clear_cache", "evictions",
-           "cached_bytes", "CACHE_CAP"]
+__all__ = ["GraphedStep", "graphed_step", "graphed_tail", "graphed_uncached_tail", "on_card",
+           "clear_cache", "evictions", "cached_bytes", "CACHE_CAP"]
 
 _CACHE = collections.OrderedDict()  # key -> (step, graphs, pinned bytes), least recent first
 #: Most keys the cache holds, the cap of the JAX package's program cache; the
@@ -210,14 +239,35 @@ def graphed_tail(plan, latent, z_all, factors, x_test, w_test_T, normals, xs_row
     graph of their key (captured on a miss, as the module says): the
     replay, one host read, and the repair of any layer whose first rung
     failed."""
-    n_rows = xs_rows["obs_mask"].shape[-1]
     n_ind = factors["zi_aug"].shape[1] if plan.sparse else 0
-    key = ("tail", plan_static_fingerprint(plan), n_rows, n_ind, plan.p, normals.shape[1],
+    args = (z_all, factors, x_test, w_test_T, normals, xs_rows, mt)
+    return _replayed_tail("tail", plan, latent, xs_rows["obs_mask"].shape[-1], n_ind, args,
+                          CachedTailBody)
+
+
+def graphed_uncached_tail(plan, x_ind, latent, z_all, x, x_test, w_test_T, normals, xs_rows, mt):
+    """``(batch, mean_chain)`` of ``fused.make_scan_predict_tail(plan,
+    x_ind, latent, rows_traced=True)`` for these arguments, from the
+    uncached tail graph of their key (captured on a miss, as the module
+    says): the replay, one host read, and the whole eager tail again where
+    any first rung failed."""
+    n_ind = 0 if x_ind is None else x_ind.shape[0]
+    args = (z_all, x, x_ind, x_test, w_test_T, normals, xs_rows, mt)
+    return _replayed_tail("uncached_tail", plan, latent, x.shape[0], n_ind, args,
+                          UncachedTailBody)
+
+
+def _replayed_tail(tag, plan, latent, n_rows, n_ind, args, body):
+    """``fused.run_tail`` of the tail graph keyed by ``tag`` and the rest
+    of the module's tail key, ``args`` loaded into a ``body(plan, latent,
+    *args)`` (the last five: the test inputs, weights, normals, row arrays
+    and mask)."""
+    x_test, normals = args[-5], args[-3]
+    key = (tag, plan_static_fingerprint(plan), n_rows, n_ind, plan.p, normals.shape[1],
            x_test.shape[0], latent, str(x_test.dtype), str(x_test.device), *jitter_key(),
            mesh_descriptor())
-    args = (z_all, factors, x_test, w_test_T, normals, xs_rows, mt)
-    body, graphs, _ = _cached(key, x_test.device, args, lambda: CachedTailBody(plan, latent, *args))
-    return run_cached_tail(body, graphs)
+    step, graphs, _ = _cached(key, x_test.device, args, lambda: body(plan, latent, *args))
+    return run_tail(step, graphs)
 
 
 def _cached(key, device, args, new):

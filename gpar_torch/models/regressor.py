@@ -62,7 +62,9 @@ Design, in PyTorch terms:
   the stack one layer at a time).  A dense stack over
   ``config.posterior_cache_max_bytes``, or ``config.posterior_cache =
   False``, conditions anew in every call, each layer's factors inside the
-  tail's loop (``fused.posterior_factor_layers``), so no stack is held.
+  tail's loop (``fused.posterior_factor_layers``), so no stack is held; on
+  the card with no mesh a ``replace=True`` one replays that loop as one
+  CUDA graph (``models/graphs.graphed_uncached_tail``).
 - Entry points run on ``device`` (default ``"cuda"``; raises without a
   card unless ``device="cpu"``).  Randomness comes from a
   ``torch.Generator`` or from caller-supplied standard normals.
@@ -1038,9 +1040,13 @@ class GPARRegressor:
         ``noise_normals`` (same shape) those of the noise that a latent
         draw feeds forward (``replace=False``); each defaults to draws from
         ``generator``.  The route's tail, with its factors where they are
-        not cached, is the span ``gpar.predict.tail``.  From cached factors
-        with ``replace=True``, on the card and with no mesh, the tail is
-        the replay of one CUDA graph (``graphs.graphed_tail``).  ``report``
+        not cached, is the span ``gpar.predict.tail``.  With ``replace=True``,
+        on the card and with no mesh, the tail is the replay of one CUDA
+        graph: from cached factors ``graphs.graphed_tail``, else
+        ``graphs.graphed_uncached_tail``, which conditions every layer at
+        its first jitter rung in the graph, keyed as ``graphed_tail`` is,
+        with the training rows' bucket, and runs the whole eager tail again
+        where any first rung failed.  ``report``
         (a dict) receives the samples one batch of the tail holds
         (:meth:`predict`'s report)."""
         from . import graphs
@@ -1121,16 +1127,19 @@ class GPARRegressor:
                         return tail(z_d, factor_slices(fac), *rest, nm, nn, *put((rows, mt)))
                 return self._split_samples(draw, normals, noise_normals)[:, :nt]
         if self.replace:
-            if cached:
-                with span("gpar.predict.tail"):
-                    args = (z, self._posterior_factors(plan, z), x_t, w_t, normals, rows, mt)
-                    if mesh is None and graphs.on_card(self.device):
-                        return graphs.graphed_tail(plan, latent, *args)[0][:, :nt]
-                    tail = make_scan_cached_tail(plan, latent, rows_traced=True)
-                    return tail(*args)[0][:, :nt]
-            tail = make_scan_predict_tail(plan, self.x_ind, latent, rows_traced=True)
+            graphed = mesh is None and graphs.on_card(self.device)
             with span("gpar.predict.tail"):
-                return tail(z, x_pad, x_t, w_t, normals, rows, mt)[0][:, :nt]
+                if cached:
+                    args = (z, self._posterior_factors(plan, z), x_t, w_t, normals, rows, mt)
+                    tail = (functools.partial(graphs.graphed_tail, plan, latent) if graphed
+                            else make_scan_cached_tail(plan, latent, rows_traced=True))
+                else:
+                    args = (z, x_pad, x_t, w_t, normals, rows, mt)
+                    tail = (functools.partial(graphs.graphed_uncached_tail, plan, self.x_ind,
+                                              latent) if graphed
+                            else make_scan_predict_tail(plan, self.x_ind, latent,
+                                                        rows_traced=True))
+                return tail(*args)[0][:, :nt]
         tail = make_scan_ancestral_tail(plan, latent, chunk, rows_traced=True)
         with span("gpar.predict.tail"):
             if cached:

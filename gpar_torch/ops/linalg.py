@@ -47,10 +47,14 @@ that count back in one read.
 rung; the caller reads its failures once after the replay, with what it
 reads anyway, and where there is one runs that work again eagerly on a
 ladder.  The scan fit does so per layer (its L-BFGS flags carry the
-``"first_rung"`` count; ``models.fused.run_scan_fit``), the cached
-predictive tail per layer's sampling factor (:func:`cholesky_at`'s
-``info``; ``models.fused.run_cached_tail``).  The answer is the ladder's in
-every case.
+``"first_rung"`` count; ``models.fused.run_scan_fit``), and the two
+predictive tails in one read a call (``models.fused.run_tail``): the
+cached tail per layer's sampling factor (:func:`cholesky_at`'s ``info``),
+the uncached tail, whose graph factors every layer's training covariance
+under ``"first_rung"`` and its sampling factor by :func:`cholesky_at`, for
+the whole tail (the count and the flags together; a failure runs the whole
+eager tail again).  The answer is
+the ladder's in every case.
 
 The sampling factors (:func:`psd_sample_factor_batched`) take the host
 ladder, and a clamped eigendecomposition where no rung holds.

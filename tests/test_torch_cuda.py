@@ -399,13 +399,13 @@ def test_cuda_cached_serving_equals_uncached(dense, replace):
     reg, x, y, x_test = _served(dense, replace)
     normals = np.random.default_rng(3).standard_normal((reg.p, 5, len(x_test)))
     assert reg.precompute()
-    # A first cached predict captures the tail's graph, whose warm-up run
-    # launches its Grams once more; the predict below replays it.
-    reg.predict(x_test, num_samples=5, normals=normals)
     runs = {}
     for cached in (True, False):
         config.posterior_cache = cached
         try:
+            # A first predict captures the route's tail graph, whose warm-up
+            # run launches its Grams once more; the predict below replays it.
+            reg.predict(x_test, num_samples=5, normals=normals)
             GK.reset_counters()
             pred = reg.predict(x_test, num_samples=5, credible_bounds=True, normals=normals)
             launches = GK.counters()["gram_kernel_launches"]
@@ -563,15 +563,16 @@ def test_cuda_tail_graph_repairs_a_failed_first_rung():
     w[1] = 1e30
     plan, args = _tail_args(reg, x_test, w=w)
     old, repaired = gpar_torch.config.epsilon, []
-    real = fused.CachedTailBody.repair
-    fused.CachedTailBody.repair = lambda self, pi, *a: repaired.append(pi) or real(self, pi, *a)
+    real = fused.CachedTailBody.repair_layer
+    fused.CachedTailBody.repair_layer = (lambda self, pi, *a: repaired.append(pi)
+                                         or real(self, pi, *a))
     gpar_torch.config.epsilon = -1e-4
     try:
         got = graphs.graphed_tail(plan, False, *args)
         want = fused.make_scan_cached_tail(plan, False, rows_traced=True)(*args)
     finally:
         gpar_torch.config.epsilon = old
-        fused.CachedTailBody.repair = real
+        fused.CachedTailBody.repair_layer = real
         graphs.clear_cache()
     assert repaired == [1] and bool(torch.isfinite(got[0]).all())
     for a, b in zip(got, want):
@@ -640,6 +641,161 @@ def test_cuda_tail_graph_is_evicted_by_the_byte_budget(monkeypatch):
             kinds.append([(k[0] == "tail", e[2]) for k, e in graphs._CACHE.items()])
         assert kinds == [[(False, 40)], [(False, 40), (True, 50)], [(True, 50), (True, 30)],
                          [(True, 30), (False, 60)]]
+        assert graphs.cached_bytes() == 90
+    finally:
+        graphs.clear_cache()
+
+
+def _uncached_args(reg, x_test, num_samples=5, seed=2, w=None):
+    """The uncached tail's arguments as the estimator's predict makes them
+    on the card: the bucketed training inputs in place of the factors."""
+    plan, (z, _, *rest) = _tail_args(reg, x_test, num_samples, seed, w)
+    return plan, (z, reg._bucket_fit_inputs(plan)[0], *rest)
+
+
+def _uncached_keys():
+    from gpar_torch.models import graphs
+
+    return [k for k in graphs._CACHE if k[0] == "uncached_tail"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("latent", [False, True])
+def test_cuda_uncached_tail_graph_replay_equals_the_eager_tail(dense, latent):
+    # Captured on the first call, replayed on the next: every layer's
+    # training factor and sampling factor at the first rung in the graph,
+    # the same bits as the eager uncached tail, and as many Gram launches.
+    from gpar_torch.models import fused, graphs
+
+    _need_cuda()
+    graphs.clear_cache()
+    try:
+        reg, _, _, x_test = _served(dense)
+        for seed in (2, 3):
+            plan, args = _uncached_args(reg, x_test, seed=seed)
+            GK.reset_counters()
+            got = graphs.graphed_uncached_tail(plan, reg.x_ind, latent, *args)
+            replayed = GK.counters()["gram_kernel_launches"]
+            GK.reset_counters()
+            want = fused.make_scan_predict_tail(plan, reg.x_ind, latent, rows_traced=True)(*args)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+            if seed == 3:  # a replay
+                grams = (3 if dense else 4) * reg.p  # K or Kmm and Kmn; Kxt or Kmt; Ktt
+                assert replayed == GK.counters()["gram_kernel_launches"] == grams
+        assert len(_uncached_keys()) == 1 and not _tail_keys()
+    finally:
+        graphs.clear_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+def test_cuda_uncached_tail_graph_runs_the_eager_tail_where_a_first_rung_failed(dense):
+    # The forced failure of the cached tail's test (layer 1's sampling
+    # factor at the jitter -1e-4): the replay's draws are dropped and the
+    # whole eager tail runs again, its bits.
+    import gpar_torch
+    from gpar_torch.config import bucket_rows
+    from gpar_torch.models import fused, graphs
+
+    _need_cuda()
+    graphs.clear_cache()
+    reg, _, _, x_test = _served(dense)
+    x_test[:4] = x_test[0]
+    w = torch.ones((reg.p, bucket_rows(len(x_test))), dtype=torch.float64, device="cuda")
+    w[1] = 1e30
+    plan, args = _uncached_args(reg, x_test, w=w)
+    old, repaired = gpar_torch.config.epsilon, []
+    real = fused.UncachedTailBody.repair
+    fused.UncachedTailBody.repair = lambda self, *a: repaired.append(1) or real(self, *a)
+    gpar_torch.config.epsilon = -1e-4
+    try:
+        got = graphs.graphed_uncached_tail(plan, reg.x_ind, False, *args)
+        want = fused.make_scan_predict_tail(plan, reg.x_ind, False, rows_traced=True)(*args)
+    finally:
+        gpar_torch.config.epsilon = old
+        fused.UncachedTailBody.repair = real
+        graphs.clear_cache()
+    assert repaired == [1] and bool(torch.isfinite(got[0]).all())
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_uncached_tail_graph_captures_once_per_key(monkeypatch):
+    # With the factor cache off, the first predict at a key captures, the
+    # next replays; another number of samples or another test bucket is
+    # another key.
+    from gpar_torch.config import config
+    from gpar_torch.models import graphs
+
+    _need_cuda()
+    monkeypatch.setattr(config, "posterior_cache", False)
+    graphs.clear_cache()
+    try:
+        reg, _, _, x_test = _served(True)
+        assert not reg.precompute()
+        reg.predict(x_test, num_samples=5)
+        (key,) = _uncached_keys()
+        entry = graphs._CACHE[key][1]
+        reg.predict(x_test, num_samples=5)
+        assert _uncached_keys() == [key] and graphs._CACHE[key][1] is entry
+        assert entry.replays == 2
+        reg.predict(x_test, num_samples=7)
+        assert len(_uncached_keys()) == 2
+        reg.predict(np.linspace(0.2, 9.8, 100), num_samples=7)
+        assert len(_uncached_keys()) == 3 and not _tail_keys()
+    finally:
+        graphs.clear_cache()
+
+
+@pytest.mark.cuda
+def test_cuda_uncached_tail_graph_is_evicted_by_the_byte_budget(monkeypatch):
+    # A real uncached tail capture pins bytes on the card; then, with each
+    # new entry's pinned bytes stated, it shares the budget with the steps
+    # and the cached tails: the least recently used goes, its graphs reset.
+    from gpar_torch.config import config
+    from gpar_torch.models import graphs
+
+    _need_cuda()
+    graphs.clear_cache()
+    reg, x, y, x_test = _served(True)
+    monkeypatch.setattr(config, "posterior_cache", False)
+    reg.predict(x_test, num_samples=5)
+    (key,) = _uncached_keys()
+    assert graphs._CACHE[key][2] > 0
+    graphs.clear_cache()
+    reserved, pending = [0], [0]
+    real = graphs.GraphedStep
+
+    def stated(step):
+        reserved[0] += pending[0]
+        return real(step)
+
+    monkeypatch.setattr(graphs, "GraphedStep", stated)
+    monkeypatch.setattr(graphs, "_reserved", lambda device: reserved[0])
+    monkeypatch.setattr(config, "graph_cache_max_bytes", 100)
+
+    def cached_predict(num_samples):
+        monkeypatch.setattr(config, "posterior_cache", True)
+        reg.predict(x_test, num_samples=num_samples)
+        monkeypatch.setattr(config, "posterior_cache", False)
+
+    try:
+        kinds = []
+        for nbytes, call in ((40, lambda: reg.fit(x, y, iters=3)),
+                             (50, lambda: reg.predict(x_test, num_samples=5)),
+                             (30, lambda: cached_predict(5)),
+                             (60, lambda: reg.predict(x_test, num_samples=7))):
+            pending[0] = nbytes
+            call()
+            kinds.append([(k[0] if k[0] in ("tail", "uncached_tail") else "step", e[2])
+                          for k, e in graphs._CACHE.items()])
+        assert kinds == [[("step", 40)], [("step", 40), ("uncached_tail", 50)],
+                         [("uncached_tail", 50), ("tail", 30)],
+                         [("tail", 30), ("uncached_tail", 60)]]
         assert graphs.cached_bytes() == 90
     finally:
         graphs.clear_cache()

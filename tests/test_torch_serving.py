@@ -3,8 +3,10 @@ on the CPU: the posterior-factor cache (``precompute``, the cached
 ``replace=True`` tail, the cached stack fed to the per-sample tail and to
 the posterior score) and when the cache engages; the body that the card
 replays as the cached tail's CUDA graph (``fused.CachedTailBody``), run
-eagerly with its one read and its repair, and the route that enters the
-graph (``graphs.graphed_tail``, stubbed here).
+eagerly with its one read and its repair, the body of the uncached
+tail's graph (``fused.UncachedTailBody``) likewise, and the routes that
+enter the two graphs (``graphs.graphed_tail``, ``graphs.graphed_uncached_tail``,
+stubbed here).
 
 The benchmark's configuration scaled down (p=3, n=40, 8 inducing points or
 none, NaNs in the later outputs), both ``replace`` modes, at the latents
@@ -301,7 +303,7 @@ def test_tail_body_run_eagerly_equals_the_cached_tail(latents, model, latent):
     for seed in (2, 3):
         _, args = _tail_args(rt, _data()[2], seed=seed)
         body.load(*args)
-        got = TF.run_cached_tail(body, TF.Eager(body))
+        got = TF.run_tail(body, TF.Eager(body))
         want = TF.make_scan_cached_tail(plan, latent, rows_traced=True)(*args)
         assert not body.tail()[2].any()  # no first rung failed: nothing repaired
         for a, b in zip(got, want):
@@ -322,17 +324,17 @@ def test_tail_repairs_only_the_layer_whose_first_rung_failed(latents, model, mon
     plan, args = _tail_args(rt, x_test, w=w)  # the factors at the usual jitter
     monkeypatch.setattr(tconfig, "epsilon", -1e-4)
     repaired = []
-    real = TF.CachedTailBody.repair
+    real = TF.CachedTailBody.repair_layer
 
     def counted(self, pi, *a):
         repaired.append(pi)
         return real(self, pi, *a)
 
-    monkeypatch.setattr(TF.CachedTailBody, "repair", counted)
+    monkeypatch.setattr(TF.CachedTailBody, "repair_layer", counted)
     body = TF.CachedTailBody(plan, False, *args)
     body.load(*args)
     assert body.tail()[2].nonzero().flatten().tolist() == [1]
-    got = TF.run_cached_tail(body, TF.Eager(body))
+    got = TF.run_tail(body, TF.Eager(body))
     want = TF.make_scan_cached_tail(plan, False, rows_traced=True)(*args)
     assert repaired == [1]
     assert torch.isfinite(got[0]).all()
@@ -340,33 +342,98 @@ def test_tail_repairs_only_the_layer_whose_first_rung_failed(latents, model, mon
         close(a, b, rtol=1e-12, atol=1e-12)
 
 
-@pytest.mark.parametrize("route, entered", [
-    ("cached-sparse", 2), ("cached-dense", 2), ("cpu", 0), ("uncached", 0), ("replace=False", 0),
-    ("mesh", 0),
+def _uncached_args(rt, x_test, seed=2, w=None):
+    """The uncached tail's arguments as the estimator's predict makes them:
+    the bucketed training inputs in place of the slot's factors."""
+    plan, (z, _, *rest) = _tail_args(rt, x_test, seed, w)
+    return plan, (z, rt._bucket_fit_inputs(plan)[0], *rest)
+
+
+def _with_x_ind(rt, args):
+    """The uncached tail's arguments with the inducing inputs after the
+    training inputs, as the body takes them."""
+    z, x_pad, *rest = args
+    return (z, x_pad, rt.x_ind, *rest)
+
+
+@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("latent", [False, True], ids=["observed", "latent"])
+def test_uncached_tail_body_run_eagerly_equals_the_predict_tail(latents, model, latent):
+    # The uncached graph's body (every training factor and sampling factor
+    # at its first rung), its one read, run eagerly: built from one call's
+    # arguments, then loaded with another's; the eager tail's bits.
+    rt = _port(latents, model, True)
+    plan, first = _uncached_args(rt, _data()[2], seed=1)
+    body = TF.UncachedTailBody(plan, latent, *_with_x_ind(rt, first))
+    for seed in (2, 3):
+        _, args = _uncached_args(rt, _data()[2], seed=seed)
+        body.load(*_with_x_ind(rt, args))
+        got = TF.run_tail(body, TF.Eager(body))
+        want = TF.make_scan_predict_tail(plan, rt.x_ind, latent, rows_traced=True)(*args)
+        assert body.tail()[2].tolist() == [0] * (P + 1)  # nothing failed: nothing run again
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_uncached_tail_runs_the_whole_eager_tail_where_a_first_rung_failed(latents, model,
+                                                                         monkeypatch):
+    # The cached tail's forced failure (layer 1's sampling factor, at the
+    # jitter -1e-4): the replay's draws are thrown away and the whole eager
+    # tail, every factorisation on the host ladder, gives the answer.
+    rt = _port(latents, model, True)
+    x_test = _data()[2]
+    x_test[:4] = x_test[0]
+    w = torch.ones(P, bucket_rows(NT), dtype=torch.float64)
+    w[1] = 1e30
+    plan, args = _uncached_args(rt, x_test, w=w)
+    monkeypatch.setattr(tconfig, "epsilon", -1e-4)
+    body = TF.UncachedTailBody(plan, False, *_with_x_ind(rt, args))
+    body.load(*_with_x_ind(rt, args))
+    assert body.tail()[2][1] != 0
+    repairs = []
+    monkeypatch.setattr(body, "repair", lambda *a, real=body.repair: repairs.append(1) or real(*a))
+    got = TF.run_tail(body, TF.Eager(body))
+    want = TF.make_scan_predict_tail(plan, rt.x_ind, False, rows_traced=True)(*args)
+    assert repairs == [1] and torch.isfinite(got[0]).all()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("route, cached, uncached", [
+    ("cached-sparse", 2, 0), ("cached-dense", 2, 0), ("cpu", 0, 0), ("uncached", 0, 2),
+    ("uncached-dense", 0, 2), ("replace=False", 0, 0), ("mesh", 0, 0),
 ])
-def test_tail_graph_is_entered_on_the_cached_route_alone(latents, route, entered, monkeypatch):
-    # A counting stub on the graph's entry, the device test made to say
-    # "card" (except on the cpu route): a cached replace=True predict and
-    # posterior sample with no mesh enter it; no other route does.
-    calls = []
+def test_tail_graphs_are_entered_on_the_card_replace_true_routes(latents, route, cached,
+                                                                 uncached, monkeypatch):
+    # Counting stubs on the two graphs' entries, the device test made to say
+    # "card" (except on the cpu route): a replace=True predict and posterior
+    # sample with no mesh enter the cached tail's graph from cached factors
+    # and the uncached tail's graph without them; no other route enters one.
+    calls = {"cached": [], "uncached": []}
 
     def stub(plan, latent, *args):
-        calls.append(latent)
+        calls["cached"].append(latent)
         return TF.make_scan_cached_tail(plan, latent, rows_traced=True)(*args)
 
+    def uncached_stub(plan, x_ind, latent, *args):
+        calls["uncached"].append(latent)
+        return TF.make_scan_predict_tail(plan, x_ind, latent, rows_traced=True)(*args)
+
     monkeypatch.setattr(TGr, "graphed_tail", stub)
+    monkeypatch.setattr(TGr, "graphed_uncached_tail", uncached_stub)
     if route != "cpu":
         monkeypatch.setattr(TGr, "on_card", lambda device: True)
-    if route == "uncached":
+    if route.startswith("uncached"):
         monkeypatch.setattr(tconfig, "posterior_cache", False)
-    rt = _port(latents, "dense" if route == "cached-dense" else "sparse", route != "replace=False")
+    rt = _port(latents, "dense" if route.endswith("dense") else "sparse", route != "replace=False")
     x_test = _data()[2]
     z = np.random.default_rng(1).standard_normal((P, S, NT))
     mesh = make_mesh(2, devices=[torch.device("cpu")] * 2) if route == "mesh" else None
     with gpar_torch.use_mesh(mesh, min_rows=8) if mesh else contextlib.nullcontext():
         pred = rt.predict(x_test, num_samples=S, normals=z)
         rt.sample(x_test, posterior=True, num_samples=S, latent=True, normals=z)
-    assert len(calls) == entered and calls == [False, True][:entered]
-    if entered:
+    assert calls == {"cached": [False, True][:cached], "uncached": [False, True][:uncached]}
+    if cached or uncached:
         monkeypatch.undo()
         close(rt.predict(x_test, num_samples=S, normals=z), pred, rtol=0)

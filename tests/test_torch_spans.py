@@ -7,9 +7,10 @@ points) under the profiler serves the CPU tests; a fit whose first jitter
 rung fails in some layers has a repair span for each layer run again, on
 the CPU and on the card.  The card tests check the
 graphed fit: a capture span on a graph-cache miss only, a launch span per
-graph replay, and no span among the card's operations; and the cached
-predict's tail graph: its capture, replay and repair spans inside
-``gpar.predict.tail``.  This file imports
+graph replay, and no span among the card's operations; and the tail
+graphs of the cached and the uncached predict: their capture, replay and
+repair spans inside ``gpar.predict.tail``, on the card and, with the
+graph stood in for by eager runs, on the CPU.  This file imports
 neither JAX nor ``gpar_tpu``, so on a card it runs as::
 
     python -m pytest --noconftest tests/test_torch_spans.py
@@ -282,15 +283,13 @@ def test_cuda_repair_spans_count_the_layers_run_again(jitter):
     _check_repair_spans(rows, rep, jitter is not None)
 
 
-@pytest.mark.cuda
-def test_cuda_tail_graph_spans_nest_inside_the_tail():
-    # Cached predicts on the card: a capture span on the tail graph's first
-    # predict alone, a replay span in each, a repair span for a layer whose
-    # first rung failed (duplicate test inputs, layer 1's noise weighted
-    # down to nothing, the jitter lowered to -1e-4: another key), all inside
-    # ``gpar.predict.tail``.
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the tail graph has no CPU mode)")
+def _tail_graph_spans(device, route):
+    """Three predicts of a fitted sparse model on ``route`` (``"cached"``
+    after ``precompute()``, or ``"uncached"`` with the factor cache off),
+    the second at the first's key, the third a forced failure (duplicate
+    test inputs, layer 1's noise weighted down to nothing, the jitter
+    lowered to -1e-4: another key): each predict's count of capture, replay
+    and repair spans, each span checked to lie inside ``gpar.predict.tail``."""
     import numpy as np
 
     import gpar_torch
@@ -300,22 +299,65 @@ def test_cuda_tail_graph_spans_nest_inside_the_tail():
     dup, w = x_test.copy(), np.ones((NT, P))
     dup[:4], w[:, 1] = dup[0], 1e30
     names = ("gpar.predict.capture", "gpar.predict.replay", "gpar.predict.repair")
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device == "cuda" else [])
     graphs.clear_cache()
-    eps, counts = gpar_torch.config.epsilon, []
+    eps, cache, counts = gpar_torch.config.epsilon, gpar_torch.config.posterior_cache, []
     try:
-        reg = GPARRegressor(**bench_kwargs(n_ind=8), device="cuda", dtype=torch.float64)
+        reg = GPARRegressor(**bench_kwargs(n_ind=8), device=device, dtype=torch.float64)
         reg.fit(x, y, iters=ITERS)
-        assert reg.precompute()
+        gpar_torch.config.posterior_cache = route == "cached"
+        assert reg.precompute() is (route == "cached")
         for xt, wt, jitter in ((x_test, None, eps), (x_test, None, eps), (dup, w, -1e-4)):
             gpar_torch.config.epsilon = jitter
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=activities) as prof:
                 reg.predict(xt, wt, num_samples=S)
-                torch.cuda.synchronize()
+                if device == "cuda":
+                    torch.cuda.synchronize()
             rows = _spans(prof)
             (_, a, b), = _named(rows, "gpar.predict.tail")
             assert all(a <= s and e <= b for n, s, e in rows if n in names)
             counts.append(tuple(len(_named(rows, n)) for n in names))
     finally:
-        gpar_torch.config.epsilon = eps
+        gpar_torch.config.epsilon, gpar_torch.config.posterior_cache = eps, cache
         graphs.clear_cache()
-    assert counts == [(1, 1, 0), (0, 1, 0), (1, 1, 1)]
+    return counts
+
+
+class _EagerGraphs:
+    """Stands in for ``graphs.GraphedStep`` off the card: the capture span
+    on a miss, then every body run eagerly."""
+
+    capture_s = 0.0
+
+    def __init__(self, step):
+        with spans.span(step.CAPTURE_SPAN):
+            self.run = lambda name: getattr(step, name)()
+
+    def __call__(self, name):
+        return self.run(name)
+
+
+@pytest.mark.parametrize("route", ["cached", "uncached"])
+def test_tail_graph_spans_nest_inside_the_tail(route, monkeypatch):
+    # The graph's route on the CPU, its capture and replay stood in for by
+    # eager runs: the cache, its keys, the one read and the repair as on
+    # the card; a repair span on the forced failure alone.
+    from gpar_torch.models import graphs
+
+    monkeypatch.setattr(graphs, "on_card", lambda device: True)
+    monkeypatch.setattr(graphs, "GraphedStep", _EagerGraphs)
+    monkeypatch.setattr(graphs, "_reserved", lambda device: 0)
+    monkeypatch.setattr(graphs, "_budget", lambda device: float("inf"))
+    assert _tail_graph_spans("cpu", route) == [(1, 1, 0), (0, 1, 0), (1, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["cached", "uncached"])
+def test_cuda_tail_graph_spans_nest_inside_the_tail(route):
+    # Predicts on the card: a capture span on the tail graph's first predict
+    # alone, a replay span in each, a repair span for the forced failure (a
+    # layer repaired on the cached route, the whole eager tail on the
+    # uncached one), all inside ``gpar.predict.tail``.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the tail graph has no CPU mode)")
+    assert _tail_graph_spans("cuda", route) == [(1, 1, 0), (0, 1, 0), (1, 1, 1)]
